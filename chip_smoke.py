@@ -117,11 +117,19 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def stft_cost(rows: int, length: int, n_fft: int = 512, hop: int = 256):
+    """(operations, bytes, DFT-product operations) of a centered real STFT
+    with magnitudes.  The first two are what the function needs: per frame
+    the window, one real FFT (2.5 n log2 n operations, half those of a
+    complex radix-2 FFT) and the magnitude; the signal read once, the
+    complex spectrum and the magnitude written once.  The third is the
+    512 x 257 cos/sin product that the ported kernel runs instead of an
+    FFT: the bound of that algorithm, not of the function."""
     n_freq = n_fft // 2 + 1
-    T = 1 + length // hop
-    flops = rows * T * (n_fft + 4 * n_fft * n_freq + 4 * n_freq)
-    nbytes = rows * length * 4 + (2 * n_freq + 1) * n_fft * 4 + rows * n_freq * T * 12
-    return flops, nbytes
+    frames = rows * (1 + length // hop)
+    flops = frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * n_freq)
+    dft_flops = frames * (n_fft + 4 * n_fft * n_freq + 4 * n_freq)
+    nbytes = rows * length * 4 + frames * n_freq * 12
+    return flops, nbytes, dft_flops
 
 
 def cov_cost(batch: int, D: int, F: int, T: int, chan: bool):
@@ -175,7 +183,7 @@ def plain_kernels():
     from disco_tpu_torch.ops import cov_ops, mwf_ops, stft_ops
 
     saved = (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel)
-    stft_ops.stft_kernel = stft_ops.stft_plain
+    stft_ops.stft_kernel = stft_ops.stft_matmul
     cov_ops.masked_cov_kernel = cov_ops.masked_covariances_folded
     mwf_ops.fused_mwf_kernel = mwf_ops.fused_mwf_plain
     try:
@@ -221,7 +229,7 @@ def phase2_kernels() -> SimpleNamespace:
     d.err = {}
 
     spec_k, mag_k = stft_ops.stft_kernel(d.x, with_mag=True)
-    spec_p, mag_p = stft_ops.stft_plain(d.x, with_mag=True)
+    spec_p, mag_p = stft_ops.stft_matmul(d.x, with_mag=True)
     torch.cuda.synchronize()
     r = max(rel_l2(spec_k, spec_p), rel_l2(mag_k, mag_p))
     d.err["stft"] = max(max_abs(spec_k, spec_p), max_abs(mag_k, mag_p))
@@ -326,17 +334,18 @@ def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
         return lambda: torch.einsum("wkft,kcft,kdft->wkfcd", w_st, yy, yy.conj())
 
     entries = []
-    fl, nbytes = stft_cost(rows.shape[0], d.L)
+    fl, nbytes, dft_fl = stft_cost(rows.shape[0], d.L)
     b_ms, b_by = bound(fl, nbytes)
     entries.append({
         "name": "stft", "route": "cuda", "source": "disco_tpu_torch/csrc/stft.cu",
         "replaces": "disco_tpu/ops/stft_ops.py:183", "launches": launches["stft"],
         "max_abs_err": d.err["stft"],
         "ms": time_ms(lambda: stft_ops.stft_kernel(d.x, with_mag=True), reps=20),
-        "plain_ms": time_ms(lambda: stft_ops.stft_plain(d.x, with_mag=True), reps=20),
+        "plain_ms": time_ms(lambda: stft_ops.stft_matmul(d.x, with_mag=True), reps=20),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.stft(rows, 512, 256, window=win, center=True,
                                                  pad_mode="reflect", return_complex=True), reps=20),
+        "dft_product_bound_ms": bound(dft_fl, nbytes)[0],
     })
     per = []  # covariances: step 1 (C=4) and step 2 (D=11) launches of one clip
     for label, yy in (("step1", d.Y), ("step2", d.in_y)):

@@ -20,7 +20,7 @@
 // worth of warps, so the kernel is latency-bound far above its bound.  The
 // design keeps each pencil in one thread's registers (templated on C = 4
 // and 11 with every loop unrolled on constant indices, a generic C <= 16
-// path in local memory); at C = 11 the ~700 live floats exceed the 255
+// path of runtime loops in local memory); at C = 11 the ~700 live floats exceed the 255
 // registers and spill to local memory (counts in PERF.md).  Blocks of 32
 // threads spread the few warps over as many SMs (and L1 caches for the
 // spills) as possible.
@@ -56,19 +56,20 @@ __global__ void __launch_bounds__(kThreads)
   float Mr[CM][CM], Mi[CM][CM];  // M = L^-1 B^H, then the eigenvectors V
   float inv[CM];                 // 1 / L[i][i]
 
+  // Every loop runs to C: a constant in the FIXED instances, where the
+  // loops unroll fully and the planes stay in registers; a runtime bound in
+  // the generic one, whose loops stay loops (a quick compile).
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-    for (int j = 0; j < CM; ++j) {
-      if (i < C && j < C) {
-        const float2 s = S[i * C + j];
-        Ar[i][j] = s.x;
-        Ai[i][j] = s.y;
-        if (j <= i) {
-          const float2 v = N[i * C + j];
-          Lr[i][j] = v.x;
-          Li[i][j] = v.y;
-        }
+    for (int j = 0; j < C; ++j) {
+      const float2 s = S[i * C + j];
+      Ar[i][j] = s.x;
+      Ai[i][j] = s.y;
+      if (j <= i) {
+        const float2 v = N[i * C + j];
+        Lr[i][j] = v.x;
+        Li[i][j] = v.y;
       }
     }
   }
@@ -76,21 +77,18 @@ __global__ void __launch_bounds__(kThreads)
   // -- joint scale normalization (filter-invariant)
   float tr = Lr[0][0];
 #pragma unroll
-  for (int c = 1; c < CM; ++c)
-    if (c < C) tr = tr + Lr[c][c];
+  for (int c = 1; c < C; ++c) tr = tr + Lr[c][c];
   tr = tr * (1.0f / C);
   const float scale = 1.0f / disco::max_keep_nan(tr, FLT_MIN);
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-    for (int j = 0; j < CM; ++j) {
-      if (i < C && j < C) {
-        Ar[i][j] = Ar[i][j] * scale;
-        Ai[i][j] = Ai[i][j] * scale;
-        if (j <= i) {
-          Lr[i][j] = Lr[i][j] * scale;
-          Li[i][j] = Li[i][j] * scale;
-        }
+    for (int j = 0; j < C; ++j) {
+      Ar[i][j] = Ar[i][j] * scale;
+      Ai[i][j] = Ai[i][j] * scale;
+      if (j <= i) {
+        Lr[i][j] = Lr[i][j] * scale;
+        Li[i][j] = Li[i][j] * scale;
       }
     }
   }
@@ -98,94 +96,79 @@ __global__ void __launch_bounds__(kThreads)
   // -- relative diagonal loading
   float tr2 = Lr[0][0];
 #pragma unroll
-  for (int c = 1; c < CM; ++c)
-    if (c < C) tr2 = tr2 + Lr[c][c];
+  for (int c = 1; c < C; ++c) tr2 = tr2 + Lr[c][c];
   const float load = prm.loading * (tr2 * (1.0f / C)) + FLT_MIN;
 
   // -- complex Cholesky in place (NaN for a non-PSD pencil via sqrtf)
 #pragma unroll
-  for (int j = 0; j < CM; ++j) {
-    if (j < C) {
-      float d = Lr[j][j] + load;
+  for (int j = 0; j < C; ++j) {
+    float d = Lr[j][j] + load;
 #pragma unroll
-      for (int k = 0; k < j; ++k) d = d - (Lr[j][k] * Lr[j][k] + Li[j][k] * Li[j][k]);
-      const float ljj = sqrtf(d);
-      const float iv = 1.0f / ljj;
-      Lr[j][j] = ljj;
-      Li[j][j] = 0.0f;
-      inv[j] = iv;
+    for (int k = 0; k < j; ++k) d = d - (Lr[j][k] * Lr[j][k] + Li[j][k] * Li[j][k]);
+    const float ljj = sqrtf(d);
+    const float iv = 1.0f / ljj;
+    Lr[j][j] = ljj;
+    Li[j][j] = 0.0f;
+    inv[j] = iv;
 #pragma unroll
-      for (int i = j + 1; i < CM; ++i) {
-        if (i < C) {
-          float ar = Lr[i][j], ai = Li[i][j];
+    for (int i = j + 1; i < C; ++i) {
+      float ar = Lr[i][j], ai = Li[i][j];
 #pragma unroll
-          for (int k = 0; k < j; ++k) {
-            // A[i][j] - sum_k L[i][k] conj(L[j][k])
-            ar = ar - (Lr[i][k] * Lr[j][k] + Li[i][k] * Li[j][k]);
-            ai = ai - (Li[i][k] * Lr[j][k] - Lr[i][k] * Li[j][k]);
-          }
-          Lr[i][j] = ar * iv;
-          Li[i][j] = ai * iv;
-        }
+      for (int k = 0; k < j; ++k) {
+        // A[i][j] - sum_k L[i][k] conj(L[j][k])
+        ar = ar - (Lr[i][k] * Lr[j][k] + Li[i][k] * Li[j][k]);
+        ai = ai - (Li[i][k] * Lr[j][k] - Lr[i][k] * Li[j][k]);
       }
+      Lr[i][j] = ar * iv;
+      Li[i][j] = ai * iv;
     }
   }
 
   // -- whitening: B = L^-1 Rss by rows (in place), M = L^-1 B^H
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
-    if (i < C) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        if (j < C) {
-          float rr = Ar[i][j], ri = Ai[i][j];
+    for (int j = 0; j < C; ++j) {
+      float rr = Ar[i][j], ri = Ai[i][j];
 #pragma unroll
-          for (int k = 0; k < i; ++k) {
-            const float lr = Lr[i][k], li = Li[i][k];
-            rr = rr - (lr * Ar[k][j] - li * Ai[k][j]);
-            ri = ri - (lr * Ai[k][j] + li * Ar[k][j]);
-          }
-          Ar[i][j] = rr * inv[i];
-          Ai[i][j] = ri * inv[i];
-        }
+      for (int k = 0; k < i; ++k) {
+        const float lr = Lr[i][k], li = Li[i][k];
+        rr = rr - (lr * Ar[k][j] - li * Ai[k][j]);
+        ri = ri - (lr * Ai[k][j] + li * Ar[k][j]);
       }
+      Ar[i][j] = rr * inv[i];
+      Ai[i][j] = ri * inv[i];
     }
   }
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
-    if (i < C) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        if (j < C) {
-          float rr = Ar[j][i], ri = -Ai[j][i];  // B^H[i][j] = conj(B[j][i])
+    for (int j = 0; j < C; ++j) {
+      float rr = Ar[j][i], ri = -Ai[j][i];  // B^H[i][j] = conj(B[j][i])
 #pragma unroll
-          for (int k = 0; k < i; ++k) {
-            rr = rr - (Lr[i][k] * Mr[k][j] - Li[i][k] * Mi[k][j]);
-            ri = ri - (Lr[i][k] * Mi[k][j] + Li[i][k] * Mr[k][j]);
-          }
-          Mr[i][j] = rr * inv[i];
-          Mi[i][j] = ri * inv[i];
-        }
+      for (int k = 0; k < i; ++k) {
+        rr = rr - (Lr[i][k] * Mr[k][j] - Li[i][k] * Mi[k][j]);
+        ri = ri - (Lr[i][k] * Mi[k][j] + Li[i][k] * Mr[k][j]);
       }
+      Mr[i][j] = rr * inv[i];
+      Mi[i][j] = ri * inv[i];
     }
   }
   // A = M^H re-hermitized: A[i][j] = (conj(M[j][i]) + M[i][j]) / 2
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-    for (int j = 0; j < CM; ++j) {
-      if (i < C && j < C) {
-        Ar[i][j] = 0.5f * (Mr[j][i] + Mr[i][j]);
-        Ai[i][j] = 0.5f * (Mi[i][j] - Mi[j][i]);
-      }
+    for (int j = 0; j < C; ++j) {
+      Ar[i][j] = 0.5f * (Mr[j][i] + Mr[i][j]);
+      Ai[i][j] = 0.5f * (Mi[i][j] - Mi[j][i]);
     }
   }
 
   // -- fixed-sweep cyclic Jacobi with eigenvector accumulation (V in M)
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
+  for (int i = 0; i < C; ++i) {
 #pragma unroll
-    for (int j = 0; j < CM; ++j) {
+    for (int j = 0; j < C; ++j) {
       Mr[i][j] = i == j ? 1.0f : 0.0f;
       Mi[i][j] = 0.0f;
     }
@@ -196,20 +179,18 @@ __global__ void __launch_bounds__(kThreads)
   float best = Ar[0][0];
   float ur[CM], ui[CM];
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
+  for (int i = 0; i < C; ++i) {
     ur[i] = Mr[i][0];
     ui[i] = Mi[i][0];
   }
 #pragma unroll
-  for (int c = 1; c < CM; ++c) {
-    if (c < C) {
-      const bool better = Ar[c][c] > best;
-      best = better ? Ar[c][c] : best;
+  for (int c = 1; c < C; ++c) {
+    const bool better = Ar[c][c] > best;
+    best = better ? Ar[c][c] : best;
 #pragma unroll
-      for (int i = 0; i < CM; ++i) {
-        ur[i] = better ? Mr[i][c] : ur[i];
-        ui[i] = better ? Mi[i][c] : ui[i];
-      }
+    for (int i = 0; i < C; ++i) {
+      ur[i] = better ? Mr[i][c] : ur[i];
+      ui[i] = better ? Mi[i][c] : ui[i];
     }
   }
   float lam1 = best < prm.lam_floor ? prm.lam_floor : best;  // NaN stays NaN
@@ -218,20 +199,16 @@ __global__ void __launch_bounds__(kThreads)
   // -- back-substitution q1 = L^-H u1 (L^H upper triangular)
   float qr[CM], qi[CM];
 #pragma unroll
-  for (int i = CM - 1; i >= 0; --i) {
-    if (i < C) {
-      float rr = ur[i], ri = ui[i];
+  for (int i = C - 1; i >= 0; --i) {
+    float rr = ur[i], ri = ui[i];
 #pragma unroll
-      for (int k = i + 1; k < CM; ++k) {
-        if (k < C) {
-          const float lr = Lr[k][i], li = -Li[k][i];  // L^H[i][k] = conj(L[k][i])
-          rr = rr - (lr * qr[k] - li * qi[k]);
-          ri = ri - (lr * qi[k] + li * qr[k]);
-        }
-      }
-      qr[i] = rr * inv[i];
-      qi[i] = ri * inv[i];
+    for (int k = i + 1; k < C; ++k) {
+      const float lr = Lr[k][i], li = -Li[k][i];  // L^H[i][k] = conj(L[k][i])
+      rr = rr - (lr * qr[k] - li * qi[k]);
+      ri = ri - (lr * qi[k] + li * qr[k]);
     }
+    qr[i] = rr * inv[i];
+    qi[i] = ri * inv[i];
   }
 
   // -- filter formation: (Q^-1)[0][0] = conj(u1[0] L00)
@@ -242,11 +219,9 @@ __global__ void __launch_bounds__(kThreads)
   float2* W = w + (size_t)idx * C;
   float2* T1 = t1 + (size_t)idx * C;
 #pragma unroll
-  for (int i = 0; i < CM; ++i) {
-    if (i < C) {
-      W[i] = make_float2(qr[i] * cr - qi[i] * ci, qr[i] * ci + qi[i] * cr);
-      T1[i] = make_float2(qr[i] * qinv_r - qi[i] * qinv_i, qr[i] * qinv_i + qi[i] * qinv_r);
-    }
+  for (int i = 0; i < C; ++i) {
+    W[i] = make_float2(qr[i] * cr - qi[i] * ci, qr[i] * ci + qi[i] * cr);
+    T1[i] = make_float2(qr[i] * qinv_r - qi[i] * qinv_i, qr[i] * qinv_i + qi[i] * qinv_r);
   }
 }
 

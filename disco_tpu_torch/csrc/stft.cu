@@ -13,8 +13,11 @@
 // (B, F, T) complex64 spec and float32 magnitude planes the caller uses.
 // Sums run over n in order with float32 FMAs: no TF32, no tensor cores.
 //
-// Bound on an H100: operations.  A 10 s, 96-row clip stack is ~31.6 GFLOP
-// against ~250 MB moved, ~0.47 ms at 67 TFLOP/s of non-tensor-core FP32.
+// Bound on an H100: bytes.  A 10 s, 96-row clip stack needs ~0.8 GFLOP by
+// FFT against ~247 MB moved (signal in, spectrum and magnitude out), ~0.074 ms
+// at 3.35 TB/s.  The DFT product this kernel runs instead is ~31.7 GFLOP,
+// ~0.47 ms at 67 TFLOP/s of non-tensor-core FP32: the algorithm, not the
+// memory, limits it, 6x above the function's bound however well it is tuned.
 // The design is a plain register-tiled product: a block computes 64 frames
 // x 32 bins, staging 32 windowed samples of its 64 frames and 32 rows of
 // both tables in shared memory per step; each of 128 threads keeps 4 frames

@@ -6,8 +6,8 @@ ISTFT — counterpart of ``disco_tpu/ops/stft_ops.py``.
   periodic Hann window, the 512x257 cos/sin DFT products and the optional
   magnitude in one launch, written straight into the (B, F, T) complex64
   spec and float32 magnitude planes.  Reflect padding stays here in the
-  wrapper.  On a CPU tensor it runs :func:`stft_plain`.
-* :func:`stft_matmul` / :func:`stft_plain` — the plain version: the framed
+  wrapper.  On a CPU tensor it runs :func:`stft_matmul`.
+* :func:`stft_matmul` — the plain version: the framed
   signal times the same DFT tables with ``torch.matmul`` in true float32
   (TF32 is off package-wide).
 * :func:`stft_with_mag` / :func:`stft_fused` — the ``impl`` seams of the
@@ -77,7 +77,7 @@ def _padded_rows(x: torch.Tensor, n_fft: int):
     return F.pad(x.reshape(-1, L), (pad, pad), mode="reflect"), bs
 
 
-def stft_plain(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
+def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
     """The plain version of :func:`stft_kernel`: frames (``unfold`` of the
     reflect-padded rows) times the window, times the DFT tables in float32;
     ``mag = sqrt(re^2 + im^2)`` from the same products."""
@@ -93,21 +93,15 @@ def stft_plain(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: 
     return spec, torch.sqrt(re * re + im * im).reshape(shape)
 
 
-def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP) -> torch.Tensor:
-    """Centered STFT as framed products against the DFT tables (the plain
-    spec-only version; same layout as ``core.dsp.stft``)."""
-    return stft_plain(x, n_fft, hop)
-
-
 def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
     """The STFT kernel's wrapper (port of ``stft_pallas``): ``x``
     (..., L) float32 -> spec (..., F, T) complex64 [, mag (..., F, T)].
 
     A CUDA tensor launches ``csrc/stft.cu`` (and counts the launch in
-    ``stft_kernel.launches``); a CPU tensor runs :func:`stft_plain`.
+    ``stft_kernel.launches``); a CPU tensor runs :func:`stft_matmul`.
     """
     if x.device.type == "cpu":
-        return stft_plain(x, n_fft, hop, with_mag)
+        return stft_matmul(x, n_fft, hop, with_mag)
     _require_cuda_f32(x, "stft_kernel")
     xp, bs = _padded_rows(x, n_fft)
     xp = xp.contiguous()
@@ -145,7 +139,7 @@ def stft_with_mag(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
     one pass — the analysis stage of the enhancement path (the y/s/n
     streams stack on a leading axis and transform together)."""
     resolve_precision(precision)
-    check_impl(impl, x, "stft_plain")
+    check_impl(impl, x, "stft_matmul")
     return stft_kernel(x, n_fft, hop, with_mag=True)
 
 

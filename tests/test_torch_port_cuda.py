@@ -44,7 +44,7 @@ def test_stft_kernel(cuda, rng, with_mag):
     x = torch.from_numpy(rng.standard_normal((5, 12345)).astype(np.float32)).to(cuda)
     before = stft_ops.stft_kernel.launches
     got = stft_ops.stft_kernel(x, with_mag=with_mag)
-    want = stft_ops.stft_plain(x, with_mag=with_mag)
+    want = stft_ops.stft_matmul(x, with_mag=with_mag)
     torch.cuda.synchronize()
     assert stft_ops.stft_kernel.launches == before + 1
     for a, b in zip(got if with_mag else (got,), want if with_mag else (want,)):
@@ -88,7 +88,7 @@ def test_plain_versions_never_run_on_card_tensors(cuda):
     from disco_tpu_torch.beam.filters import rank1_gevd
     from disco_tpu_torch.ops import cov_ops, stft_ops
 
-    with pytest.raises(ValueError, match="stft_plain"):
+    with pytest.raises(ValueError, match="stft_matmul"):
         stft_ops.stft_with_mag(torch.zeros(2, 4000, device=cuda), impl="xla")
     with pytest.raises(ValueError, match="masked_covariances_folded"):
         cov_ops.masked_covariances_fused(torch.zeros(1, 2, 257, 8, dtype=torch.complex64,
