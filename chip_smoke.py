@@ -9,23 +9,39 @@ Run from the root of a checkout, with no arguments::
 Phases (any failure exits nonzero; nothing is caught and turned into a
 pass):
 
-1. The card's name and power limit (``nvidia-smi``); the hand-written
+1. The card's name and power limit (``nvidia-smi``); the four hand-written
    kernels are built from ``disco_tpu_torch/csrc`` into ``build/kernels/``
-   and their ``-Xptxas -v`` register/spill counts printed.
+   (one ``nvcc`` per source, all started together) and their build
+   seconds and ``-Xptxas -v`` register/spill counts printed.
 2. Every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (K=8 nodes, C=4 mics, 10 s at 16 kHz).
-3. The main path — ``tango_clip_fused(y, s, n, solver='fused')`` on the
-   K=8 x C=4 x 10 s scene — with every launch counter set to 0 before and
-   read after (1 STFT, 2 covariance and 2 fused-solve launches); the output
-   is finite, within 1e-4 of the output scale of the same clip run with
-   the plain versions on the card, and improves SI-SDR at node 0 by more
-   than 3 dB over the noisy reference mic.
-4. CUDA-event times: the path on a 16-clip batch, and per kernel the
-   kernel, its plain version and (where one exists) one PyTorch library
-   call computing the same function, beside the bound from this run's
-   shapes and the H100 SXM data-sheet peaks.
-5. Where one 16-clip path call spends its device time, by kernel
-   (``torch.profiler``), and the device's busy share of its wall time.
+   shapes the main paths give it (K=8 nodes, C=4 mics, 10 s at 16 kHz):
+   the eigensolver on the whitened step-1 (C=4) and step-2 (C=11)
+   matrices of the full-clip streaming run, on its generic path
+   (C = 1, 2, 7, 16), a ragged batch and a NaN matrix.
+3. The offline path — ``tango_clip_fused(y, s, n, solver='fused')`` —
+   with every launch counter set to 0 before and read after (1 STFT, 2
+   covariance, 2 fused-solve launches); the output is finite, within 1e-4
+   of the output scale of the same clip run with the plain versions on
+   the card, and improves SI-SDR at node 0 by more than 3 dB over the
+   noisy reference mic.
+4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
+   through ``streaming_clip_fused`` with the state carried (1 STFT and
+   2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
+   full 626-frame clip (2 eigensolver launches), each with the counters
+   set to 0 before and read after; ``streaming_tango_scan`` bit-identical
+   to ``per_block_reference``; windows 2-9 through the plain versions
+   from the state after window 1 within 1e-4 rel-l2 and 0.1 dB SI-SDR of
+   the kernels' windows; SI-SDR at node 0 of the full-clip stream more
+   than 3 dB above the noisy reference mic after the recursion's first
+   three seconds.
+5. CUDA-event times: the offline path on a 16-clip batch, the streaming
+   window's latency, and per kernel the kernel, its plain version and
+   (where one exists) one PyTorch library call computing the same
+   function, beside the bound from this run's shapes and the H100 SXM
+   data-sheet peaks.
+6. Where one 16-clip offline call and one streaming window spend their
+   device time, by kernel (``torch.profiler``), and the device's busy
+   share of their wall time.
 
 The last two lines of standard output are one ``{"kernels": [...]}``
 object and ``{"ok": true, "device": {...}}``.
@@ -50,7 +66,12 @@ NOISE_SCALE = 0.5
 BATCH = 16               # clips per timed batch
 PEAK_FP32 = 67e12        # H100 SXM, FP32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth (data sheet)
-TOL = {"stft": 1e-5, "masked_cov": 1e-5, "fused_mwf": 1e-5, "clip": 1e-4, "sdr_gain_db": 3.0}
+TOL = {"stft": 1e-5, "masked_cov": 1e-5, "fused_mwf": 1e-5, "eigh": 1e-5, "clip": 1e-4,
+       "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0}
+LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
+N_WINDOWS = 9
+BLOCKS_PER_DISPATCH = 16
+STREAM_SDR_FROM_S = 3.0  # the full-clip stream's SI-SDR is read after this many seconds
 
 
 def scene(n_nodes, n_mics, length, seed=0, noise_scale=0.8):
@@ -154,14 +175,24 @@ def mwf_cost(n: int, C: int, sweeps: int):
     return n * f, nbytes
 
 
+def eigh_cost(n: int, C: int, sweeps: int, complex_in: bool = True):
+    """(operations, bytes) of ``n`` fixed-sweep Jacobi eigensolves: 48 C + 20
+    float operations per rotation (the rotation's own ~20, then 16 per
+    element of two rows, two columns and two V columns); each matrix read
+    once, its diagonal and V written once."""
+    flops = n * sweeps * (C * (C - 1) // 2) * (48 * C + 20)
+    width = 8 if complex_in else 4
+    return flops, n * (C * C * width + C * 4 + C * C * width)
+
+
 def ptxas_summary(log: str) -> list[dict]:
     """Registers and spill bytes per compiled kernel from ``-Xptxas -v``."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            short = re.search(r"(stft_kernel|masked_cov_kernelILb[01]E|fused_mwf_kernelILi\d+ELb[01]E)",
-                              m.group(1))
+            short = re.search(r"(stft_kernel|masked_cov_kernelILb[01]E|fused_mwf_kernelILi\d+ELb[01]E"
+                              r"|eigh_jacobi_kernelILi\d+ELb[01]E)", m.group(1))
             name = short.group(1) if short else m.group(1)
             out.append({"kernel": name})
             continue
@@ -178,18 +209,64 @@ def ptxas_summary(log: str) -> list[dict]:
 @contextmanager
 def plain_kernels():
     """Swap each kernel wrapper for its plain version, so the same path
-    runs the plain PyTorch versions on the card (the reference run of
-    phase 3)."""
-    from disco_tpu_torch.ops import cov_ops, mwf_ops, stft_ops
+    runs the plain PyTorch versions on the card (the reference runs of
+    phases 3 and 4)."""
+    from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
 
-    saved = (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel)
+    saved = (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel,
+             eigh_ops.eigh_jacobi_kernel)
     stft_ops.stft_kernel = stft_ops.stft_matmul
     cov_ops.masked_cov_kernel = cov_ops.masked_covariances_folded
     mwf_ops.fused_mwf_kernel = mwf_ops.fused_mwf_plain
+    eigh_ops.eigh_jacobi_kernel = eigh_ops.eigh_jacobi_unsorted
     try:
         yield
     finally:
-        stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel = saved
+        (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel,
+         eigh_ops.eigh_jacobi_kernel) = saved
+
+
+@contextmanager
+def recorded_eigh_inputs():
+    """The matrices each eigensolver launch is given, in launch order."""
+    from disco_tpu_torch.ops import eigh_ops
+
+    kernel, seen = eigh_ops.eigh_jacobi_kernel, []
+
+    def record(A, sweeps=None):
+        seen.append(A)
+        return kernel(A, sweeps)
+
+    record.launches = 0  # the wrapper counts on the name it is bound to
+    eigh_ops.eigh_jacobi_kernel = record
+    try:
+        yield seen
+    finally:
+        eigh_ops.eigh_jacobi_kernel = kernel
+
+
+def kernel_wrappers() -> dict:
+    """name -> the wrapper whose ``launches`` counts the kernel."""
+    from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
+
+    return {"stft": stft_ops.stft_kernel, "masked_cov": cov_ops.masked_cov_kernel,
+            "fused_mwf": mwf_ops.fused_mwf_kernel, "eigh_jacobi": eigh_ops.eigh_jacobi_kernel}
+
+
+@contextmanager
+def counted(label: str, expected: dict, out: dict):
+    """Set every launch counter to 0, run the body, read the counters into
+    ``out[label]`` and require ``expected``."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    yield
+    import torch
+
+    torch.cuda.synchronize()
+    out[label] = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"launches, {label}: {out[label]}", flush=True)
+    require(out[label] == expected, (label, out[label], expected))
 
 
 def require(ok: bool, what) -> None:
@@ -209,7 +286,10 @@ def phase1_build() -> str:
     _build.load()
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({_build.build_dir()})", flush=True)
-    print("ptxas: " + json.dumps(ptxas_summary(_build.ptxas_log())), flush=True)
+    log = _build.ptxas_log()
+    print("build seconds: " + json.dumps({m.group(1): float(m.group(2)) for m in re.finditer(
+        r"== (\S+) \(finished within ([0-9.]+) s of the start\)", log)}), flush=True)
+    print("ptxas: " + json.dumps(ptxas_summary(log)), flush=True)
     return smi
 
 
@@ -271,26 +351,64 @@ def phase2_kernels() -> SimpleNamespace:
         print(f"phase 2: fused_mwf {label} {tuple(Rss.shape)} rel-l2 {r:.3e} max-abs {e:.3e} "
               f"finite {finite}", flush=True)
         require(finite and r <= TOL["fused_mwf"], ("fused_mwf", label, r))
+    phase2_eigh(d)
     return d
 
 
-def phase3_main_path(d: SimpleNamespace) -> dict:
-    """The main path through the entry point, with the launch counters;
-    returns the launches per clip."""
+def phase2_eigh(d: SimpleNamespace) -> None:
+    """The eigensolver kernel against its plain version: on the whitened
+    matrices of the full-clip streaming run (recorded as the path hands
+    them to the kernel), on the generic path, a ragged batch and a NaN
+    matrix.  Eigenvalues and eigenvectors are compared as they come."""
+    import torch
+
+    from disco_tpu_torch.enhance.streaming import streaming_tango
+    from disco_tpu_torch.ops import eigh_ops
+
+    with recorded_eigh_inputs() as seen:
+        streaming_tango(d.Y, d.m, d.m, solver="jacobi-pallas")
+    require(len(seen) == 2, ("eigensolver launches of one streaming_tango call", len(seen)))
+    d.whitened = {"step1": seen[0], "step2": seen[1]}
+    D = seen[1].shape[-1]
+    flat2 = seen[1].reshape(-1, D, D)
+    gen = torch.Generator(device=d.dev).manual_seed(0)
+    X = torch.randn((20000, 16, 16), dtype=torch.complex64, device=d.dev, generator=gen)
+    C1 = seen[0].shape[-1]
+    ragged = seen[0].reshape(-1, C1, C1)[:130].clone()
+    ragged[7] = float("nan")
+    cases = [("step1", seen[0]), ("step2", seen[1])]
+    cases += [(f"generic-C{c}", flat2[:20000, :c, :c].contiguous()) for c in (1, 2, 7)]
+    cases += [("generic-C16", X @ X.mH), ("ragged-130-with-NaN", ragged)]
+    d.err["eigh_jacobi"] = 0.0
+    for label, A in cases:
+        c = A.shape[-1]
+        lk, Vk = eigh_ops.eigh_jacobi_kernel(A)
+        lp, Vp = eigh_ops.eigh_jacobi_unsorted(A)
+        torch.cuda.synchronize()
+        lk, lp = lk.reshape(-1, c), lp.reshape(-1, c)
+        Vk, Vp = Vk.reshape(-1, c, c), Vp.reshape(-1, c, c)
+        ok = torch.isfinite(A.reshape(-1, c * c)).all(-1)
+        r_lam, r_V = rel_l2(lk[ok], lp[ok]), rel_l2(Vk[ok], Vp[ok])
+        e = max(max_abs(lk[ok], lp[ok]), max_abs(Vk[ok], Vp[ok]))
+        d.err["eigh_jacobi"] = max(d.err["eigh_jacobi"], e)
+        bitwise = bool(torch.equal(lk.nan_to_num(), lp.nan_to_num())
+                       and torch.equal(Vk.nan_to_num(), Vp.nan_to_num()))
+        nan_pairs = bool(torch.isnan(lk[~ok]).all() and (c == 1 or torch.isnan(Vk[~ok]).all()))
+        print(f"phase 2: eigh_jacobi {label} {tuple(A.shape)} eigenvalues rel-l2 {r_lam:.3e}, "
+              f"eigenvectors rel-l2 {r_V:.3e}, max-abs {e:.3e}, bit-identical {bitwise}, "
+              f"{int((~ok).sum())} non-finite matrices -> NaN pairs {nan_pairs}", flush=True)
+        require(r_lam <= TOL["eigh"] and r_V <= TOL["eigh"] and nan_pairs, ("eigh", label))
+
+
+def phase3_offline_path(d: SimpleNamespace) -> None:
+    """The offline path through its entry point, with the launch counters."""
     import torch
 
     from disco_tpu_torch.enhance.fused import tango_clip_fused
-    from disco_tpu_torch.ops import cov_ops, mwf_ops, stft_ops
 
-    wrappers = {"stft": stft_ops.stft_kernel, "masked_cov": cov_ops.masked_cov_kernel,
-                "fused_mwf": mwf_ops.fused_mwf_kernel}
-    for fn in wrappers.values():
-        fn.launches = 0
-    out = tango_clip_fused(d.y, d.s, d.n, solver="fused")
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    print(f"phase 3: launches per clip {launches}", flush=True)
-    require(launches == {"stft": 1, "masked_cov": 2, "fused_mwf": 2}, launches)
+    with counted("offline clip", {"stft": 1, "masked_cov": 2, "fused_mwf": 2, "eigh_jacobi": 0},
+                 d.launches):
+        out = tango_clip_fused(d.y, d.s, d.n, solver="fused")
     require(out.shape == (K, d.L) and bool(torch.isfinite(out).all()),
             "non-finite or misshapen output")
     with plain_kernels():
@@ -303,16 +421,126 @@ def phase3_main_path(d: SimpleNamespace) -> dict:
           f"{sdr_in:.2f} -> {sdr_out:.2f} dB (gain {sdr_out - sdr_in:.2f})", flush=True)
     require(clip_err <= TOL["clip"], ("clip", clip_err))
     require(sdr_out - sdr_in > TOL["sdr_gain_db"], ("sdr gain", sdr_out - sdr_in))
-    return launches
 
 
-def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
-    """CUDA-event times of the path and of each kernel, its plain version
+def stream_windows(d: SimpleNamespace, first: int, last: int, state):
+    """Windows ``first`` .. ``last - 1`` of the clip through
+    ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
+    output, the state after each window)."""
+    import torch
+
+    from disco_tpu_torch.enhance.fused import streaming_clip_fused
+
+    outs, states = [], []
+    for w in range(first, last):
+        sl = slice(w * LW, (w + 1) * LW)
+        o = streaming_clip_fused(d.y[..., sl], d.s[..., sl], d.n[..., sl], state=state,
+                                 solver="jacobi-pallas", blocks_per_dispatch=BLOCKS_PER_DISPATCH)
+        state = o["state"]
+        outs.append(o["yf"])
+        states.append(state)
+    return torch.cat(outs, dim=-1), states
+
+
+def phase4_streaming_path(d: SimpleNamespace) -> None:
+    """The streaming path with the eigensolver kernel: the windows through
+    ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
+    each with the launch counters; scan against the per-block oracle, bit
+    for bit; the windows after the first against the plain versions from
+    a shared state; SI-SDR."""
+    import torch
+
+    from disco_tpu_torch.core.dsp import istft
+    from disco_tpu_torch.enhance.stream_check import per_block_reference
+    from disco_tpu_torch.enhance.streaming import (
+        initial_stream_state,
+        streaming_tango,
+        streaming_tango_scan,
+    )
+
+    per_window = 2 * (1 + LW // 256) // 4
+    with counted("streaming windows", {"stft": N_WINDOWS, "masked_cov": 0, "fused_mwf": 0,
+                                       "eigh_jacobi": N_WINDOWS * per_window}, d.launches):
+        yw, states = stream_windows(d, 0, N_WINDOWS, None)
+    Lc = N_WINDOWS * LW
+    require(yw.shape == (K, Lc) and bool(torch.isfinite(yw).all()),
+            "non-finite or misshapen streaming output")
+    d.stream_state_1 = states[0]
+    with counted("streaming_tango full clip", {"stft": 0, "masked_cov": 0, "fused_mwf": 0,
+                                               "eigh_jacobi": 2}, d.launches):
+        full = streaming_tango(d.Y, d.m, d.m, solver="jacobi-pallas")
+    yfull = istft(full["yf"], length=d.L)
+    require(bool(torch.isfinite(yfull).all()), "non-finite full-clip stream")
+
+    # scanned super ticks == the per-block loop, bit for bit, on the card
+    Ys, ms = d.Y[..., :64], d.m[..., :64]
+    F = d.Y.shape[-2]
+    ref, ref_state = per_block_reference(Ys, ms, block=8, update_every=4,
+                                         state=initial_stream_state(K, C, F),
+                                         solver="jacobi-pallas")
+    st, parts = initial_stream_state(K, C, F), []
+    for w in range(2):
+        sl = slice(32 * w, 32 * (w + 1))
+        o = streaming_tango_scan(Ys[..., sl], ms[..., sl], ms[..., sl], state=st,
+                                 z_avail=torch.ones((K, 8)), blocks_per_dispatch=4,
+                                 solver="jacobi-pallas")
+        st = o["state"]
+        parts.append(o["yf"])
+    same_out = bool(torch.equal(torch.cat(parts, dim=-1), ref))
+    same_state = all(torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(ref_state)))
+    print(f"phase 4: streaming_tango_scan vs per_block_reference, 64 frames in super ticks of "
+          f"4 blocks: output bit-identical {same_out}, state bit-identical {same_state}",
+          flush=True)
+    require(same_out and same_state, "scan vs per-block bit-exactness")
+
+    # the plain versions from the state after the first window
+    with plain_kernels():
+        yp, _ = stream_windows(d, 1, N_WINDOWS, states[0])
+        yc, _ = stream_windows(d, 0, N_WINDOWS, None)
+    torch.cuda.synchronize()
+    yk = yw[:, LW:]
+    err = rel_l2(yk, yp)
+    sdr = {}
+    for label, out in (("kernels", yk), ("plain", yp)):
+        sdr[label] = si_sdr(d.s_np[0, 0, LW:Lc], out[0].cpu().numpy())
+    cold = [rel_l2(yw[:, w * LW:(w + 1) * LW], yc[:, w * LW:(w + 1) * LW])
+            for w in range(N_WINDOWS)]
+    print(f"phase 4: windows 2-{N_WINDOWS} from the state after window 1, kernels vs plain "
+          f"versions: rel-l2 {err:.3e}, SI-SDR node 0 {sdr['kernels']:.4f} vs "
+          f"{sdr['plain']:.4f} dB", flush=True)
+    print("phase 4: every window from the warm start, kernels vs plain versions, rel-l2 per "
+          "window: " + json.dumps(cold), flush=True)
+    require(err <= TOL["stream"], ("stream vs plain", err))
+    require(abs(sdr["kernels"] - sdr["plain"]) <= TOL["stream_sdr_db"], ("stream sdr", sdr))
+
+    def gain(out, start):
+        lo = int(start * FS)
+        return (si_sdr(d.s_np[0, 0, lo:len(out)], out[lo:])
+                - si_sdr(d.s_np[0, 0, lo:len(out)], d.y_np[0, 0, lo:len(out)]))
+
+    yw0, yf0 = yw[0].cpu().numpy(), yfull[0].cpu().numpy()
+    gains = {"windows": {t: gain(yw0, t) for t in (1.0, 2.0, 3.0)},
+             "full clip": {t: gain(yf0, t) for t in (1.0, 2.0, 3.0)}}
+    print("phase 4: SI-SDR gain at node 0 over the noisy reference mic, after t seconds: "
+          + json.dumps(gains), flush=True)
+    require(gains["full clip"][STREAM_SDR_FROM_S] > TOL["sdr_gain_db"], ("stream sdr gain", gains))
+
+
+def _leaves(state):
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in _leaves(state[k])]
+    if isinstance(state, (tuple, list)):
+        return [x for v in state for x in _leaves(v)]
+    return [state]
+
+
+def phase5_times(d: SimpleNamespace) -> list[dict]:
+    """CUDA-event times of the paths and of each kernel, its plain version
     and its library call, with the bound of this run's shapes."""
     import torch
 
     from disco_tpu_torch.enhance.fused import tango_clip_fused
-    from disco_tpu_torch.ops import cov_ops, mwf_ops, stft_ops
+    from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
     from disco_tpu_torch.ops.eigh_ops import default_sweeps
 
     yb, sb, nb = (a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
@@ -321,9 +549,23 @@ def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
                           warmup=0) for _ in range(5))
     path_ms = runs[2]
     audio_s = BATCH * K * DUR_S
-    print(f"phase 4: path {BATCH} clips {path_ms} ms (median of {runs}) = "
+    print(f"phase 5: offline path {BATCH} clips {path_ms} ms (median of {runs}) = "
           f"{audio_s / (path_ms / 1e3)} enhanced audio-s per s", flush=True)
     del yb, sb, nb
+
+    # streaming: windows 2..9 again from the state after window 1, each
+    # timed on the host clock to its synchronize (the latency a caller sees)
+    state, lat = d.stream_state_1, []
+    for w in range(1, N_WINDOWS):
+        t0 = time.perf_counter()
+        _, (state,) = stream_windows(d, w, w + 1, state)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    med = sorted(lat)[len(lat) // 2]
+    print(f"phase 5: streaming window ({LW} samples = {LW / FS} s, {BLOCKS_PER_DISPATCH} refresh "
+          f"blocks) latency {med} ms (median of {lat}); per refresh block "
+          f"{med / BLOCKS_PER_DISPATCH} ms; {LW / FS / (med / 1e3)} stream-seconds per s "
+          f"({K * LW / FS / (med / 1e3)} node-audio-seconds per s)", flush=True)
 
     F, T = d.Y.shape[-2], d.Y.shape[-1]
     win = stft_ops.hann_periodic(512, device=d.dev)
@@ -338,7 +580,7 @@ def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
     b_ms, b_by = bound(fl, nbytes)
     entries.append({
         "name": "stft", "route": "cuda", "source": "disco_tpu_torch/csrc/stft.cu",
-        "replaces": "disco_tpu/ops/stft_ops.py:183", "launches": launches["stft"],
+        "replaces": "disco_tpu/ops/stft_ops.py:183", **_launches(d, "stft"),
         "max_abs_err": d.err["stft"],
         "ms": time_ms(lambda: stft_ops.stft_kernel(d.x, with_mag=True), reps=20),
         "plain_ms": time_ms(lambda: stft_ops.stft_matmul(d.x, with_mag=True), reps=20),
@@ -357,8 +599,8 @@ def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
             "library_ms": time_ms(lib_cov(yy), reps=20),
             "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
         })
-    entries.append(_summed("masked_cov", "disco_tpu_torch/csrc/cov.cu",
-                           "disco_tpu/ops/cov_ops.py:233", launches, d.err, per))
+    entries.append(_summed(d, "masked_cov", "disco_tpu_torch/csrc/cov.cu",
+                           "disco_tpu/ops/cov_ops.py:233", per))
     per = []  # fused solve: step 1 (C=4) and step 2 (D=11) launches of one clip
     for label in ("step1", "step2"):
         Rss, Rnn = d.pencils[label]
@@ -370,30 +612,67 @@ def phase4_times(d: SimpleNamespace, launches: dict) -> list[dict]:
             "plain_ms": time_ms(lambda: mwf_ops.fused_mwf_plain(Rss, Rnn), reps=2, warmup=1),
             "library_ms": None, "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
         })
-    entries.append(_summed("fused_mwf", "disco_tpu_torch/csrc/mwf.cu",
-                           "disco_tpu/ops/mwf_ops.py:434", launches, d.err, per))
+    entries.append(_summed(d, "fused_mwf", "disco_tpu_torch/csrc/mwf.cu",
+                           "disco_tpu/ops/mwf_ops.py:434", per))
+    per = []  # eigensolver: step 1 (C=4) and step 2 (D=11) launches of one full-clip stream
+    for label in ("step1", "step2"):
+        A = d.whitened[label]
+        D = A.shape[-1]
+        n = A[..., 0, 0].numel()
+        fl, nbytes = eigh_cost(n, D, default_sweeps(D))
+        lib_ms, lib_chunk = library_eigh_ms(A)
+        per.append({
+            "shape": f"{label} {tuple(A.shape)}",
+            "ms": time_ms(lambda: eigh_ops.eigh_jacobi_kernel(A), reps=10),
+            "plain_ms": time_ms(lambda: eigh_ops.eigh_jacobi_unsorted(A), reps=1, warmup=1),
+            "library_ms": lib_ms, "library_matrices_per_call": lib_chunk,
+            "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
+        })
+    entries.append(_summed(d, "eigh_jacobi", "disco_tpu_torch/csrc/eigh.cu",
+                           "disco_tpu/ops/eigh_ops.py:341", per))
     for e in entries:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             require(math.isfinite(e[key]), (e["name"], key))
     return entries
 
 
-def phase5_breakdown(d: SimpleNamespace) -> None:
-    """Where the time of one 16-clip path call goes: device time by kernel
-    name (``torch.profiler``) and the device's busy share of the call's
-    wall time."""
+def library_eigh_ms(A) -> tuple[float, int]:
+    """CUDA-event time of ``torch.linalg.eigh`` (cuSOLVER) over the same
+    batch, and the matrices per call.  cuSOLVER's batched eigensolver may
+    refuse a batch this large; the batch is then halved until it takes it,
+    and the time is that of the calls over the whole batch.  Non-finite
+    matrices, if any, are replaced by the identity: it takes no NaN."""
+    import torch
+
+    D = A.shape[-1]
+    flat = A.reshape(-1, D, D)
+    finite = torch.isfinite(flat).flatten(-2).all(-1)[:, None, None]
+    flat = torch.where(finite, flat, torch.eye(D, dtype=A.dtype, device=A.device))
+    chunk = flat.shape[0]
+    while True:
+        try:
+            torch.linalg.eigh(flat[:chunk])
+            torch.cuda.synchronize()
+            break
+        except torch.linalg.LinAlgError as err:
+            require(chunk > 1, ("torch.linalg.eigh", str(err)[:200]))
+            chunk = (chunk + 1) // 2
+    parts = flat.split(chunk)
+    return time_ms(lambda: [torch.linalg.eigh(x) for x in parts], reps=3, warmup=1), chunk
+
+
+def profiled(label: str, fn) -> None:
+    """Device time by kernel name (``torch.profiler``) of one call of
+    ``fn``, and the device's busy share of the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from disco_tpu_torch.enhance.fused import tango_clip_fused
-
-    yb, sb, nb = (a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
-    tango_clip_fused(yb, sb, nb, solver="fused")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tango_clip_fused(yb, sb, nb, solver="fused")
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -406,21 +685,40 @@ def phase5_breakdown(d: SimpleNamespace) -> None:
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     if not rows:
-        print("phase 5: the profiler recorded no device time: breakdown not measured", flush=True)
+        print(f"phase 6: {label}: the profiler recorded no device time: breakdown not measured",
+              flush=True)
         return
-    print(f"phase 5: one {BATCH}-clip path call under the profiler: wall {wall_ms} ms, device "
-          f"busy {busy} ms ({busy / wall_ms} of the wall time)", flush=True)
+    print(f"phase 6: {label} under the profiler: wall {wall_ms} ms, device busy {busy} ms "
+          f"({busy / wall_ms} of the wall time)", flush=True)
     for r in rows[:14]:
-        print("phase 5: " + json.dumps(r), flush=True)
+        print(f"phase 6: {label}: " + json.dumps(r), flush=True)
 
 
-def _summed(name, source, replaces, launches, err, per) -> dict:
+def phase6_breakdown(d: SimpleNamespace) -> None:
+    """Where the time of one 16-clip offline call and of one streaming
+    window goes."""
+    from disco_tpu_torch.enhance.fused import tango_clip_fused
+
+    yb, sb, nb = (a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
+    profiled(f"one {BATCH}-clip offline call",
+             lambda: tango_clip_fused(yb, sb, nb, solver="fused"))
+    del yb, sb, nb
+    profiled("one streaming window (window 2)", lambda: stream_windows(d, 1, 2, d.stream_state_1))
+
+
+def _launches(d: SimpleNamespace, name: str) -> dict:
+    """A kernel's launches over the main paths' runs, and by path."""
+    by_path = {path: counts[name] for path, counts in d.launches.items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def _summed(d: SimpleNamespace, name, source, replaces, per) -> dict:
     """One kernel's entry over the launches of one clip (``per``)."""
     lib = [p["library_ms"] for p in per]
     flops, nbytes = sum(p["flops"] for p in per), sum(p["bytes"] for p in per)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": err[name],
+        **_launches(d, name), "max_abs_err": d.err[name],
         "ms": sum(p["ms"] for p in per), "plain_ms": sum(p["plain_ms"] for p in per),
         "bound_ms": sum(p["bound_ms"] for p in per), "bound_by": bound(flops, nbytes)[1],
         "library_ms": None if None in lib else sum(lib), "per_launch": per,
@@ -437,9 +735,11 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase1_build()
     d = phase2_kernels()
-    launches = phase3_main_path(d)
-    entries = phase4_times(d, launches)
-    phase5_breakdown(d)
+    d.launches = {}
+    phase3_offline_path(d)
+    phase4_streaming_path(d)
+    entries = phase5_times(d)
+    phase6_breakdown(d)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -8,8 +8,10 @@ PyTorch on tensors.  It imports ``torch`` and numpy only — never ``jax``,
 tests/test_torch_port_imports.py).
 
 Device rule.  Entry points (``enhance.tango.tango``,
-``enhance.fused.tango_clip_fused``) run on ``"cuda"`` unless the caller
-passes ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they
+``enhance.fused.tango_clip_fused`` and ``streaming_clip_fused``,
+``enhance.streaming.streaming_tango``, ``streaming_tango_scan`` and
+``streaming_step1``) run on ``"cuda"`` unless the caller passes
+``device="cpu"``; with no CUDA device and no ``device="cpu"`` they
 raise ``RuntimeError`` — they never move to the CPU silently.  Below the
 entry points every kernel wrapper routes by the device of the tensor it is
 given: a CUDA tensor launches the hand-written kernel (``csrc/``) or
@@ -24,10 +26,12 @@ reference pins true float32 products (``disco_tpu/ops/stft_ops.py``'s
 ``disco_tpu/ops/cov_ops.py``), and TF32 keeps only ~3 decimal digits.
 The bf16 lane is not ported yet (``ops.resolve.resolve_precision``).
 
-Weights and state.  The offline two-step TANGO path has no learned
+Weights and state.  The two-step TANGO paths have no learned
 parameters: the masks are oracle masks and the DFT/IDFT/Hann tables are
-computed, so nothing is converted from the JAX package.  The
-flax -> ``state_dict`` converter arrives with the CRNN port.
+computed.  What crosses from the JAX package is the streaming
+continuation state, through ``enhance.streaming.state_from_numpy`` (and
+back through ``state_to_numpy``).  The flax -> ``state_dict`` converter
+arrives with the CRNN port.
 """
 import torch
 

@@ -8,9 +8,11 @@ solved by Cholesky whitening and a Hermitian eigensolve:
     L = chol(Rnn + delta I),   A = L^-1 Rxx L^-H,   (lam, U) = eigh(A),   Q = L^-H U
 
 with ``(Q^-1)[i, 0] = conj(U[0, i] L[0, 0])`` in closed form.  Everything
-is batched over the leading axes.  ``torch.linalg`` carries the non-fused
-solvers ('eigh', 'power', 'jacobi'), as XLA does in the reference; the
-'fused*' family runs the hand-written kernel of :mod:`..ops.mwf_ops`.
+is batched over the leading axes.  ``torch.linalg`` carries the
+'eigh' and 'power' solvers and plain PyTorch the 'jacobi' eigensolve, as
+XLA does in the reference; 'jacobi-pallas' runs the hand-written
+eigensolver kernel of :mod:`..ops.eigh_ops` and the 'fused*' family the
+fused-solve kernel of :mod:`..ops.mwf_ops`.
 """
 from __future__ import annotations
 
@@ -25,10 +27,6 @@ EIG_CEIL = 1e6
 # Relative diagonal loading so the float32 Cholesky exists for
 # near-singular noise covariances
 DIAG_LOADING = 1e-6
-
-_JACOBI_PALLAS_TODO = ("solver 'jacobi-pallas' (the _eigh_kernel port) is slice 2 of "
-                       "the port (ROADMAP.md Queue 2, item 1)")
-
 
 def _herm(A: torch.Tensor) -> torch.Tensor:
     return A.conj().transpose(-1, -2)
@@ -93,9 +91,10 @@ def gevd_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, rank=1,
              sanitize: bool = True, eigh_impl: str = "xla", sweeps: int | None = None):
     """Rank-``rank`` GEVD-MWF (the 'gevd' branch of internal_formulas.py:56-73).
 
-    ``eigh_impl``: 'xla' (``torch.linalg.eigh``) or 'jacobi' (the plain
-    fixed-sweep Jacobi of ``ops.eigh_ops``); 'jacobi-pallas' is the next
-    slice.  Returns (W, t1), each (..., C).
+    ``eigh_impl``: 'xla' (``torch.linalg.eigh``), 'jacobi' (the plain
+    fixed-sweep Jacobi of ``ops.eigh_ops``) or 'jacobi-pallas' (the same
+    sweeps as the hand-written kernel on a CUDA tensor, the plain version
+    on a CPU tensor).  Returns (W, t1), each (..., C).
     """
     C = Rxx.shape[-1]
     L, A = _whitened(Rxx, Rnn)
@@ -106,7 +105,9 @@ def gevd_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, rank=1,
 
         lam, U = eigh_jacobi(A, sweeps=sweeps)
     elif eigh_impl == "jacobi-pallas":
-        raise NotImplementedError(_JACOBI_PALLAS_TODO)
+        from disco_tpu_torch.ops.eigh_ops import eigh_jacobi_pallas
+
+        lam, U = eigh_jacobi_pallas(A, sweeps=sweeps)
     else:
         raise ValueError(f"unknown eigh_impl {eigh_impl!r}; expected 'xla', 'jacobi' or 'jacobi-pallas'")
     lam = lam.flip(-1).clamp(EIG_FLOOR, EIG_CEIL)
@@ -148,8 +149,8 @@ def rank1_gevd(Rss, Rnn, mu: float = 1.0, solver: str = "eigh", sanitize: bool =
 
     * ``'eigh'`` — :func:`gevd_mwf` at rank 1 (``torch.linalg.eigh``);
     * ``'power'`` / ``'power:N'`` — :func:`gevd_mwf_power`;
-    * ``'jacobi'`` (``':N'`` sweeps) — :func:`gevd_mwf` with the plain
-      Jacobi eigensolve; ``'jacobi-pallas'`` raises NotImplementedError;
+    * ``'jacobi'`` / ``'jacobi-pallas'`` (``':N'`` sweeps) — :func:`gevd_mwf`
+      with the plain Jacobi eigensolve / the eigensolver kernel;
     * ``'fused'`` / ``'fused-pallas'`` / ``'fused-xla'`` (``':N'`` sweeps) —
       the whole solve as one kernel (``ops.mwf_ops.rank1_gevd_fused``);
       ``'fused-xla'`` names the plain version and raises on a CUDA tensor.

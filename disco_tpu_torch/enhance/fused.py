@@ -6,8 +6,13 @@
 
 On a CUDA device this runs the three hand-written kernels of the port: one
 STFT launch over the stacked y/s/n streams, and per step one covariance
-launch and one fused-solve launch.  The streaming twin
-(``streaming_clip_fused``) waits for the streaming port.
+launch and one fused-solve launch.
+
+Its streaming twin :func:`streaming_clip_fused` takes one super-tick
+window of time-domain signal through the window STFT (one STFT launch),
+the oracle masks, ``streaming_tango_scan`` and the ISTFT; under
+``solver='jacobi-pallas'`` every refresh block launches the eigensolver
+kernel once per step.
 """
 from __future__ import annotations
 
@@ -16,6 +21,12 @@ import torch
 from disco_tpu_torch.core.dsp import istft
 from disco_tpu_torch.core.masks import tf_mask_mag
 from disco_tpu_torch.device import resolve_device
+from disco_tpu_torch.enhance.streaming import (
+    DEFAULT_LAMBDA_COR,
+    DEFAULT_MU,
+    DEFAULT_UPDATE_EVERY,
+    streaming_tango_scan,
+)
 from disco_tpu_torch.enhance.tango import oracle_masks, tango
 from disco_tpu_torch.ops.resolve import resolve_precision
 from disco_tpu_torch.ops.stft_ops import stft_with_mag
@@ -73,3 +84,59 @@ def tango_clip_fused(y, s, n, masks_z=None, mask_w=None, mu: float = 1.0,
         "mask_w": res.mask_w,
         "z_y": res.z_y,
     }
+
+
+def streaming_clip_fused(y, s=None, n=None, masks_z=None, mask_w=None,
+                         lambda_cor: float = DEFAULT_LAMBDA_COR,
+                         update_every: int = DEFAULT_UPDATE_EVERY, mu: float = DEFAULT_MU,
+                         ref_mic: int = 0, mask_type: str = "irm1", policy: str | None = "local",
+                         state=None, solver: str = "eigh", z_avail=None,
+                         blocks_per_dispatch: int = 1, stft_impl: str = "auto",
+                         precision: str = "f32", device=None):
+    """One streaming super-tick: window STFT, masks, the N-block two-step
+    streaming pipeline (``streaming_tango_scan``), ISTFT.
+
+    Each window is transformed with its own centered reflect padding, so
+    its first and last frames differ from those of a whole-clip STFT.
+
+    Args:
+      y: (K, C, Lw) time-domain window whose ``1 + Lw // 256`` STFT frames
+        split into ``blocks_per_dispatch`` refresh-aligned blocks (e.g.
+        Lw = 16128: T = 64 frames = 16 blocks of ``update_every`` 4).
+      s, n: optional (K, C, Lw) clean components for oracle masks of
+        ``mask_type``; or pass ``masks_z`` (and ``mask_w``) as (K, F, T).
+      state: continuation state from the previous window (None: the warm
+        start).
+      solver / precision / stft_impl: the shared seams.
+      z_avail: optional availability of the exchanged streams, as in
+        ``streaming_tango_scan``.
+      device: ``"cuda"`` when None (RuntimeError without a CUDA device),
+        ``"cpu"`` for the plain versions on the host.
+
+    Returns:
+      dict with ``yf`` (K, Lw) enhanced window and ``state``.
+    """
+    precision = resolve_precision(precision)
+    dev = resolve_device(device)
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    L = y.shape[-1]
+    if masks_z is None:
+        if s is None or n is None:
+            raise ValueError(
+                "streaming_clip_fused: either pass masks_z explicitly or "
+                "provide s and n for oracle masks"
+            )
+        s, n = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (s, n))
+        spec, mag = stft_with_mag(torch.stack([y, s, n]), impl=stft_impl, precision=precision)
+        Y = spec[0]
+        masks_z = _clip_oracle_masks(spec, mag, mask_type, ref_mic)
+    else:
+        Y = stft_with_mag(y, impl=stft_impl, precision=precision)[0]
+    if mask_w is None:
+        mask_w = masks_z
+    out = streaming_tango_scan(
+        Y, masks_z, mask_w, lambda_cor=lambda_cor, update_every=update_every, mu=mu,
+        ref_mic=ref_mic, policy=policy, state=state, solver=solver, z_avail=z_avail,
+        blocks_per_dispatch=blocks_per_dispatch, precision=precision, device=dev,
+    )
+    return {"yf": istft(out["yf"], length=L), "state": out["state"]}

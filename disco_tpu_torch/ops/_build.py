@@ -5,11 +5,14 @@ library with a plain C interface, bound with ``ctypes``:
 
 * one ``nvcc -c`` per ``.cu`` source, all started together, then one
   ``nvcc -shared`` link;
-* the library lives in ``build/kernels/<sha256 of the sources>/`` at the
+* the library lives in ``build/kernels/<sha256 of flags and sources>/`` at the
   root of the checkout, built at first use, so a fresh checkout builds it
   on its first kernel launch and a changed source gets a new directory;
 * ``-Xptxas -v`` output (registers, spills) is kept beside the library in
-  ``ptxas.log``.
+  ``ptxas.log``;
+* ``eigh.cu`` is compiled with ``-fmad=false``, so that the Jacobi
+  eigensolver rounds every product and sum as its plain PyTorch version
+  does (see the note at the top of that source).
 
 Every C entry point takes ``c_void_p`` pointers and stream and ``c_int``
 sizes, launches on the stream it is given and returns
@@ -27,11 +30,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("stft.cu", "cov.cu", "mwf.cu")
+SOURCES = ("stft.cu", "cov.cu", "mwf.cu", "eigh.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libdisco_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: flags of one source on top of NVCC_FLAGS
+SOURCE_FLAGS = {"eigh.cu": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of the entry points (argument types; every one returns int)
@@ -42,14 +47,17 @@ SIGNATURES = {
     "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # rss, rnn, mu, w, t1, n, C, sweeps, eps, loading, lam_floor, lam_ceil, stream
     "disco_fused_mwf": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # a, lam, v, n, C, complex_in, sweeps, eps, stream
+    "disco_eigh_jacobi": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None
 
 
 def source_digest() -> str:
-    """sha256 over the names and contents of every kernel source."""
-    h = hashlib.sha256()
+    """sha256 over the compiler flags and the names and contents of every
+    kernel source."""
+    h = hashlib.sha256(repr((NVCC_FLAGS, SOURCE_FLAGS)).encode())
     for name in sorted(SOURCES + HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -82,21 +90,27 @@ def build() -> Path:
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     nvcc = _nvcc()
-    procs = []
+    procs = {}
     t0 = time.perf_counter()
     for src in SOURCES:
         obj = tmp / (src + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, []), "-c", str(CSRC / src), "-o", str(obj)]
+        with open(tmp / (src + ".log"), "w") as out_log:
+            procs[src] = subprocess.Popen(cmd, stdout=out_log, stderr=subprocess.STDOUT)
+    seconds = {}
+    while len(seconds) < len(procs):  # each compile's own wall time
+        for src, proc in procs.items():
+            if src not in seconds and proc.poll() is not None:
+                seconds[src] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs = []
-    for src, _obj, proc in procs:
-        text, _ = proc.communicate()
-        done = time.perf_counter() - t0
-        logs.append(f"== {src} (finished within {done:.1f} s of the start)\n{text}")
+    for src, proc in procs.items():
+        text = (tmp / (src + ".log")).read_text()
+        logs.append(f"== {src} (finished within {seconds[src]:.1f} s of the start)\n{text}")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{text}")
-    link = [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME)] + [str(o) for _, o, _ in procs]
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME)]
+    link += [str(tmp / (src + ".o")) for src in SOURCES]
     res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}")

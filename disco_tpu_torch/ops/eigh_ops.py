@@ -1,17 +1,34 @@
 """Batched small-Hermitian eigendecomposition by fixed-sweep cyclic Jacobi
-(counterpart of ``disco_tpu/ops/eigh_ops.py``, the plain functions).
+(counterpart of ``disco_tpu/ops/eigh_ops.py``).
 
 Complex matrices are carried as float32 re/im planes (..., C, C); every
 batch element rotates the same (p, q) pair in lockstep, in the
-cyclic-by-rows order of :func:`_pairs`.  The hand-written kernel of
-``eigh_jacobi_pallas`` (``_eigh_kernel``) is the next slice of the port;
-its rotation is already the ``jacobi_rotation`` device function of
-``csrc/common.cuh``, shared with the fused solve.
+cyclic-by-rows order of :func:`_pairs`.
+
+* :func:`eigh_jacobi_kernel` — the wrapper of the hand-written CUDA kernel
+  ``csrc/eigh.cu`` (port of ``eigh_jacobi_pallas`` -> ``_eigh_kernel``),
+  one thread per matrix, its rotation the ``jacobi_rotation`` device
+  function of ``csrc/common.cuh`` that the fused solve shares.  It returns
+  the unsorted diagonal and V, as the Pallas kernel does.  On a CPU tensor
+  it runs :func:`eigh_jacobi_unsorted`.
+* :func:`eigh_jacobi_unsorted` — the plain version: the same sweeps on
+  batched PyTorch tensors.
+* :func:`eigh_jacobi_pallas` — the ``'jacobi-pallas'`` seam: the wrapper,
+  then the ascending stable sort outside the kernel.
+* :func:`eigh_jacobi` — the plain ``'jacobi'`` eigensolve (the plain
+  version, sorted).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from disco_tpu_torch.ops import _build
+
+#: the largest matrix the kernel takes (its generic path's array bound)
+MAX_CHANNELS = 16
 
 #: the identity-rotation threshold on |A[p, q]| (sqrt of float32 tiny)
 ROTATION_EPS = float(np.finfo(np.float32).tiny ** 0.5)
@@ -79,10 +96,10 @@ def jacobi_sweeps(Ar, Ai, Vr, Vi, sweeps: int, eps: float = ROTATION_EPS) -> Non
             _apply_rotation(Ar, Ai, Vr, Vi, p, q, eps)
 
 
-def eigh_jacobi(A: torch.Tensor, sweeps: int | None = None):
-    """Batched Hermitian eigendecomposition, ascending like
-    ``torch.linalg.eigh``: (..., C, C) complex64 or float32 ->
-    (lam (..., C) float32, V (..., C, C)), complex V for complex input."""
+def eigh_jacobi_unsorted(A: torch.Tensor, sweeps: int | None = None):
+    """The plain version of :func:`eigh_jacobi_kernel`: (..., C, C)
+    complex64 or float32 -> (the unsorted converged diagonal (..., C)
+    float32, V (..., C, C)), complex V for complex input."""
     C = A.shape[-1]
     if sweeps is None:
         sweeps = default_sweeps(C)
@@ -92,10 +109,69 @@ def eigh_jacobi(A: torch.Tensor, sweeps: int | None = None):
     Vr = torch.eye(C, dtype=torch.float32, device=A.device).expand_as(Ar).clone()
     Vi = torch.zeros_like(Ar)
     jacobi_sweeps(Ar, Ai, Vr, Vi, sweeps)
-    lam = torch.diagonal(Ar, dim1=-2, dim2=-1)
+    lam = torch.diagonal(Ar, dim1=-2, dim2=-1).contiguous()
+    return lam, (torch.complex(Vr, Vi) if complex_in else Vr)
+
+
+def _sort_eigpairs(lam: torch.Tensor, V: torch.Tensor):
+    """Ascending eigenvalues and their eigenvector columns; the sort is
+    stable and puts NaN last, as ``jnp.argsort`` does."""
     order = torch.argsort(lam, dim=-1, stable=True)
     lam = torch.take_along_dim(lam, order, dim=-1)
-    idx = order[..., None, :].expand_as(Vr)
-    Vr = torch.take_along_dim(Vr, idx, dim=-1)
-    Vi = torch.take_along_dim(Vi, idx, dim=-1)
-    return lam, (torch.complex(Vr, Vi) if complex_in else Vr)
+    V = torch.take_along_dim(V, order[..., None, :].expand_as(V), dim=-1)
+    return lam, V
+
+
+def eigh_jacobi(A: torch.Tensor, sweeps: int | None = None):
+    """Batched Hermitian eigendecomposition, ascending like
+    ``torch.linalg.eigh``: (..., C, C) complex64 or float32 ->
+    (lam (..., C) float32, V (..., C, C)), complex V for complex input."""
+    return _sort_eigpairs(*eigh_jacobi_unsorted(A, sweeps))
+
+
+def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int | None = None):
+    """The eigensolver kernel's wrapper (port of ``eigh_jacobi_pallas``'s
+    ``pallas_call``): (..., C, C) Hermitian complex64 or float32 -> (the
+    unsorted diagonal (..., C) float32, V (..., C, C) in the input's type).
+
+    A CUDA tensor launches ``csrc/eigh.cu`` (counted in
+    ``eigh_jacobi_kernel.launches``); a CPU tensor runs
+    :func:`eigh_jacobi_unsorted`.
+    """
+    if A.device.type == "cpu":
+        return eigh_jacobi_unsorted(A, sweeps)
+    if A.device.type != "cuda":
+        raise ValueError(f"eigh_jacobi_kernel: unsupported device {A.device}; "
+                         "expected 'cuda' or 'cpu'")
+    C = A.shape[-1]
+    if A.ndim < 2 or A.shape[-2] != C or not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"eigh_jacobi_kernel: matrices {tuple(A.shape[-2:])}; the kernel "
+                         f"takes square matrices up to {MAX_CHANNELS}x{MAX_CHANNELS}")
+    if sweeps is None:
+        sweeps = default_sweeps(C)
+    if sweeps < 0:
+        raise ValueError(f"eigh_jacobi_kernel: sweeps must be >= 0, got {sweeps}")
+    complex_in = A.is_complex()
+    a = A.to(torch.complex64 if complex_in else torch.float32).contiguous()
+    bs = A.shape[:-2]
+    lam = torch.empty(bs + (C,), dtype=torch.float32, device=A.device)
+    V = torch.empty_like(a)
+    lib = _build.load()
+    rc = lib.disco_eigh_jacobi(a.data_ptr(), lam.data_ptr(), V.data_ptr(), math.prod(bs), C,
+                               int(complex_in), sweeps, ROTATION_EPS,
+                               _build.stream_handle(A.device))
+    _build.check(rc, "disco_eigh_jacobi")
+    eigh_jacobi_kernel.launches += 1
+    return lam, V
+
+
+eigh_jacobi_kernel.launches = 0
+
+
+def eigh_jacobi_pallas(A: torch.Tensor, sweeps: int | None = None):
+    """The ``'jacobi-pallas'`` eigensolve (counterpart of
+    ``eigh_jacobi_pallas``): :func:`eigh_jacobi_kernel`, then the ascending
+    stable sort outside the kernel.  Returns (lam (..., C) float32, V),
+    complex64 V for complex input; on a CPU tensor it equals
+    :func:`eigh_jacobi`."""
+    return _sort_eigpairs(*eigh_jacobi_kernel(A, sweeps))

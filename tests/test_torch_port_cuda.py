@@ -84,6 +84,36 @@ def test_fused_mwf_kernel(cuda, rng, C):
         assert rel_l2(a[ok], b[ok]) <= TOL
 
 
+@pytest.mark.parametrize("complex_", [True, False])
+@pytest.mark.parametrize("C", [1, 2, 4, 7, 11, 16])
+def test_eigh_jacobi_kernel(cuda, rng, C, complex_):
+    """A ragged batch (130 matrices: blocks of 32 threads) with one NaN
+    matrix and one degenerate one, against the plain version."""
+    from disco_tpu_torch.ops import eigh_ops
+
+    X = rng.standard_normal((130, C, C))
+    if complex_:
+        X = X + 1j * rng.standard_normal((130, C, C))
+    A = X @ np.conj(np.swapaxes(X, -1, -2))
+    A[7] = np.nan
+    A[9] = 2.0 * np.eye(C)
+    A = torch.from_numpy(A.astype(np.complex64 if complex_ else np.float32)).to(cuda)
+    before = eigh_ops.eigh_jacobi_kernel.launches
+    lam, V = eigh_ops.eigh_jacobi_kernel(A)
+    p_lam, p_V = eigh_ops.eigh_jacobi_unsorted(A)
+    s_lam, s_V = eigh_ops.eigh_jacobi_pallas(A)
+    torch.cuda.synchronize()
+    assert eigh_ops.eigh_jacobi_kernel.launches == before + 2
+    assert V.dtype == A.dtype and lam.shape == (130, C)
+    assert torch.isnan(lam[7]).all() and torch.isnan(p_lam[7]).all()
+    ok = torch.arange(130, device=cuda) != 7
+    assert rel_l2(lam[ok], p_lam[ok]) <= TOL and rel_l2(V[ok], p_V[ok]) <= TOL
+    e_lam, e_V = eigh_ops.eigh_jacobi(A)
+    assert rel_l2(s_lam[ok], e_lam[ok]) <= TOL and rel_l2(s_V[ok], e_V[ok]) <= TOL
+    with pytest.raises(ValueError, match="up to 16x16"):
+        eigh_ops.eigh_jacobi_kernel(torch.zeros(2, 17, 17, device=cuda))
+
+
 def test_plain_versions_never_run_on_card_tensors(cuda):
     from disco_tpu_torch.beam.filters import rank1_gevd
     from disco_tpu_torch.ops import cov_ops, stft_ops
@@ -106,3 +136,31 @@ def test_clip_on_card_matches_plain_clip_on_host(cuda):
     got = tango_clip_fused(y, s, n).cpu()
     want = tango_clip_fused(y, s, n, device="cpu")
     assert max_rel(got, want) <= 1e-4
+
+
+def test_streaming_window_on_card_matches_plain_window_on_host(cuda):
+    """Two super-tick windows through ``streaming_clip_fused`` with the
+    eigensolver kernel, on the card and on the host.  The scene is scaled
+    by 1e-3 so that the warm start's first refreshes are well posed, and
+    the first refresh block's samples are skipped: there the step-2 filter
+    is set by roundoff (tests/test_torch_port_streaming.py)."""
+    from disco_tpu_torch.enhance.fused import streaming_clip_fused
+    from disco_tpu_torch.ops import eigh_ops
+
+    Lw = 256 * 15
+    y, s, n = (a * 1e-3 for a in scene(3, 2, 2 * Lw, seed=4, noise_scale=0.5))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        st, parts = None, []
+        before = eigh_ops.eigh_jacobi_kernel.launches
+        for w in range(2):
+            sl = slice(w * Lw, (w + 1) * Lw)
+            o = streaming_clip_fused(y[..., sl], s[..., sl], n[..., sl], state=st,
+                                     solver="jacobi-pallas", blocks_per_dispatch=4, device=dev)
+            st = o["state"]
+            parts.append(o["yf"].cpu())
+        outs[dev] = torch.cat(parts, -1)
+        launches = eigh_ops.eigh_jacobi_kernel.launches - before
+        assert launches == (2 * 2 * 4 if dev == "cuda" else 0), (dev, launches)
+    skip = 2 * 4 * 256
+    assert max_rel(outs["cuda"][:, skip:], outs["cpu"][:, skip:]) <= 1e-4
