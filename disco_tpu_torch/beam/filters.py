@@ -9,10 +9,11 @@ solved by Cholesky whitening and a Hermitian eigensolve:
 
 with ``(Q^-1)[i, 0] = conj(U[0, i] L[0, 0])`` in closed form.  Everything
 is batched over the leading axes.  ``torch.linalg`` carries the
-'eigh' and 'power' solvers and plain PyTorch the 'jacobi' eigensolve, as
-XLA does in the reference; 'jacobi-pallas' runs the hand-written
-eigensolver kernel of :mod:`..ops.eigh_ops` and the 'fused*' family the
-fused-solve kernel of :mod:`..ops.mwf_ops`.
+'eigh' and 'power' solvers, as XLA does in the reference; 'jacobi-pallas'
+runs the hand-written eigensolver kernel of :mod:`..ops.eigh_ops` and the
+'fused*' family the fused-solve kernel of :mod:`..ops.mwf_ops`.  'jacobi'
+names that kernel's plain version, which runs on CPU tensors only, as
+'fused-xla' does for the fused solve.
 """
 from __future__ import annotations
 
@@ -92,9 +93,10 @@ def gevd_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, rank=1,
     """Rank-``rank`` GEVD-MWF (the 'gevd' branch of internal_formulas.py:56-73).
 
     ``eigh_impl``: 'xla' (``torch.linalg.eigh``), 'jacobi' (the plain
-    fixed-sweep Jacobi of ``ops.eigh_ops``) or 'jacobi-pallas' (the same
-    sweeps as the hand-written kernel on a CUDA tensor, the plain version
-    on a CPU tensor).  Returns (W, t1), each (..., C).
+    fixed-sweep Jacobi of ``ops.eigh_ops``: the eigensolver kernel's plain
+    version, so a CUDA tensor raises ValueError) or 'jacobi-pallas' (the
+    hand-written kernel on a CUDA tensor, the plain version on a CPU
+    tensor).  Returns (W, t1), each (..., C).
     """
     C = Rxx.shape[-1]
     L, A = _whitened(Rxx, Rnn)
@@ -103,6 +105,12 @@ def gevd_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, rank=1,
     elif eigh_impl == "jacobi":
         from disco_tpu_torch.ops.eigh_ops import eigh_jacobi
 
+        if A.device.type != "cpu":
+            raise ValueError(
+                "eigh_impl='jacobi' selects eigh_jacobi, the plain version of the eigensolver "
+                "kernel, which never runs on a CUDA tensor; use 'jacobi-pallas' (the "
+                "hand-written kernel)"
+            )
         lam, U = eigh_jacobi(A, sweeps=sweeps)
     elif eigh_impl == "jacobi-pallas":
         from disco_tpu_torch.ops.eigh_ops import eigh_jacobi_pallas
@@ -150,7 +158,8 @@ def rank1_gevd(Rss, Rnn, mu: float = 1.0, solver: str = "eigh", sanitize: bool =
     * ``'eigh'`` — :func:`gevd_mwf` at rank 1 (``torch.linalg.eigh``);
     * ``'power'`` / ``'power:N'`` — :func:`gevd_mwf_power`;
     * ``'jacobi'`` / ``'jacobi-pallas'`` (``':N'`` sweeps) — :func:`gevd_mwf`
-      with the plain Jacobi eigensolve / the eigensolver kernel;
+      with the plain Jacobi eigensolve / the eigensolver kernel; ``'jacobi'``
+      names the plain version and raises on a CUDA tensor;
     * ``'fused'`` / ``'fused-pallas'`` / ``'fused-xla'`` (``':N'`` sweeps) —
       the whole solve as one kernel (``ops.mwf_ops.rank1_gevd_fused``);
       ``'fused-xla'`` names the plain version and raises on a CUDA tensor.

@@ -92,11 +92,21 @@ def initial_stream_state(n_nodes: int, n_mics: int, n_freq: int,
 
 
 def _map_state(state, leaf):
+    """``leaf`` applied to every array of a state, dict keys in sorted
+    order, the structure kept."""
     if isinstance(state, dict):
-        return {k: _map_state(v, leaf) for k, v in state.items()}
+        return {k: _map_state(state[k], leaf) for k in sorted(state)}
     if isinstance(state, (tuple, list)):
         return tuple(_map_state(v, leaf) for v in state)
     return leaf(state)
+
+
+def state_leaves(state) -> list:
+    """The arrays of a continuation state (the port's or the JAX
+    package's, as numpy arrays) in one fixed order."""
+    leaves = []
+    _map_state(state, leaves.append)
+    return leaves
 
 
 def state_from_numpy(state, device=None):

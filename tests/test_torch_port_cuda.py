@@ -127,6 +127,8 @@ def test_plain_versions_never_run_on_card_tensors(cuda):
     eye = torch.eye(3, dtype=torch.complex64, device=cuda).expand(4, 3, 3)
     with pytest.raises(ValueError, match="fused_mwf_plain"):
         rank1_gevd(eye, eye, solver="fused-xla")
+    with pytest.raises(ValueError, match="eigh_jacobi"):
+        rank1_gevd(eye, eye, solver="jacobi")
 
 
 def test_clip_on_card_matches_plain_clip_on_host(cuda):

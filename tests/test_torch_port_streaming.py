@@ -64,19 +64,11 @@ def _close(ours, ref, keys, frames=slice(None)):
         assert max_rel(a, b) <= TOL, (key, max_rel(a, b))
 
 
-def _leaves(state):
-    if isinstance(state, dict):
-        return [x for k in sorted(state) for x in _leaves(state[k])]
-    if isinstance(state, (tuple, list)):
-        return [x for v in state for x in _leaves(v)]
-    return [state]
-
-
 def test_initial_stream_state_matches_jax():
     ours = tstream.initial_stream_state(K, C, 257, update_every=U, ref_mic=1)
     ref = jstream.initial_stream_state(K, C, 257, update_every=U, ref_mic=1)
     assert sorted(ours) == sorted(ref) and sorted(ours["hold"]) == sorted(ref["hold"])
-    for a, b in zip(_leaves(ours), _leaves(ref)):
+    for a, b in zip(tstream.state_leaves(ours), tstream.state_leaves(ref)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
@@ -142,7 +134,7 @@ def test_streaming_tango_matches_jax(spectra, solver, policy, diag, warm):
     ours = tstream.streaming_tango(Y * QUIET, mz, mw, device="cpu", **kw, **dkw)
     _close(ours, ref, ("z_y", "zn") + (("z_s", "z_n") if diag else ()))
     _close(ours, ref, keys, frames=slice(U, None))
-    for a, b in zip(_leaves(tstream.state_to_numpy(ours["state"])), _leaves(ref["state"])):
+    for a, b in zip(tstream.state_leaves(tstream.state_to_numpy(ours["state"])), tstream.state_leaves(ref["state"])):
         assert max_rel(a, np.asarray(b)) <= TOL
     if not warm:
         return
@@ -166,7 +158,7 @@ def test_port_state_continues_in_jax(spectra):
                                     solver="eigh", device="cpu")
     state = tstream.state_to_numpy(first["state"])
     assert sorted(state) == ["step1", "step2"]
-    assert all(isinstance(x, np.ndarray) for x in _leaves(state))
+    assert all(isinstance(x, np.ndarray) for x in tstream.state_leaves(state))
     rest = [a[..., T_WARM:] for a in (Y, mz, mw)]
     ref = jstream.streaming_tango(*rest, state=state, solver="eigh", policy="local")
     ours = tstream.streaming_tango(*rest, state=first["state"], solver="eigh", device="cpu")
@@ -231,7 +223,7 @@ def _scan_windows(Y, m, window, n, solver, plan=None, S=None, N=None):
 
 
 def _equal_states(a, b):
-    la, lb = _leaves(a), _leaves(b)
+    la, lb = tstream.state_leaves(a), tstream.state_leaves(b)
     assert len(la) == len(lb)
     assert all(torch.equal(x, y) for x, y in zip(la, lb))
 
