@@ -41,8 +41,8 @@ SOURCE_FLAGS = {"eigh.cu": ["-fmad=false"]}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of the entry points (argument types; every one returns int)
 SIGNATURES = {
-    # xp, win, dre, dim, spec, mag, B, Lp, n_fft, hop, n_freq, T, stream
-    "disco_stft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, win, tw, post, spec, mag, B, L, n_fft, hop, T, stream
+    "disco_stft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # y, mask, rss, rnn, B, C, F, T, per_channel_mask, stream
     "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # rss, rnn, mu, w, t1, n, C, sweeps, eps, loading, lam_floor, lam_ceil, stream

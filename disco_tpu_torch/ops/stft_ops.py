@@ -2,14 +2,18 @@
 ISTFT — counterpart of ``disco_tpu/ops/stft_ops.py``.
 
 * :func:`stft_kernel` — the wrapper of the hand-written CUDA kernel
-  ``csrc/stft.cu`` (port of ``stft_pallas`` -> ``_stft_kernel``): framing,
-  periodic Hann window, the 512x257 cos/sin DFT products and the optional
+  ``csrc/stft.cu`` (port of ``stft_pallas`` -> ``_stft_kernel``): reflect
+  padding, framing, periodic Hann window, one 512-point real FFT per frame
+  (from the twiddle tables of :func:`rfft_tables`) and the optional
   magnitude in one launch, written straight into the (B, F, T) complex64
-  spec and float32 magnitude planes.  Reflect padding stays here in the
-  wrapper.  On a CPU tensor it runs :func:`stft_matmul`.
-* :func:`stft_matmul` — the plain version: the framed
-  signal times the same DFT tables with ``torch.matmul`` in true float32
-  (TF32 is off package-wide).
+  spec and float32 magnitude planes.  On a CPU tensor it runs
+  :func:`stft_matmul`.
+* :func:`stft_matmul` — the plain version: the same function, the framed
+  signal times the DFT tables of :func:`dft_matrices` with ``torch.matmul``
+  in true float32 (TF32 is off package-wide), as the TPU kernel computes
+  it.  It is the kernel's yardstick, not a copy of the FFT's steps; those
+  are held by a numpy model of the kernel on its own tables
+  (``tests/test_torch_port_fft.py``).
 * :func:`stft_with_mag` / :func:`stft_fused` — the ``impl`` seams of the
   enhancement path (``'auto' | 'xla' | 'pallas'``, ops.resolve routing).
 * :func:`istft_matmul` — the inverse as two products against the
@@ -28,6 +32,9 @@ from disco_tpu_torch.core.dsp import N_FFT, N_HOP, hann_periodic
 from disco_tpu_torch.ops import _build
 from disco_tpu_torch.ops.resolve import check_impl, resolve_precision
 
+#: the one (n_fft, hop) the CUDA kernel computes (its FFT is 512 = 2 x 16 x 16)
+KERNEL_N_FFT, KERNEL_HOP = 512, 256
+
 
 @functools.lru_cache(maxsize=8)
 def dft_matrices(n_fft: int = N_FFT):
@@ -37,6 +44,22 @@ def dft_matrices(n_fft: int = N_FFT):
     n = np.arange(n_fft, dtype=np.int64)[None, :]
     ang = -2.0 * np.pi * ((k * n) % n_fft) / n_fft
     return np.cos(ang).T.astype(np.float32), np.sin(ang).T.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def rfft_tables(n_fft: int = N_FFT):
+    """The FFT kernel's twiddle tables as complex64 numpy, float64 host
+    precompute from exact integer-mod angles, cast to float32:
+    ``tw[k] = e^{-2 pi i k / M}``, k < M = n_fft // 2 (the M-point complex
+    FFT of the packed frame; ``tw[16 j]`` are its 16-point stages' twiddles),
+    and ``post[k] = e^{-2 pi i k / n_fft}``, k <= M (the split post-pass to
+    the n_fft // 2 + 1 bins)."""
+    m = n_fft // 2
+    ang = -2.0 * np.pi * (np.arange(m, dtype=np.int64) % m) / m
+    tw = np.cos(ang) + 1j * np.sin(ang)
+    ang = -2.0 * np.pi * (np.arange(m + 1, dtype=np.int64) % n_fft) / n_fft
+    post = np.cos(ang) + 1j * np.sin(ang)
+    return tw.astype(np.complex64), post.astype(np.complex64)
 
 
 @functools.lru_cache(maxsize=8)
@@ -65,6 +88,14 @@ def _tables(n_fft: int, device: str):
     return (hann_periodic(n_fft, device=device),
             torch.from_numpy(dre).to(device).contiguous(),
             torch.from_numpy(dim).to(device).contiguous())
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables(n_fft: int, device: str):
+    """(window, tw, post) on ``device``: what the kernel is handed."""
+    tw, post = rfft_tables(n_fft)
+    return (hann_periodic(n_fft, device=device), torch.from_numpy(tw).to(device),
+            torch.from_numpy(post).to(device))
 
 
 def _padded_rows(x: torch.Tensor, n_fft: int):
@@ -98,23 +129,30 @@ def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag:
     (..., L) float32 -> spec (..., F, T) complex64 [, mag (..., F, T)].
 
     A CUDA tensor launches ``csrc/stft.cu`` (and counts the launch in
-    ``stft_kernel.launches``); a CPU tensor runs :func:`stft_matmul`.
+    ``stft_kernel.launches``), which pads by reflection itself and takes
+    ``n_fft=512, hop=256`` only; a CPU tensor runs :func:`stft_matmul`.
     """
     if x.device.type == "cpu":
         return stft_matmul(x, n_fft, hop, with_mag)
     _require_cuda_f32(x, "stft_kernel")
-    xp, bs = _padded_rows(x, n_fft)
-    xp = xp.contiguous()
-    B, Lp = xp.shape
+    if (n_fft, hop) != (KERNEL_N_FFT, KERNEL_HOP):
+        raise ValueError(f"stft_kernel: the kernel computes the {KERNEL_N_FFT}/{KERNEL_HOP} "
+                         f"STFT; got n_fft={n_fft}, hop={hop}")
+    bs, L = x.shape[:-1], x.shape[-1]
+    if L <= n_fft // 2:
+        raise ValueError(f"centered STFT needs more than {n_fft // 2} samples "
+                         f"(reflect padding); got {L}")
+    rows = x.reshape(-1, L).contiguous()
+    B = rows.shape[0]
     n_freq = n_fft // 2 + 1
-    T = 1 + (Lp - n_fft) // hop
-    win, dre, dim = _tables(n_fft, str(x.device))
+    T = 1 + L // hop
+    win, tw, post = _fft_tables(n_fft, str(x.device))
     spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
     mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
     lib = _build.load()
-    rc = lib.disco_stft(xp.data_ptr(), win.data_ptr(), dre.data_ptr(), dim.data_ptr(),
+    rc = lib.disco_stft(rows.data_ptr(), win.data_ptr(), tw.data_ptr(), post.data_ptr(),
                         spec.data_ptr(), None if mag is None else mag.data_ptr(),
-                        B, Lp, n_fft, hop, n_freq, T, _build.stream_handle(x.device))
+                        B, L, n_fft, hop, T, _build.stream_handle(x.device))
     _build.check(rc, "disco_stft")
     stft_kernel.launches += 1
     spec = spec.reshape(bs + (n_freq, T))

@@ -10,7 +10,8 @@ The shapes are the edges the main path does not reach (ragged frame and
 pencil counts, the generic channel-count path, one channel); the main
 path's own shapes are held by ``chip_smoke.py``.  Tolerances as in the
 CPU parity tests: 1e-5 (rel-l2 for the STFT and the solve, max-rel for
-the covariances).
+the covariances); the eigensolver is also held bit for bit to its plain
+version, as its design promises (``csrc/eigh.cu``).
 """
 import numpy as np
 import pytest
@@ -49,6 +50,27 @@ def test_stft_kernel(cuda, rng, with_mag):
     assert stft_ops.stft_kernel.launches == before + 1
     for a, b in zip(got if with_mag else (got,), want if with_mag else (want,)):
         assert a.shape == b.shape and rel_l2(a, b) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(3, 257), (2, 12345), (2, 3, 2, 8500)])
+def test_stft_kernel_edges(cuda, rng, shape):
+    """The shortest rows (257 samples: 2 frames, both reflected at both
+    ends), a frame count that is not a multiple of the kernel's 32-frame
+    tile (49 frames), and batched leading axes."""
+    from disco_tpu_torch.ops import stft_ops
+
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    before = stft_ops.stft_kernel.launches
+    spec, mag = stft_ops.stft_kernel(x, with_mag=True)
+    p_spec, p_mag = stft_ops.stft_matmul(x, with_mag=True)
+    torch.cuda.synchronize()
+    assert stft_ops.stft_kernel.launches == before + 1
+    assert spec.shape == p_spec.shape == shape[:-1] + (257, 1 + shape[-1] // 256)
+    assert rel_l2(spec, p_spec) <= TOL and rel_l2(mag, p_mag) <= TOL
+    with pytest.raises(ValueError, match="more than 256 samples"):
+        stft_ops.stft_kernel(x[..., :256])
+    with pytest.raises(ValueError, match="512/256"):
+        stft_ops.stft_kernel(x, n_fft=256, hop=128)
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
@@ -112,6 +134,49 @@ def test_eigh_jacobi_kernel(cuda, rng, C, complex_):
     assert rel_l2(s_lam[ok], e_lam[ok]) <= TOL and rel_l2(s_V[ok], e_V[ok]) <= TOL
     with pytest.raises(ValueError, match="up to 16x16"):
         eigh_ops.eigh_jacobi_kernel(torch.zeros(2, 17, 17, device=cuda))
+
+
+@pytest.mark.parametrize("C", list(range(1, 17)))
+def test_eigh_jacobi_kernel_bit_identical(cuda, rng, C):
+    """Eigenvalues and eigenvectors bit for bit those of the plain version
+    at every width the kernel takes, complex and real."""
+    from disco_tpu_torch.ops import eigh_ops
+
+    for complex_ in (True, False):
+        X = rng.standard_normal((67, C, C))
+        if complex_:
+            X = X + 1j * rng.standard_normal((67, C, C))
+        A = X @ np.conj(np.swapaxes(X, -1, -2))
+        A[3] = 2.0 * np.eye(C)
+        A = torch.from_numpy(A.astype(np.complex64 if complex_ else np.float32)).to(cuda)
+        lam, V = eigh_ops.eigh_jacobi_kernel(A)
+        p_lam, p_V = eigh_ops.eigh_jacobi_unsorted(A)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, p_lam) and torch.equal(V, p_V), (C, complex_)
+
+
+@pytest.mark.parametrize("C", [4, 11, 5])
+@pytest.mark.parametrize("n", [1, 3, 33, 2057])
+def test_eigh_jacobi_kernel_ragged_batches(cuda, rng, C, n):
+    """Batches that are not a multiple of the matrices a warp (8 at C <= 4,
+    4 at C <= 8, 2 above) or a block holds, with a NaN matrix
+    where there is room for one: bit for bit the plain version, NaN pairs
+    from the NaN matrix only."""
+    from disco_tpu_torch.ops import eigh_ops
+
+    X = rng.standard_normal((n, C, C)) + 1j * rng.standard_normal((n, C, C))
+    A = X @ np.conj(np.swapaxes(X, -1, -2))
+    bad = n - 1 if n > 1 else None
+    if bad is not None:
+        A[bad] = np.nan
+    A = torch.from_numpy(A.astype(np.complex64)).to(cuda)
+    lam, V = eigh_ops.eigh_jacobi_kernel(A)
+    p_lam, p_V = eigh_ops.eigh_jacobi_unsorted(A)
+    torch.cuda.synchronize()
+    assert torch.equal(lam.nan_to_num(), p_lam.nan_to_num())
+    assert torch.equal(V.nan_to_num(), p_V.nan_to_num())
+    nan_rows = torch.isnan(lam).any(-1).nonzero().flatten().tolist()
+    assert nan_rows == ([] if bad is None else [bad])
 
 
 def test_plain_versions_never_run_on_card_tensors(cuda):
