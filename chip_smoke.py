@@ -203,7 +203,7 @@ def ptxas_summary(log: str) -> list[dict]:
         if m:
             short = re.search(r"(stft_rfft_kernel|masked_cov_kernelILb[01]E"
                               r"|fused_mwf_kernelILi\d+ELb[01]E"
-                              r"|eigh_group_kernelILi\d+E)", m.group(1))
+                              r"|eigh_(?:group|thread)_kernelILi\d+E)", m.group(1))
             name = short.group(1) if short else m.group(1)
             out.append({"kernel": name})
             continue
@@ -396,9 +396,12 @@ def phase2_eigh(d: SimpleNamespace) -> None:
     C1 = seen[0].shape[-1]
     ragged = seen[0].reshape(-1, C1, C1)[:130].clone()
     ragged[7] = float("nan")
+    ragged2 = flat2[:131].clone()
+    ragged2[130] = float("nan")
     cases = [("step1", seen[0]), ("step2", seen[1])]
     cases += [(f"generic-C{c}", flat2[:20000, :c, :c].contiguous()) for c in (1, 2, 7)]
-    cases += [("generic-C16", X @ X.mH), ("ragged-130-with-NaN", ragged)]
+    cases += [("generic-C16", X @ X.mH), ("ragged-130-with-NaN", ragged),
+              ("ragged-131-with-NaN", ragged2)]
     d.err["eigh_jacobi"] = 0.0
     for label, A in cases:
         c = A.shape[-1]

@@ -1,5 +1,6 @@
-// Batched Hermitian eigendecomposition by fixed-sweep cyclic Jacobi, a group
-// of lanes per (C x C) matrix, its planes in shared memory.
+// Batched Hermitian eigendecomposition by fixed-sweep cyclic Jacobi: a
+// thread per (C x C) matrix up to C = 4, a group of lanes per matrix with
+// its planes in shared memory from C = 5.
 //
 // Replaces: disco_tpu/ops/eigh_ops.py::eigh_jacobi_pallas -> _eigh_kernel
 // (helpers _lane_rotation and _rotation).
@@ -22,22 +23,29 @@
 // correctly rounded square roots and three divisions (~650 cycles on an
 // H100, exp/rotation_latency.py).  At the streaming window's batch (2056
 // matrices) that chain's latency sets the time; at a whole clip's (322,792)
-// the instructions issued per matrix do.  So the design spreads each
-// rotation over lanes: a group of G lanes owns a matrix (G = 4 for C <= 4,
-// 8 for C <= 8, else 16: eight, four or two matrices a warp), its four
-// planes (A and V, re and im) in shared memory with odd row strides.  A
-// rotation (common.cuh's group_rotation) costs the rotation's scalar math,
-// one element update per lane for each of rows p and q, columns p and q and
-// V's columns p and q, four shuffles and two warp barriers, instead of the
-// 4 C complex updates of a thread per matrix, whose four 11 x 11 planes also
-// spill from the registers.  The rotation's square roots go through
-// sqrt_rn, sqrtf's fast path without its branch (the same bits).  C and
-// (p, q) are runtime values: with every rotation of a C = 11 sweep unrolled
-// the kernel is ~15,000 instructions (~240 KB), more than the instruction
-// caches hold.  Blocks of 128 threads load their matrices into shared
-// memory with coalesced reads and write V and the diagonal back the same
-// way.  Lanes l >= C and the matrices past the end of the batch (zeros:
-// identity rotations) go through every barrier and write nothing.
+// the instructions run per matrix do.  Two designs, chosen by C:
+// - C <= 4 (the streaming step-1 width): a thread per matrix, its four
+//   C x C planes (A and V, re and im) in registers, every rotation unrolled
+//   with constant indices (common.cuh's jacobi_sweeps).  Its 4 C updates a
+//   rotation are few, so it runs the fewest instructions: 3.2-3.4x faster
+//   than lane groups of 4 at a clip's batch, the same within the wrapper's
+//   own time at a window's (exp/eigh_group_variants.py).
+// - C >= 5: a group of G lanes owns a matrix (G = 8 for C <= 8, else 16:
+//   four or two matrices a warp), its four planes in shared memory with odd
+//   row strides.  A rotation (common.cuh's group_rotation) costs the
+//   rotation's scalar math, one element update per lane for each of rows p
+//   and q, columns p and q and V's columns p and q, four shuffles and two
+//   warp barriers, instead of the 4 C complex updates of a thread per
+//   matrix, whose four 11 x 11 planes also spill from the registers.  C and
+//   (p, q) are runtime values: with every rotation of a C = 11 sweep
+//   unrolled the kernel is ~15,000 instructions (~240 KB), more than the
+//   instruction caches hold.  Blocks of 128 threads load their matrices
+//   into shared memory with coalesced reads and write V and the diagonal
+//   back the same way.  Lanes l >= C and the matrices past the end of the
+//   batch (zeros: identity rotations) go through every barrier and write
+//   nothing.
+// The rotation's square roots go through sqrt_rn, sqrtf's fast path
+// without its branch (the same bits).
 //
 // Built with -fmad=false (see _build.py): every product and sum is rounded
 // on its own, in the order of the plain PyTorch version, whose element-wise
@@ -49,6 +57,58 @@
 
 namespace {
 
+// A thread per C x C matrix, the planes in registers.
+constexpr int kThreadBlock = 32;
+
+template <int C>
+__global__ void __launch_bounds__(kThreadBlock)
+    eigh_thread_kernel(const float* __restrict__ a, float* __restrict__ lam,
+                       float* __restrict__ v, const int n, const bool complex_in,
+                       const int sweeps, const float eps) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const size_t base = (size_t)idx * C * C;
+  float Ar[C][C], Ai[C][C];  // the matrix, rotated towards its diagonal
+  float Vr[C][C], Vi[C][C];  // the accumulated rotations
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (complex_in) {
+        const float2 x = reinterpret_cast<const float2*>(a)[base + i * C + j];
+        Ar[i][j] = x.x;
+        Ai[i][j] = x.y;
+      } else {
+        Ar[i][j] = a[base + i * C + j];
+        Ai[i][j] = 0.0f;
+      }
+      Vr[i][j] = i == j ? 1.0f : 0.0f;
+      Vi[i][j] = 0.0f;
+    }
+  }
+  disco::jacobi_sweeps<C, true>(Ar, Ai, Vr, Vi, C, sweeps, eps);
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    lam[(size_t)idx * C + i] = Ar[i][i];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (complex_in) {
+        reinterpret_cast<float2*>(v)[base + i * C + j] = make_float2(Vr[i][j], Vi[i][j]);
+      } else {
+        v[base + i * C + j] = Vr[i][j];
+      }
+    }
+  }
+}
+
+template <int C>
+void launch_thread(const float* a, float* lam, float* v, int n, bool cplx, int sweeps,
+                   float eps, cudaStream_t s) {
+  const int blocks = (n + kThreadBlock - 1) / kThreadBlock;
+  eigh_thread_kernel<C><<<blocks, kThreadBlock, 0, s>>>(a, lam, v, n, cplx, sweeps, eps);
+}
+
+// A group of G lanes per matrix, the planes in shared memory.
 constexpr int kThreads = 128;
 
 template <int G>
@@ -137,8 +197,14 @@ extern "C" int disco_eigh_jacobi(const void* a, void* lam, void* v, int n, int C
   float* lo = static_cast<float*>(lam);
   float* vo = static_cast<float*>(v);
   const bool cplx = complex_in != 0;
-  if (C <= 4) {
-    launch<4>(ain, lo, vo, n, C, cplx, sweeps, eps, s);
+  if (C == 1) {
+    launch_thread<1>(ain, lo, vo, n, cplx, sweeps, eps, s);
+  } else if (C == 2) {
+    launch_thread<2>(ain, lo, vo, n, cplx, sweeps, eps, s);
+  } else if (C == 3) {
+    launch_thread<3>(ain, lo, vo, n, cplx, sweeps, eps, s);
+  } else if (C == 4) {
+    launch_thread<4>(ain, lo, vo, n, cplx, sweeps, eps, s);
   } else if (C <= 8) {
     launch<8>(ain, lo, vo, n, C, cplx, sweeps, eps, s);
   } else {

@@ -34,6 +34,8 @@
 // Twiddles come from host tables (stft_ops.rfft_tables: float64 from exact
 // integer-mod angles, cast to float32); no sin/cos runs on the device.  Float32
 // throughout, a fixed order of operations, no atomics, no tensor cores.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -227,9 +229,19 @@ extern "C" int disco_stft(const void* x, const void* win, const void* tw, const 
   if (n_fft != kN || hop != kHop || L <= kN / 2 || T != 1 + L / kHop)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      stft_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  // The shared-memory limit is an attribute of the kernel on each device and
+  // never changes: set it on a device's first launch only (bit d of `set`).
+  static std::atomic<unsigned long long> set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(set.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(stft_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    set.fetch_or(bit, std::memory_order_relaxed);
+  }
   const int t_tiles = (T + kTile - 1) / kTile;
   stft_rfft_kernel<<<B * t_tiles, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(win),

@@ -7,9 +7,9 @@ cyclic-by-rows order of :func:`_pairs`.
 
 * :func:`eigh_jacobi_kernel` — the wrapper of the hand-written CUDA kernel
   ``csrc/eigh.cu`` (port of ``eigh_jacobi_pallas`` -> ``_eigh_kernel``),
-  a group of lanes per matrix with its planes in shared memory, its
-  rotation the ``jacobi_rotation`` device function of ``csrc/common.cuh``
-  that the fused solve shares.  It returns the unsorted diagonal and V, as
+  a thread per matrix up to C = 4 and a group of lanes per matrix with
+  its planes in shared memory above, its rotation the ``jacobi_rotation``
+  device function of ``csrc/common.cuh`` that the fused solve shares.  It returns the unsorted diagonal and V, as
   the Pallas kernel does, bit for bit those of :func:`eigh_jacobi_unsorted`
   on the card.  On a CPU tensor it runs :func:`eigh_jacobi_unsorted`.
 * :func:`eigh_jacobi_unsorted` — the plain version: the same sweeps on

@@ -61,7 +61,7 @@ __device__ __forceinline__ void rotation_d(float app, float aqq, float apq_re, f
 }
 
 // which: 0 div, 1 sqrt, 2 div via f64, 3 sqrt via f64, 4 rotation, 5 rotation via f64,
-// 6 sqrt_rn, 7 rotation by sqrt_rn
+// 6 sqrt_rn
 extern "C" __global__ void chain(int which, int n, float seed, float* out, long long* cyc) {
   float x = seed + 0.001f * threadIdx.x, y = 1.7f, z = 0.3f;
   const long long t0 = clock64();
@@ -74,7 +74,6 @@ extern "C" __global__ void chain(int which, int n, float seed, float* out, long 
     else {
       float c, sr, si;
       if (which == 4) disco::jacobi_rotation(x, y, z, 0.25f, 1e-19f, c, sr, si);
-      else if (which == 7) disco::jacobi_rotation<true>(x, y, z, 0.25f, 1e-19f, c, sr, si);
       else rotation_d(x, y, z, 0.25f, 1e-19f, c, sr, si);
       x = 1.0f + sr;
       z = 0.5f * c + si;
@@ -164,8 +163,8 @@ def main() -> int:
     res = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                    "--format=csv,noheader"], capture_output=True,
                                   text=True).stdout.strip()}
-    names = ["div", "sqrt", "div via f64", "sqrt via f64", "rotation", "rotation via f64",
-             "sqrt_rn", "rotation by sqrt_rn"]
+    names = ["div", "sqrt", "div via f64", "sqrt via f64", "rotation (by sqrt_rn)",
+             "rotation via f64", "sqrt_rn"]
     n = 4096
     for flavour, flags in (("-fmad=false", ["-fmad=false"]), ("default", [])):
         dll = build(flags, "probe" + flavour.replace("=", "_"))

@@ -158,8 +158,8 @@ def test_eigh_jacobi_kernel_bit_identical(cuda, rng, C):
 @pytest.mark.parametrize("C", [4, 11, 5])
 @pytest.mark.parametrize("n", [1, 3, 33, 2057])
 def test_eigh_jacobi_kernel_ragged_batches(cuda, rng, C, n):
-    """Batches that are not a multiple of the matrices a warp (8 at C <= 4,
-    4 at C <= 8, 2 above) or a block holds, with a NaN matrix
+    """Batches that are not a multiple of the matrices a block (32 at
+    C <= 4, a thread each) or a warp (4 at C <= 8, 2 above) holds, with a NaN matrix
     where there is room for one: bit for bit the plain version, NaN pairs
     from the NaN matrix only."""
     from disco_tpu_torch.ops import eigh_ops
