@@ -12,13 +12,17 @@ pass):
 1. The card's name and power limit (``nvidia-smi``); the four hand-written
    kernels are built from ``disco_tpu_torch/csrc`` into ``build/kernels/``
    (one ``nvcc`` per source, all started together) and their build
-   seconds and ``-Xptxas -v`` register, spill and shared-memory counts
-   printed.
+   seconds, ``-Xptxas -v`` register, spill and shared-memory counts and
+   SASS instruction counts (``cuobjdump -sass``) printed.
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (K=8 nodes, C=4 mics, 10 s at 16 kHz):
    the STFT on the clip (626 frames, not a multiple of the kernel's
    32-frame tile), on one streaming window (64 frames) and on 300 samples
-   (2 frames, both reaching into the reflected edges), the eigensolver on
+   (2 frames, both reaching into the reflected edges), the covariances
+   and the fused solve at one clip's launches and at those of the 16-clip
+   batch (recorded as the path hands them over; the covariances also bit
+   for bit from run to run, the solve's bit-identity to its plain version
+   reported), the eigensolver on
    the whitened step-1 (C=4) and step-2 (C=11) matrices of the full-clip
    streaming run, on its generic path (C = 1, 2, 7, 16), a ragged batch
    and a NaN matrix, each bit-identical to its plain version.
@@ -46,7 +50,10 @@ pass):
    (where one exists) one PyTorch library call computing the same
    function, beside the bound from this run's shapes and the H100 SXM
    data-sheet peaks; the eigensolver both at the full-clip stream's
-   batch and at the streaming window's (2056 matrices, C=4 and C=11).
+   batch and at the streaming window's (2056 matrices, C=4 and C=11), the
+   covariances and the fused solve both at one clip's launches and at the
+   16-clip batch's; beside each kernel's events (which include the
+   wrapper's host time) its device time under the profiler.
 6. Where one 16-clip offline call and one streaming window spend their
    device time, by kernel (``torch.profiler``), and the device's busy
    share of their wall time.
@@ -194,6 +201,35 @@ def eigh_cost(n: int, C: int, sweeps: int, complex_in: bool = True):
     return flops, n * (C * C * width + C * 4 + C * C * width)
 
 
+def short_kernel_name(mangled: str) -> str:
+    """The kernel's name and template arguments out of its mangled name."""
+    short = re.search(r"(stft_rfft_kernel|masked_cov_kernelILb[01]E"
+                      r"|fused_mwf_(?:thread|group)_kernelILi\d+E(?:Li\d+E)?"
+                      r"|eigh_(?:group|thread)_kernelILi\d+E)", mangled)
+    return short.group(1) if short else mangled
+
+
+def sass_counts(lib_path) -> dict:
+    """SASS instructions per kernel of the built library (``cuobjdump
+    -sass``, from the toolkit of the ``nvcc`` that built it)."""
+    from pathlib import Path
+
+    from disco_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = short_kernel_name(m.group(1))
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
 def ptxas_summary(log: str) -> list[dict]:
     """Registers, spill bytes and static shared memory per compiled kernel
     from ``-Xptxas -v``."""
@@ -201,10 +237,7 @@ def ptxas_summary(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            short = re.search(r"(stft_rfft_kernel|masked_cov_kernelILb[01]E"
-                              r"|fused_mwf_kernelILi\d+ELb[01]E"
-                              r"|eigh_(?:group|thread)_kernelILi\d+E)", m.group(1))
-            name = short.group(1) if short else m.group(1)
+            name = short_kernel_name(m.group(1))
             out.append({"kernel": name})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -259,6 +292,33 @@ def recorded_eigh_inputs():
         eigh_ops.eigh_jacobi_pallas = seam
 
 
+@contextmanager
+def recorded_kernel_inputs():
+    """The arguments the covariance and fused-solve wrappers are given, in
+    call order."""
+    from disco_tpu_torch.ops import cov_ops, mwf_ops
+
+    cov, mwf = cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel
+    seen = {"masked_cov": [], "fused_mwf": []}
+
+    def record_cov(y, mask):
+        seen["masked_cov"].append((y, mask))
+        return cov(y, mask)
+
+    def record_mwf(Rss, Rnn, mu=1.0, sweeps=None):
+        seen["fused_mwf"].append((Rss, Rnn, mu))
+        return mwf(Rss, Rnn, mu, sweeps)
+
+    # a wrapper adds to the counter of the function its module name holds:
+    # while recording, the recorder's, so recorded launches count nowhere
+    record_cov.launches = record_mwf.launches = 0
+    cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel = record_cov, record_mwf
+    try:
+        yield seen
+    finally:
+        cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel = cov, mwf
+
+
 def kernel_wrappers() -> dict:
     """name -> the wrapper whose ``launches`` counts the kernel."""
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
@@ -304,6 +364,8 @@ def phase1_build() -> str:
     print("build seconds: " + json.dumps({m.group(1): float(m.group(2)) for m in re.finditer(
         r"== (\S+) \(finished within ([0-9.]+) s of the start\)", log)}), flush=True)
     print("ptxas: " + json.dumps(ptxas_summary(log)), flush=True)
+    print("SASS instructions: " + json.dumps(sass_counts(_build.build_dir() / _build.LIB_NAME)),
+          flush=True)
     return smi
 
 
@@ -313,8 +375,9 @@ def phase2_kernels() -> SimpleNamespace:
     import torch
 
     from disco_tpu_torch.core.masks import tf_mask_mag
+    from disco_tpu_torch.enhance.fused import tango_clip_fused
     from disco_tpu_torch.enhance.tango import others_index
-    from disco_tpu_torch.ops import cov_ops, mwf_ops, stft_ops
+    from disco_tpu_torch.ops import stft_ops
 
     d = SimpleNamespace(dev=torch.device("cuda"), L=int(DUR_S * FS))
     d.y_np, d.s_np, d.n_np = scene(K, C, d.L, noise_scale=NOISE_SCALE)
@@ -346,33 +409,71 @@ def phase2_kernels() -> SimpleNamespace:
     d.err["masked_cov"] = 0.0
     for label, yy, mm in (("step1", d.Y, d.m), ("step2", d.in_y, d.m),
                           ("step2-chan", d.in_y, chan_m)):
-        ks = cov_ops.masked_cov_kernel(yy, mm)
-        ps = cov_ops.masked_covariances_folded(yy, mm)
-        torch.cuda.synchronize()
-        r = max(max_rel(ks[0], ps[0]), max_rel(ks[1], ps[1]))
-        e = max(max_abs(ks[0], ps[0]), max_abs(ks[1], ps[1]))
-        d.err["masked_cov"] = max(d.err["masked_cov"], e)
-        print(f"phase 2: masked_cov {label} {tuple(yy.shape)} max-rel {r:.3e} max-abs {e:.3e}",
-              flush=True)
-        require(r <= TOL["masked_cov"], ("masked_cov", label, r))
-        d.pencils[label] = ps
+        d.pencils[label] = check_cov(d, label, yy, mm)
     # the generic C <= 16 path of the solve, off the main path
     d.pencils["generic-C7"] = tuple(p[..., :7, :7].contiguous() for p in d.pencils["step2"])
     d.err["fused_mwf"] = 0.0
     for label in ("step1", "step2", "generic-C7"):
-        Rss, Rnn = d.pencils[label]
-        wk, tk = mwf_ops.fused_mwf_kernel(Rss, Rnn)
-        wp, tp = mwf_ops.fused_mwf_plain(Rss, Rnn)
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(wk).all() and torch.isfinite(wp).all())
-        r = max(rel_l2(wk, wp), rel_l2(tk, tp))
-        e = max(max_abs(wk, wp), max_abs(tk, tp))
-        d.err["fused_mwf"] = max(d.err["fused_mwf"], e)
-        print(f"phase 2: fused_mwf {label} {tuple(Rss.shape)} rel-l2 {r:.3e} max-abs {e:.3e} "
-              f"finite {finite}", flush=True)
-        require(finite and r <= TOL["fused_mwf"], ("fused_mwf", label, r))
+        check_mwf(d, label, *d.pencils[label])
+
+    # the launches of the 16-clip batch, as the path hands them to the kernels
+    with recorded_kernel_inputs() as seen:
+        tango_clip_fused(*batch_clips(d), solver="fused")
+    require(len(seen["masked_cov"]) == 2 and len(seen["fused_mwf"]) == 2,
+            ("kernel launches of one batched offline call", {k: len(v) for k, v in seen.items()}))
+    d.batch = seen
+    for label, (yy, mm) in zip(("batch step1", "batch step2"), seen["masked_cov"]):
+        check_cov(d, label, yy, mm)
+    for label, (Rss, Rnn, mu) in zip(("batch step1", "batch step2"), seen["fused_mwf"]):
+        check_mwf(d, label, Rss, Rnn, mu)
     phase2_eigh(d)
     return d
+
+
+def check_cov(d: SimpleNamespace, label: str, yy, mm):
+    """The covariance kernel against its plain version, and against its own
+    second run bit for bit; returns the plain version's pair."""
+    import torch
+
+    from disco_tpu_torch.ops import cov_ops
+
+    ks = cov_ops.masked_cov_kernel(yy, mm)
+    again = cov_ops.masked_cov_kernel(yy, mm)
+    ps = cov_ops.masked_covariances_folded(yy, mm)
+    torch.cuda.synchronize()
+    r = max(max_rel(ks[0], ps[0]), max_rel(ks[1], ps[1]))
+    e = max(max_abs(ks[0], ps[0]), max_abs(ks[1], ps[1]))
+    stable = all(torch.equal(a, b) for a, b in zip(ks, again))
+    d.err["masked_cov"] = max(d.err["masked_cov"], e)
+    print(f"phase 2: masked_cov {label} {tuple(yy.shape)} mask {tuple(mm.shape)} max-rel {r:.3e} "
+          f"max-abs {e:.3e} bit-stable run to run {stable}", flush=True)
+    require(r <= TOL["masked_cov"] and stable, ("masked_cov", label, r, stable))
+    return ps
+
+
+def check_mwf(d: SimpleNamespace, label: str, Rss, Rnn, mu=1.0) -> None:
+    """The fused-solve kernel against its plain version; whether the two
+    agree bit for bit is reported."""
+    import torch
+
+    from disco_tpu_torch.ops import mwf_ops
+
+    wk, tk = mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu)
+    wp, tp = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(wk).all() and torch.isfinite(wp).all())
+    r = max(rel_l2(wk, wp), rel_l2(tk, tp))
+    e = max(max_abs(wk, wp), max_abs(tk, tp))
+    bitwise = bool(torch.equal(wk, wp) and torch.equal(tk, tp))
+    d.err["fused_mwf"] = max(d.err["fused_mwf"], e)
+    print(f"phase 2: fused_mwf {label} {tuple(Rss.shape)} rel-l2 {r:.3e} max-abs {e:.3e} "
+          f"finite {finite} bit-identical {bitwise}", flush=True)
+    require(finite and r <= TOL["fused_mwf"], ("fused_mwf", label, r))
+
+
+def batch_clips(d: SimpleNamespace):
+    """(y, s, n) of the timed batch: the clip repeated BATCH times."""
+    return tuple(a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
 
 
 def phase2_eigh(d: SimpleNamespace) -> None:
@@ -594,7 +695,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
     from disco_tpu_torch.ops.eigh_ops import default_sweeps
 
-    yb, sb, nb = (a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
+    yb, sb, nb = batch_clips(d)
     tango_clip_fused(yb, sb, nb, solver="fused")  # warm-up
     runs = sorted(time_ms(lambda: tango_clip_fused(yb, sb, nb, solver="fused"), reps=1,
                           warmup=0) for _ in range(5))
@@ -618,13 +719,8 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
           f"{med / BLOCKS_PER_DISPATCH} ms; {LW / FS / (med / 1e3)} stream-seconds per s "
           f"({K * LW / FS / (med / 1e3)} node-audio-seconds per s)", flush=True)
 
-    F, T = d.Y.shape[-2], d.Y.shape[-1]
     win = stft_ops.hann_periodic(512, device=d.dev)
     rows = d.x.reshape(-1, d.L)
-    w_st = torch.stack([d.m * d.m, (1 - d.m) ** 2]).to(torch.complex64) / T
-
-    def lib_cov(yy):
-        return lambda: torch.einsum("wkft,kcft,kdft->wkfcd", w_st, yy, yy.conj())
 
     entries = []
     fl, nbytes = stft_cost(rows.shape[0], d.L)
@@ -639,31 +735,49 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "library_ms": time_ms(lambda: torch.stft(rows, 512, 256, window=win, center=True,
                                                  pad_mode="reflect", return_complex=True), reps=20),
     })
-    per = []  # covariances: step 1 (C=4) and step 2 (D=11) launches of one clip
-    for label, yy in (("step1", d.Y), ("step2", d.in_y)):
-        fl, nbytes = cov_cost(K, yy.shape[1], F, T, chan=False)
-        per.append({
+
+    def cov_times(label, yy, mm, plain_reps):
+        lead, (D, F, T) = yy.shape[:-3], yy.shape[-3:]
+        chan = mm.ndim == yy.ndim
+        fl, nbytes = cov_cost(math.prod(lead), D, F, T, chan)
+        return {
             "shape": f"{label} {tuple(yy.shape)}",
-            "ms": time_ms(lambda: cov_ops.masked_cov_kernel(yy, d.m), reps=50),
-            "plain_ms": time_ms(lambda: cov_ops.masked_covariances_folded(yy, d.m), reps=20),
-            "library_ms": time_ms(lib_cov(yy), reps=20),
+            "ms": time_ms(lambda: cov_ops.masked_cov_kernel(yy, mm), reps=50),
+            "device_ms": device_ms(lambda: cov_ops.masked_cov_kernel(yy, mm), "masked_cov_kernel"),
+            "plain_ms": time_ms(lambda: cov_ops.masked_covariances_folded(yy, mm),
+                                reps=plain_reps),
+            "library_ms": time_ms(library_cov(yy, mm), reps=plain_reps),
             "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
-        })
-    entries.append(_summed(d, "masked_cov", "disco_tpu_torch/csrc/cov.cu",
-                           "disco_tpu/ops/cov_ops.py:233", per))
-    per = []  # fused solve: step 1 (C=4) and step 2 (D=11) launches of one clip
-    for label in ("step1", "step2"):
-        Rss, Rnn = d.pencils[label]
+        }
+
+    def mwf_times(label, Rss, Rnn, mu, plain_reps):
         D = Rss.shape[-1]
         fl, nbytes = mwf_cost(Rss[..., 0, 0].numel(), D, default_sweeps(D))
-        per.append({
+        return {
             "shape": f"{label} {tuple(Rss.shape)}",
-            "ms": time_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn), reps=20),
-            "plain_ms": time_ms(lambda: mwf_ops.fused_mwf_plain(Rss, Rnn), reps=2, warmup=1),
+            "ms": time_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu), reps=20),
+            "device_ms": device_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu), "fused_mwf"),
+            "plain_ms": time_ms(lambda: mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu), reps=plain_reps,
+                                warmup=1),
             "library_ms": None, "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
-        })
+        }
+
+    # covariances and fused solve: the step-1 (C=4) and step-2 (D=11)
+    # launches of one clip; beside them, those of the 16-clip batch
+    per = [cov_times(label, yy, d.m, 20) for label, yy in (("step1", d.Y), ("step2", d.in_y))]
+    entries.append(_summed(d, "masked_cov", "disco_tpu_torch/csrc/cov.cu",
+                           "disco_tpu/ops/cov_ops.py:233", per))
+    entries[-1]["batch_launches"] = [cov_times(f"batch {label}", yy, mm, 5) for label, (yy, mm)
+                                     in zip(("step1", "step2"), d.batch["masked_cov"])]
+    per = [mwf_times(label, *d.pencils[label], 1.0, 2) for label in ("step1", "step2")]
     entries.append(_summed(d, "fused_mwf", "disco_tpu_torch/csrc/mwf.cu",
                            "disco_tpu/ops/mwf_ops.py:434", per))
+    entries[-1]["batch_launches"] = [mwf_times(f"batch {label}", Rss, Rnn, mu, 1) for label,
+                                     (Rss, Rnn, mu) in zip(("step1", "step2"), d.batch["fused_mwf"])]
+    for e in entries[1:]:
+        for row in e["per_launch"] + e["batch_launches"]:
+            print(f"phase 5: {e['name']}: " + json.dumps(row), flush=True)
+
     def eigh_times(label, A, reps, plain_reps):
         D = A.shape[-1]
         fl, nbytes = eigh_cost(A[..., 0, 0].numel(), D, default_sweeps(D))
@@ -671,6 +785,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         return {
             "shape": f"{label} {tuple(A.shape)}",
             "ms": time_ms(lambda: eigh_ops.eigh_jacobi_kernel(A), reps=reps),
+            "device_ms": device_ms(lambda: eigh_ops.eigh_jacobi_kernel(A), "eigh_"),
             "plain_ms": time_ms(lambda: eigh_ops.eigh_jacobi_unsorted(A), reps=plain_reps,
                                 warmup=1),
             "library_ms": lib_ms, "library_matrices_per_call": lib_chunk,
@@ -691,6 +806,46 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             require(math.isfinite(e[key]), (e["name"], key))
     return entries
+
+
+def library_cov(yy, mm):
+    """One ``torch.einsum`` call per covariance computing the kernel's pair
+    (the shared mask's weights made before, as the kernel's wrapper is
+    handed the mask)."""
+    import torch
+
+    T = yy.shape[-1]
+    if mm.ndim == yy.ndim:
+        return lambda: [torch.einsum("...cft,...dft->...fcd", a, a.conj()) / T
+                        for a in (mm * yy, (1 - mm) * yy)]
+    w_st = torch.stack([mm * mm, (1 - mm) ** 2]).to(torch.complex64) / T
+    return lambda: torch.einsum("w...ft,...cft,...dft->w...fcd", w_st, yy, yy.conj())
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float | None:
+    """Device time of one call of ``fn`` in the kernels whose name holds
+    ``kernel`` (``torch.profiler``), mean of ``reps`` calls each after an L2
+    flush, as ``time_ms``; None when the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(25 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            us += t
+    return us / 1e3 / reps if us > 0 else None
 
 
 def library_eigh_ms(A) -> tuple[float, int]:
@@ -756,7 +911,7 @@ def phase6_breakdown(d: SimpleNamespace) -> None:
     window goes."""
     from disco_tpu_torch.enhance.fused import tango_clip_fused
 
-    yb, sb, nb = (a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
+    yb, sb, nb = batch_clips(d)
     profiled(f"one {BATCH}-clip offline call",
              lambda: tango_clip_fused(yb, sb, nb, solver="fused"))
     del yb, sb, nb

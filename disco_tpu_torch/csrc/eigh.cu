@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kThreadBlock)
       Vi[i][j] = 0.0f;
     }
   }
-  disco::jacobi_sweeps<C, true>(Ar, Ai, Vr, Vi, C, sweeps, eps);
+  disco::jacobi_sweeps<C>(Ar, Ai, Vr, Vi, sweeps, eps);
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     lam[(size_t)idx * C + i] = Ar[i][i];

@@ -1,4 +1,5 @@
-// Fused rank-1 GEVD-MWF solve, one thread per (C x C) Hermitian pencil.
+// Fused rank-1 GEVD-MWF solve: a thread per (C x C) Hermitian pencil up to
+// C = 4, a group of lanes per pencil with its planes in shared memory above.
 //
 // Replaces: disco_tpu/ops/mwf_ops.py::fused_mwf_pallas -> _mwf_kernel (helpers
 // _elem_cholesky, _elem_whiten, and eigh_ops.py::_lane_rotation).
@@ -11,19 +12,42 @@
 // pair by a strict running max over the diagonal -> lambda clipped to
 // [EIG_FLOOR, EIG_CEIL] -> q1 = L^-H u1 -> W = q1 lambda/(lambda+mu)
 // conj(u1[0] L00), t1 = q1 conj(u1[0] L00).  NaNs propagate (the e1
-// sanitize step is the caller's); the ragged edge is masked by the thread
-// index, so no identity padding is needed.
+// sanitize step is the caller's); the ragged edge is masked by the pencil
+// index, so no identity padding is needed.  mu is a per-pencil array, or
+// one value for every pencil (a null pointer or a stride of 0).
 //
-// Bound on an H100: operations.  At the step-2 width (C = 11, 7 sweeps)
-// a pencil costs ~2e5 float ops against ~2 KB of input, but the main path
-// has only K*F = 2056 pencils per step: 2056 threads fill ~16 of 132 SMs'
-// worth of warps, so the kernel is latency-bound far above its bound.  The
-// design keeps each pencil in one thread's registers (templated on C = 4
-// and 11 with every loop unrolled on constant indices, a generic C <= 16
-// path of runtime loops in local memory); at C = 11 the ~700 live floats exceed the 255
-// registers and spill to local memory (counts in PERF.md).  Blocks of 32
-// threads spread the few warps over as many SMs (and L1 caches for the
-// spills) as possible.
+// Bound on an H100: operations.  At the step-2 width (C = 11, 7 sweeps) a
+// pencil costs ~2e5 float operations against ~2 KB of input, but the main
+// path hands a launch only K*F = 2056 pencils (32,896 at the 16-clip
+// batch), each a serial chain of 385 rotations of ~650 cycles (three
+// correctly rounded square roots and three divisions, PERF.md): latency
+// first, instruction issue at large batches.  Two designs, chosen by C, as
+// in eigh.cu:
+// - C <= 4 (step 1): a thread per pencil, its planes in registers, every
+//   loop unrolled on constant indices (one instance for each C from 1 to
+//   4); the rotations are common.cuh's jacobi_sweeps.
+// - C >= 5 (step 2): a group of G lanes per pencil (G = 8 for C <= 8, else
+//   16: four or two pencils a warp), lane l owning rows and columns l + G r,
+//   r < R.  A, L and V sit in shared memory as interleaved complex C x C
+//   matrices with an odd row stride (one 8-byte access an entry, columns on
+//   distinct banks), each pencil's block padded so that the pencils of a
+//   half-warp start on distinct banks.  The Cholesky goes column by column:
+//   the owner of row j takes the diagonal's square root and reciprocal, a
+//   shuffle broadcasts it, the owners of rows i > j form L[i][j].  The
+//   whitening's B = L^-1 Rss and M = L^-1 B^H are C independent right-hand
+//   sides: each lane solves its columns.  The sweeps are common.cuh's
+//   group_rotation with runtime (p, q) (the eigensolver's rotation;
+//   unrolled, a C = 11 sweep is more code than the instruction caches
+//   hold).  Each lane runs the same running max over the diagonal, lane 0
+//   the back-substitution, each lane stores its rows of W and t1.  The
+//   kernel takes R = 1: at C = 11 two, three or six indices a lane (8, 4 or
+//   2 lanes a pencil) save at most 1.16x at the 16-clip batch, where every
+//   lane repeating the rotation's scalar chain makes the groups
+//   issue-bound, and lose 1.25-2.3x at one clip, where each pencil's chain
+//   of 385 rotations is the latency (exp/mwf_group_variants.py, PERF.md).
+// Each element is computed by the expression of the plain version, in its
+// order, and the source is built with -fmad=false (see _build.py), as
+// eigh.cu is: the kernel then repeats fused_mwf_plain's rounding.
 #include <cfloat>
 
 #include "common.cuh"
@@ -37,28 +61,34 @@ struct MwfParams {
   float lam_ceil;   // EIG_CEIL
 };
 
+constexpr int kMaxC = 16;
+
+// lambda clipped to [floor, ceil]; NaN stays NaN
+__device__ __forceinline__ float clip_lambda(const float best, const MwfParams& prm) {
+  const float lam = best < prm.lam_floor ? prm.lam_floor : best;
+  return lam > prm.lam_ceil ? prm.lam_ceil : lam;
+}
+
+// ---------------------------------------------------------------- C <= 4
 constexpr int kThreads = 32;
 
-template <int CM, bool FIXED>
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-    fused_mwf_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
-                     const float* __restrict__ mu, float2* __restrict__ w,
-                     float2* __restrict__ t1, const int n, const int c_rt, const int sweeps,
-                     const MwfParams prm) {
+    fused_mwf_thread_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
+                            const float* __restrict__ mu, const int mu_stride,
+                            const float mu_value, float2* __restrict__ w,
+                            float2* __restrict__ t1, const int n, const int sweeps,
+                            const MwfParams prm) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const int C = FIXED ? CM : c_rt;
   const float2* S = rss + (size_t)idx * C * C;
   const float2* N = rnn + (size_t)idx * C * C;
 
-  float Ar[CM][CM], Ai[CM][CM];  // Rss, then B = L^-1 Rss, then A
-  float Lr[CM][CM], Li[CM][CM];  // lower triangle of Rnn, then L in place
-  float Mr[CM][CM], Mi[CM][CM];  // M = L^-1 B^H, then the eigenvectors V
-  float inv[CM];                 // 1 / L[i][i]
+  float Ar[C][C], Ai[C][C];  // Rss, then B = L^-1 Rss, then A
+  float Lr[C][C], Li[C][C];  // lower triangle of Rnn, then L in place
+  float Mr[C][C], Mi[C][C];  // M = L^-1 B^H, then the eigenvectors V
+  float inv[C];              // 1 / L[i][i]
 
-  // Every loop runs to C: a constant in the FIXED instances, where the
-  // loops unroll fully and the planes stay in registers; a runtime bound in
-  // the generic one, whose loops stay loops (a quick compile).
 #pragma unroll
   for (int i = 0; i < C; ++i) {
 #pragma unroll
@@ -99,13 +129,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 1; c < C; ++c) tr2 = tr2 + Lr[c][c];
   const float load = prm.loading * (tr2 * (1.0f / C)) + FLT_MIN;
 
-  // -- complex Cholesky in place (NaN for a non-PSD pencil via sqrtf)
+  // -- complex Cholesky in place (NaN for a non-PSD pencil)
 #pragma unroll
   for (int j = 0; j < C; ++j) {
     float d = Lr[j][j] + load;
 #pragma unroll
     for (int k = 0; k < j; ++k) d = d - (Lr[j][k] * Lr[j][k] + Li[j][k] * Li[j][k]);
-    const float ljj = sqrtf(d);
+    const float ljj = disco::sqrt_rn(d);
     const float iv = 1.0f / ljj;
     Lr[j][j] = ljj;
     Li[j][j] = 0.0f;
@@ -173,11 +203,11 @@ __global__ void __launch_bounds__(kThreads)
       Mi[i][j] = 0.0f;
     }
   }
-  disco::jacobi_sweeps<CM, FIXED>(Ar, Ai, Mr, Mi, C, sweeps, prm.eps);
+  disco::jacobi_sweeps<C>(Ar, Ai, Mr, Mi, sweeps, prm.eps);
 
   // -- dominant pair: strict running max over the converged diagonal
   float best = Ar[0][0];
-  float ur[CM], ui[CM];
+  float ur[C], ui[C];
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     ur[i] = Mr[i][0];
@@ -193,11 +223,10 @@ __global__ void __launch_bounds__(kThreads)
       ui[i] = better ? Mi[i][c] : ui[i];
     }
   }
-  float lam1 = best < prm.lam_floor ? prm.lam_floor : best;  // NaN stays NaN
-  lam1 = lam1 > prm.lam_ceil ? prm.lam_ceil : lam1;
+  const float lam1 = clip_lambda(best, prm);
 
   // -- back-substitution q1 = L^-H u1 (L^H upper triangular)
-  float qr[CM], qi[CM];
+  float qr[C], qi[C];
 #pragma unroll
   for (int i = C - 1; i >= 0; --i) {
     float rr = ur[i], ri = ui[i];
@@ -214,7 +243,8 @@ __global__ void __launch_bounds__(kThreads)
   // -- filter formation: (Q^-1)[0][0] = conj(u1[0] L00)
   const float qinv_r = ur[0] * Lr[0][0];
   const float qinv_i = -ui[0] * Lr[0][0];
-  const float g = lam1 / (lam1 + mu[idx]);
+  const float m = mu ? mu[(size_t)idx * mu_stride] : mu_value;
+  const float g = lam1 / (lam1 + m);
   const float cr = g * qinv_r, ci = g * qinv_i;
   float2* W = w + (size_t)idx * C;
   float2* T1 = t1 + (size_t)idx * C;
@@ -225,16 +255,278 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int C>
+void launch_thread(const float2* a, const float2* b, const float* mu, int mu_stride,
+                   float mu_value, float2* w, float2* t1, int n, int sweeps,
+                   const MwfParams& prm, cudaStream_t s) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  fused_mwf_thread_kernel<C><<<blocks, kThreads, 0, s>>>(a, b, mu, mu_stride, mu_value, w, t1,
+                                                         n, sweeps, prm);
+}
+
+// ---------------------------------------------------------------- C >= 5
+// Pencils a block of the lane-group design holds: 64 threads from G = 8
+// up, eight pencils below (the shared memory stays under 48 KB at C = G R).
+template <int G>
+constexpr int kGroupPencils = G >= 8 ? 64 / G : 8;
+
+// Floats of shared memory a pencil takes: three C x (C | 1) complex
+// matrices (A, L, V, interleaved re/im), then 1 / L[i][i] and q1 (re, im),
+// kMaxC each, padded to 2 G more than a multiple of 32: the pencils a
+// half-warp's 8-byte access touches then start 2 G banks apart, and its
+// lanes hit distinct banks.
+__host__ __device__ constexpr int group_floats(const int C, const int G) {
+  const int f = 6 * C * (C | 1) + 3 * kMaxC;
+  return f + ((2 * G - f % 32) % 32 + 32) % 32;
+}
+
+// A group of G lanes per pencil, lane l owning the indices l + G r, r < R
+// (C <= G R): rows and columns l + G r of A, V and L.
+template <int G, int R>
+__global__ void __launch_bounds__(G * kGroupPencils<G>)
+    fused_mwf_group_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
+                           const float* __restrict__ mu, const int mu_stride,
+                           const float mu_value, float2* __restrict__ w,
+                           float2* __restrict__ t1, const int n, const int C, const int sweeps,
+                           const MwfParams prm) {
+  constexpr int kPencils = kGroupPencils<G>;
+  constexpr int kThreadsG = G * kPencils;
+  extern __shared__ float2 sm2[];
+  const int S = C | 1;  // row stride (odd: columns hit distinct banks)
+  const int cs = C * S, cc = C * C, per = group_floats(C, G) / 2;  // in float2
+  const int first = blockIdx.x * kPencils;
+  const int count = min(kPencils, n - first);
+
+  // coalesced loads: Rss into A, Rnn into L; pencils past the end are zeros
+  // (their chain runs on finite values and stores nothing)
+  const float2* a2 = rss + (size_t)first * cc;
+  const float2* b2 = rnn + (size_t)first * cc;
+  for (int e = threadIdx.x; e < kPencils * cc; e += kThreadsG) {
+    const int m = e / cc, r = (e - m * cc) / C, k = e - m * cc - r * C;
+    float2 x = make_float2(0.0f, 0.0f), v = make_float2(0.0f, 0.0f);
+    if (m < count) {
+      x = a2[e];
+      v = b2[e];
+    }
+    sm2[m * per + r * S + k] = x;
+    sm2[m * per + cs + r * S + k] = v;
+  }
+  __syncthreads();
+
+  const int l = threadIdx.x % G;
+  const int pencil = threadIdx.x / G;
+  float2* A = sm2 + pencil * per;
+  float2* L = A + cs;
+  float2* V = L + cs;
+  float* inv = reinterpret_cast<float*>(V + cs);
+  float* qr = inv + kMaxC;
+  float* qi = qr + kMaxC;
+
+  // -- joint scale normalization; every lane reads the same trace
+  float tr = L[0].x;
+  for (int c = 1; c < C; ++c) tr = tr + L[c * S + c].x;
+  tr = tr * (1.0f / C);
+  const float scale = 1.0f / disco::max_keep_nan(tr, FLT_MIN);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = l + G * r;
+    if (k < C) {
+      for (int i = 0; i < C; ++i) {
+        const float2 a = A[i * S + k], b = L[i * S + k];
+        A[i * S + k] = make_float2(a.x * scale, a.y * scale);
+        L[i * S + k] = make_float2(b.x * scale, b.y * scale);
+      }
+    }
+  }
+  __syncwarp();
+
+  // -- relative diagonal loading
+  float tr2 = L[0].x;
+  for (int c = 1; c < C; ++c) tr2 = tr2 + L[c * S + c].x;
+  const float load = prm.loading * (tr2 * (1.0f / C)) + FLT_MIN;
+
+  // -- complex Cholesky, column by column: the owner of row i >= j forms
+  // L[i][j] less the sum over k < j (at i == j, with the load, the
+  // diagonal's radicand); the owner of row j takes the root and its
+  // reciprocal, and a shuffle broadcasts the reciprocal.
+  for (int j = 0; j < C; ++j) {
+    float2 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int kk = l + G * r;
+      const int i = kk >= j && kk < C ? kk : j;
+      x[r] = L[i * S + j];
+      if (i == j) x[r].x = x[r].x + load;
+      for (int k = 0; k < j; ++k) {
+        // A[i][j] - sum_k L[i][k] conj(L[j][k])
+        const float2 u = L[i * S + k], v = L[j * S + k];
+        x[r].x = x[r].x - (u.x * v.x + u.y * v.y);
+        x[r].y = x[r].y - (u.y * v.x - u.x * v.y);
+      }
+    }
+    float d = x[0].x;
+#pragma unroll
+    for (int r = 1; r < R; ++r) d = j / G == r ? x[r].x : d;
+    const float ljj = disco::sqrt_rn(d);  // used by the owner of row j only
+    const float ivj = 1.0f / ljj;
+    const float iv = __shfl_sync(0xffffffffu, ivj, R == 1 ? j : j % G, G);
+    __syncwarp();  // row j is read by every lane before its owner writes it
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = l + G * r;
+      if (i == j) {
+        L[j * S + j] = make_float2(ljj, 0.0f);
+        inv[j] = ivj;
+      } else if (i > j && i < C) {
+        L[i * S + j] = make_float2(x[r].x * iv, x[r].y * iv);
+      }
+    }
+    __syncwarp();
+  }
+
+  // -- whitening: B = L^-1 Rss, each lane solving its columns in place
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kk = l + G * r;
+    const int k0 = kk < C ? kk : 0;  // idle slots read a valid column and write nothing
+    for (int i = 0; i < C; ++i) {
+      float2 x = A[i * S + k0];
+      for (int k = 0; k < i; ++k) {
+        const float2 u = L[i * S + k], b = A[k * S + k0];
+        x.x = x.x - (u.x * b.x - u.y * b.y);
+        x.y = x.y - (u.x * b.y + u.y * b.x);
+      }
+      if (kk < C) A[i * S + kk] = make_float2(x.x * inv[i], x.y * inv[i]);
+    }
+  }
+  __syncwarp();
+  // M = L^-1 B^H into V, each lane solving its columns:
+  // B^H[i][k] = conj(B[k][i])
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kk = l + G * r;
+    const int k0 = kk < C ? kk : 0;
+    for (int i = 0; i < C; ++i) {
+      const float2 b = A[k0 * S + i];
+      float2 x = make_float2(b.x, -b.y);
+      for (int k = 0; k < i; ++k) {
+        const float2 u = L[i * S + k], m = V[k * S + k0];
+        x.x = x.x - (u.x * m.x - u.y * m.y);
+        x.y = x.y - (u.x * m.y + u.y * m.x);
+      }
+      if (kk < C) V[i * S + kk] = make_float2(x.x * inv[i], x.y * inv[i]);
+    }
+  }
+  __syncwarp();
+  // A = M^H re-hermitized: A[i][j] = (conj(M[j][i]) + M[i][j]) / 2
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = l + G * r;
+    if (k < C) {
+      for (int i = 0; i < C; ++i) {
+        const float2 mt = V[k * S + i], m = V[i * S + k];
+        A[i * S + k] = make_float2(0.5f * (mt.x + m.x), 0.5f * (m.y - mt.y));
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = l + G * r;
+    if (k < C) {
+      for (int i = 0; i < C; ++i) V[i * S + k] = make_float2(i == k ? 1.0f : 0.0f, 0.0f);
+    }
+  }
+  __syncwarp();
+
+  // -- fixed-sweep cyclic Jacobi with eigenvector accumulation
+  const disco::InterleavedMatrix Am{A, S}, Vm{V, S};
+#pragma unroll 1
+  for (int s = 0; s < sweeps; ++s) {
+#pragma unroll 1
+    for (int p = 0; p < C - 1; ++p) {
+#pragma unroll 1
+      for (int q = p + 1; q < C; ++q) disco::group_rotation<G, R>(Am, Vm, C, p, q, l, prm.eps);
+    }
+  }
+
+  // -- dominant pair: strict running max over the converged diagonal, the
+  // same in every lane
+  float best = A[0].x;
+  int top = 0;
+  for (int c = 1; c < C; ++c) {
+    const float v = A[c * S + c].x;
+    if (v > best) {
+      best = v;
+      top = c;
+    }
+  }
+  const float lam1 = clip_lambda(best, prm);
+
+  // -- back-substitution q1 = L^-H u1 (L^H upper triangular), by lane 0
+  if (l == 0) {
+    for (int i = C - 1; i >= 0; --i) {
+      const float2 u = V[i * S + top];
+      float rr = u.x, ri = u.y;
+      for (int k = i + 1; k < C; ++k) {
+        const float2 lk = L[k * S + i];
+        const float lr = lk.x, li = -lk.y;  // L^H[i][k] = conj(L[k][i])
+        rr = rr - (lr * qr[k] - li * qi[k]);
+        ri = ri - (lr * qi[k] + li * qr[k]);
+      }
+      qr[i] = rr * inv[i];
+      qi[i] = ri * inv[i];
+    }
+  }
+  __syncwarp();
+
+  // -- filter formation: (Q^-1)[0][0] = conj(u1[0] L00); each lane stores
+  // its rows
+  if (pencil < count) {
+    const float2 u0 = V[top];
+    const float qinv_r = u0.x * L[0].x;
+    const float qinv_i = -u0.y * L[0].x;
+    const int idx = first + pencil;
+    const float m = mu ? mu[(size_t)idx * mu_stride] : mu_value;
+    const float g = lam1 / (lam1 + m);
+    const float cr = g * qinv_r, ci = g * qinv_i;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = l + G * r;
+      if (k < C) {
+        const float xr = qr[k], xi = qi[k];
+        w[(size_t)idx * C + k] = make_float2(xr * cr - xi * ci, xr * ci + xi * cr);
+        t1[(size_t)idx * C + k] =
+            make_float2(xr * qinv_r - xi * qinv_i, xr * qinv_i + xi * qinv_r);
+      }
+    }
+  }
+}
+
+template <int G, int R>
+void launch_group(const float2* a, const float2* b, const float* mu, int mu_stride,
+                  float mu_value, float2* w, float2* t1, int n, int C, int sweeps,
+                  const MwfParams& prm, cudaStream_t s) {
+  constexpr int kPencils = kGroupPencils<G>;
+  const int blocks = (n + kPencils - 1) / kPencils;
+  const size_t smem = sizeof(float) * kPencils * group_floats(C, G);
+  fused_mwf_group_kernel<G, R><<<blocks, G * kPencils, smem, s>>>(a, b, mu, mu_stride, mu_value,
+                                                                  w, t1, n, C, sweeps, prm);
+}
+
 }  // namespace
 
-// rss, rnn: (n, C, C) complex64; mu: (n,) float32; w, t1: (n, C) complex64.
-extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu, void* w,
-                               void* t1, int n, int C, int sweeps, float eps, float loading,
-                               float lam_floor, float lam_ceil, void* stream) {
+// rss, rnn: (n, C, C) complex64; mu: (n,) float32 read at mu[i * mu_stride]
+// (mu_stride 0: one value for all), or null for mu_value; w, t1: (n, C)
+// complex64.
+extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu, int mu_stride,
+                               float mu_value, void* w, void* t1, int n, int C, int sweeps,
+                               float eps, float loading, float lam_floor, float lam_ceil,
+                               void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (C < 1 || C > 16 || sweeps < 0) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxC || sweeps < 0) return (int)cudaErrorInvalidValue;
   const MwfParams prm{eps, loading, lam_floor, lam_ceil};
-  const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* a = static_cast<const float2*>(rss);
   const float2* b = static_cast<const float2*>(rnn);
@@ -242,14 +534,16 @@ extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu,
   float2* wo = static_cast<float2*>(w);
   float2* to = static_cast<float2*>(t1);
   switch (C) {
-    case 4:
-      fused_mwf_kernel<4, true><<<blocks, kThreads, 0, s>>>(a, b, m, wo, to, n, C, sweeps, prm);
-      break;
-    case 11:
-      fused_mwf_kernel<11, true><<<blocks, kThreads, 0, s>>>(a, b, m, wo, to, n, C, sweeps, prm);
-      break;
+    case 1: launch_thread<1>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
+    case 2: launch_thread<2>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
+    case 3: launch_thread<3>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
+    case 4: launch_thread<4>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
     default:
-      fused_mwf_kernel<16, false><<<blocks, kThreads, 0, s>>>(a, b, m, wo, to, n, C, sweeps, prm);
+      if (C <= 8) {
+        launch_group<8, 1>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+      } else {
+        launch_group<16, 1>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+      }
       break;
   }
   return (int)cudaGetLastError();

@@ -10,9 +10,10 @@ library with a plain C interface, bound with ``ctypes``:
   on its first kernel launch and a changed source gets a new directory;
 * ``-Xptxas -v`` output (registers, spills) is kept beside the library in
   ``ptxas.log``;
-* ``eigh.cu`` is compiled with ``-fmad=false``, so that the Jacobi
-  eigensolver rounds every product and sum as its plain PyTorch version
-  does (see the note at the top of that source).
+* ``eigh.cu`` and ``mwf.cu`` are compiled with ``-fmad=false``, so that
+  the Jacobi eigensolver and the fused solve round every product and sum
+  as their plain PyTorch versions do (see the notes at the top of those
+  sources).
 
 Every C entry point takes ``c_void_p`` pointers and stream and ``c_int``
 sizes, launches on the stream it is given and returns
@@ -36,7 +37,7 @@ LIB_NAME = "libdisco_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: flags of one source on top of NVCC_FLAGS
-SOURCE_FLAGS = {"eigh.cu": ["-fmad=false"]}
+SOURCE_FLAGS = {"eigh.cu": ["-fmad=false"], "mwf.cu": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of the entry points (argument types; every one returns int)
@@ -45,8 +46,9 @@ SIGNATURES = {
     "disco_stft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # y, mask, rss, rnn, B, C, F, T, per_channel_mask, stream
     "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # rss, rnn, mu, w, t1, n, C, sweeps, eps, loading, lam_floor, lam_ceil, stream
-    "disco_fused_mwf": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # rss, rnn, mu, mu_stride, mu_value, w, t1, n, C, sweeps, eps, loading,
+    # lam_floor, lam_ceil, stream
+    "disco_fused_mwf": [_P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
     # a, lam, v, n, C, complex_in, sweeps, eps, stream
     "disco_eigh_jacobi": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

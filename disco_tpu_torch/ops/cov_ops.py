@@ -15,7 +15,9 @@ under the 'distant' policy).
   ``csrc/cov.cu`` (port of ``masked_cov_pallas`` -> ``_cov_kernel`` /
   ``_cov_kernel_chan``): reads the complex64 spectra and the mask once and
   writes the (..., F, C, C) complex64 pair directly; the masked copies
-  never exist.  On a CPU tensor it runs :func:`masked_covariances_folded`.
+  never exist.  Its frames are summed in slices combined in a fixed order
+  (``tests/test_torch_port_cov_partition.py`` models it), so it meets the
+  plain version within 1e-5 and itself bit for bit.  On a CPU tensor it runs :func:`masked_covariances_folded`.
 * :func:`masked_covariances_folded` / :func:`weighted_cov_folded` — the
   plain version: the mask weights contracted inside one ``torch.einsum``
   per covariance.  :func:`weighted_cov_folded` alone is also the 'none'
@@ -32,8 +34,8 @@ import torch
 from disco_tpu_torch.ops import _build
 from disco_tpu_torch.ops.resolve import check_impl, resolve_precision
 
-#: the largest channel count the covariance kernel takes (one thread per
-#: upper-triangle pair, C(C+1)/2 <= 136 threads)
+#: the largest channel count the covariance kernel takes (a bin's threads,
+#: 4 per upper-triangle pair: 544 at C = 16)
 MAX_CHANNELS = 16
 
 

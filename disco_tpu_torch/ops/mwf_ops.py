@@ -13,8 +13,9 @@ Only W and t1 (..., C) are produced; NaNs propagate (the e1 sanitize step
 is :func:`rank1_gevd_fused`'s).
 
 * :func:`fused_mwf_kernel` — the wrapper of the hand-written CUDA kernel
-  ``csrc/mwf.cu`` (port of ``fused_mwf_pallas`` -> ``_mwf_kernel``), one
-  thread per pencil.  On a CPU tensor it runs :func:`fused_mwf_plain`.
+  ``csrc/mwf.cu`` (port of ``fused_mwf_pallas`` -> ``_mwf_kernel``), a
+  thread per pencil up to C = 4, a group of lanes per pencil above.  On a
+  CPU tensor it runs :func:`fused_mwf_plain`.
 * :func:`fused_mwf_plain` — the plain version: the exact chain of
   ``_mwf_kernel`` (element-wise Cholesky and whitening, the same rotation
   order and guard, the same running max) on batched PyTorch tensors.
@@ -49,6 +50,26 @@ def _planes(R: torch.Tensor, C: int):
 
 def _mu_per_pencil(mu, batch_shape, device) -> torch.Tensor:
     return torch.as_tensor(mu, dtype=torch.float32, device=device).expand(batch_shape).reshape(-1)
+
+
+def _mu_argument(mu, batch_shape, device):
+    """mu as the kernel takes it: (float32 device tensor or None, stride,
+    value).  A number, or one value on the host, goes by value; one value
+    on the device by its pointer with stride 0; one value per pencil as a
+    contiguous (n,) float32 array, copied only when it is not one
+    already."""
+    if not isinstance(mu, torch.Tensor):
+        if np.ndim(mu) == 0:
+            return None, 0, float(mu)
+        mu = torch.as_tensor(mu, device=device)
+    if mu.numel() == 1 and mu.device.type == "cpu":
+        return None, 0, float(mu)
+    if mu.device != device:
+        raise ValueError(f"fused_mwf_kernel: mu on {mu.device}, pencils on {device}")
+    mu = mu.to(torch.float32)
+    if mu.numel() == 1:
+        return mu, 0, 0.0
+    return mu.expand(batch_shape).reshape(-1).contiguous(), 1, 0.0
 
 
 def fused_mwf_plain(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None):
@@ -182,14 +203,16 @@ def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int |
     if sweeps is None:
         sweeps = default_sweeps(C)
     bs = Rss.shape[:-2]
+    # each the input itself when it is contiguous complex64 already
     rss = Rss.to(torch.complex64).contiguous()
     rnn = Rnn.to(torch.complex64).contiguous()
-    mu_t = _mu_per_pencil(mu, bs, Rss.device).contiguous()
+    mu_t, mu_stride, mu_value = _mu_argument(mu, bs, Rss.device)
     W = torch.empty(bs + (C,), dtype=torch.complex64, device=Rss.device)
     t1 = torch.empty_like(W)
     lib = _build.load()
-    rc = lib.disco_fused_mwf(rss.data_ptr(), rnn.data_ptr(), mu_t.data_ptr(), W.data_ptr(),
-                             t1.data_ptr(), math.prod(bs), C, sweeps, ROTATION_EPS,
+    mu_ptr = None if mu_t is None else mu_t.data_ptr()
+    rc = lib.disco_fused_mwf(rss.data_ptr(), rnn.data_ptr(), mu_ptr, mu_stride, mu_value,
+                             W.data_ptr(), t1.data_ptr(), math.prod(bs), C, sweeps, ROTATION_EPS,
                              DIAG_LOADING, _LAM_FLOOR, EIG_CEIL,
                              _build.stream_handle(Rss.device))
     _build.check(rc, "disco_fused_mwf")

@@ -74,8 +74,12 @@ def test_stft_kernel_edges(cuda, rng, shape):
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
-@pytest.mark.parametrize("C,T", [(1, 37), (3, 130), (11, 64), (16, 5)])
+@pytest.mark.parametrize("T", [1, 37, 128, 300, 626])
+@pytest.mark.parametrize("C", list(range(1, 17)))
 def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
+    """Every channel count, with T = 1, an odd T below the kernel's 128-frame
+    tile, one whole tile, two tiles and a ragged third, and the clip's 626
+    frames; bit-stable from run to run."""
     from disco_tpu_torch.ops import cov_ops
 
     y = torch.from_numpy(complex_normal(rng, (2, C, 257, T))).to(cuda)
@@ -90,20 +94,61 @@ def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
         assert torch.equal(a, a2)  # fixed reduction order: bit-stable
 
 
-@pytest.mark.parametrize("C", [2, 4, 7, 11, 16])
-def test_fused_mwf_kernel(cuda, rng, C):
+def _solve_inputs(rng, C, n, cuda):
+    """n (C, C) pencils on the card with a NaN one (index 7, when n > 7) and
+    an identity pencil pair (index 3, when n > 3)."""
+    Rss, Rnn = (torch.from_numpy(a.astype(np.complex64)).to(cuda) for a in pencils(rng, C, F=n))
+    if n > 7:
+        Rnn[7] = float("nan")
+    if n > 3:
+        Rss[3] = Rnn[3] = torch.eye(C, dtype=torch.complex64, device=cuda)
+    return Rss, Rnn
+
+
+def _check_solve(got, want, n, cuda):
+    """Within TOL rel-l2 of the plain version, and bit for bit (``mwf.cu``
+    is built to repeat its rounding); the NaN pencil stays non-finite."""
+    ok = torch.arange(n, device=cuda) != 7
+    for a, b in zip(got, want):
+        if n > 7:
+            assert not torch.isfinite(a[7]).all() and not torch.isfinite(b[7]).all()
+        assert torch.isfinite(a[ok]).all()
+        assert rel_l2(a[ok], b[ok]) <= TOL
+        assert torch.equal(a[ok], b[ok])
+
+
+@pytest.mark.parametrize("mu", ["scalar", "per-pencil", "one on the card"])
+@pytest.mark.parametrize("C", list(range(1, 17)))
+def test_fused_mwf_kernel(cuda, rng, C, mu):
+    """Every pencil size the kernel takes (a thread per pencil up to C = 4,
+    lane groups of 8 or 16 above), with a scalar mu, one mu per pencil and
+    one mu as a tensor on the card."""
     from disco_tpu_torch.ops import mwf_ops
 
-    Rss, Rnn = (torch.from_numpy(a.astype(np.complex64)).to(cuda) for a in pencils(rng, C, F=45))
-    mu = torch.linspace(0.5, 2.0, 45, device=cuda)
-    Rnn[7] = float("nan")
+    Rss, Rnn = _solve_inputs(rng, C, 45, cuda)
+    mu = {"scalar": 1.5, "per-pencil": torch.linspace(0.5, 2.0, 45, device=cuda),
+          "one on the card": torch.tensor(0.7, device=cuda)}[mu]
+    before = mwf_ops.fused_mwf_kernel.launches
     got = mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu)
     want = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert not torch.isfinite(a[7]).all() and not torch.isfinite(b[7]).all()
-        ok = torch.arange(45, device=cuda) != 7
-        assert rel_l2(a[ok], b[ok]) <= TOL
+    assert mwf_ops.fused_mwf_kernel.launches == before + 1
+    _check_solve(got, want, 45, cuda)
+
+
+@pytest.mark.parametrize("C,n", [(c, n) for c in (4, 5, 11, 16) for n in (1, 31, 2055, 2057)]
+                         + [(11, 32896)])
+def test_fused_mwf_kernel_ragged_batches(cuda, rng, C, n):
+    """Pencil counts that are not a multiple of a block's (32 threads up to
+    C = 4; 8 or 4 pencils a block of lane groups) and the 16-clip batch's
+    step-2 launch (32,896 pencils at C = 11)."""
+    from disco_tpu_torch.ops import mwf_ops
+
+    Rss, Rnn = _solve_inputs(rng, C, n, cuda)
+    got = mwf_ops.fused_mwf_kernel(Rss, Rnn)
+    want = mwf_ops.fused_mwf_plain(Rss, Rnn)
+    torch.cuda.synchronize()
+    _check_solve(got, want, n, cuda)
 
 
 @pytest.mark.parametrize("complex_", [True, False])
