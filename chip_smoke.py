@@ -19,8 +19,9 @@ pass):
    the STFT on the clip (626 frames, not a multiple of the kernel's
    32-frame tile), on one streaming window (64 frames) and on 300 samples
    (2 frames, both reaching into the reflected edges), the covariances
-   and the fused solve at one clip's launches and at those of the 16-clip
-   batch (recorded as the path hands them over; the covariances also bit
+   and the fused solve at one clip's launches and at those of a 16-clip
+   batch of distinct clips (recorded as the path hands them over, so
+   that indexing across clips is checked too; the covariances also bit
    for bit from run to run, the solve's bit-identity to its plain version
    reported), the eigensolver on
    the whitened step-1 (C=4) and step-2 (C=11) matrices of the full-clip
@@ -204,8 +205,7 @@ def eigh_cost(n: int, C: int, sweeps: int, complex_in: bool = True):
 def short_kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments out of its mangled name."""
     short = re.search(r"(stft_rfft_kernel|masked_cov_kernelILb[01]E"
-                      r"|fused_mwf_(?:thread|group)_kernelILi\d+E(?:Li\d+E)?"
-                      r"|eigh_(?:group|thread)_kernelILi\d+E)", mangled)
+                      r"|(?:fused_mwf|eigh)_(?:thread|group)_kernelILi\d+E)", mangled)
     return short.group(1) if short else mangled
 
 
@@ -416,9 +416,11 @@ def phase2_kernels() -> SimpleNamespace:
     for label in ("step1", "step2", "generic-C7"):
         check_mwf(d, label, *d.pencils[label])
 
-    # the launches of the 16-clip batch, as the path hands them to the kernels
+    # the launches of a 16-clip batch, as the path hands them to the kernels;
+    # its clips differ, so a kernel that read another clip's bin or pencil
+    # would disagree with its plain version
     with recorded_kernel_inputs() as seen:
-        tango_clip_fused(*batch_clips(d), solver="fused")
+        tango_clip_fused(*distinct_clips(d), solver="fused")
     require(len(seen["masked_cov"]) == 2 and len(seen["fused_mwf"]) == 2,
             ("kernel launches of one batched offline call", {k: len(v) for k, v in seen.items()}))
     d.batch = seen
@@ -474,6 +476,16 @@ def check_mwf(d: SimpleNamespace, label: str, Rss, Rnn, mu=1.0) -> None:
 def batch_clips(d: SimpleNamespace):
     """(y, s, n) of the timed batch: the clip repeated BATCH times."""
     return tuple(a[None].expand(BATCH, *a.shape).contiguous() for a in (d.y, d.s, d.n))
+
+
+def distinct_clips(d: SimpleNamespace):
+    """(y, s, n) of BATCH distinct clips: clip b is the scene circularly
+    shifted by b * 1237 samples (1237 b mod 256 differs for every b < 256,
+    so no two clips' frames line up)."""
+    import torch
+
+    return tuple(torch.stack([torch.roll(a, b * 1237, dims=-1) for b in range(BATCH)])
+                 for a in (d.y, d.s, d.n))
 
 
 def phase2_eigh(d: SimpleNamespace) -> None:

@@ -27,24 +27,18 @@
 //   loop unrolled on constant indices (one instance for each C from 1 to
 //   4); the rotations are common.cuh's jacobi_sweeps.
 // - C >= 5 (step 2): a group of G lanes per pencil (G = 8 for C <= 8, else
-//   16: four or two pencils a warp), lane l owning rows and columns l + G r,
-//   r < R.  A, L and V sit in shared memory as interleaved complex C x C
-//   matrices with an odd row stride (one 8-byte access an entry, columns on
-//   distinct banks), each pencil's block padded so that the pencils of a
-//   half-warp start on distinct banks.  The Cholesky goes column by column:
-//   the owner of row j takes the diagonal's square root and reciprocal, a
-//   shuffle broadcasts it, the owners of rows i > j form L[i][j].  The
-//   whitening's B = L^-1 Rss and M = L^-1 B^H are C independent right-hand
-//   sides: each lane solves its columns.  The sweeps are common.cuh's
-//   group_rotation with runtime (p, q) (the eigensolver's rotation;
-//   unrolled, a C = 11 sweep is more code than the instruction caches
-//   hold).  Each lane runs the same running max over the diagonal, lane 0
-//   the back-substitution, each lane stores its rows of W and t1.  The
-//   kernel takes R = 1: at C = 11 two, three or six indices a lane (8, 4 or
-//   2 lanes a pencil) save at most 1.16x at the 16-clip batch, where every
-//   lane repeating the rotation's scalar chain makes the groups
-//   issue-bound, and lose 1.25-2.3x at one clip, where each pencil's chain
-//   of 385 rotations is the latency (exp/mwf_group_variants.py, PERF.md).
+//   16: four or two pencils a warp), lane l owning row and column l.  A, L
+//   and V sit in shared memory as interleaved complex C x C matrices with an
+//   odd row stride (one 8-byte access an entry, columns on distinct banks).
+//   The Cholesky goes column by column:
+//   lane j takes the diagonal's square root and reciprocal, a shuffle
+//   broadcasts it, lanes i > j form L[i][j].  The whitening's B = L^-1 Rss
+//   and M = L^-1 B^H are C independent right-hand sides: lane j solves
+//   column j.  The sweeps are common.cuh's group_rotation with runtime
+//   (p, q) (the eigensolver's rotation; unrolled, a C = 11 sweep is more
+//   code than the instruction caches hold).  Each lane runs the same running
+//   max over the diagonal, lane 0 the back-substitution, lane i stores W[i]
+//   and t1[i].
 // Each element is computed by the expression of the plain version, in its
 // order, and the source is built with -fmad=false (see _build.py), as
 // eigh.cu is: the kernel then repeats fused_mwf_plain's rounding.
@@ -265,24 +259,18 @@ void launch_thread(const float2* a, const float2* b, const float* mu, int mu_str
 }
 
 // ---------------------------------------------------------------- C >= 5
-// Pencils a block of the lane-group design holds: 64 threads from G = 8
-// up, eight pencils below (the shared memory stays under 48 KB at C = G R).
+// Pencils a block of the lane-group design holds: 64 threads.
 template <int G>
-constexpr int kGroupPencils = G >= 8 ? 64 / G : 8;
+constexpr int kGroupPencils = 64 / G;
 
 // Floats of shared memory a pencil takes: three C x (C | 1) complex
 // matrices (A, L, V, interleaved re/im), then 1 / L[i][i] and q1 (re, im),
-// kMaxC each, padded to 2 G more than a multiple of 32: the pencils a
-// half-warp's 8-byte access touches then start 2 G banks apart, and its
-// lanes hit distinct banks.
-__host__ __device__ constexpr int group_floats(const int C, const int G) {
-  const int f = 6 * C * (C | 1) + 3 * kMaxC;
-  return f + ((2 * G - f % 32) % 32 + 32) % 32;
-}
+// kMaxC each.
+__host__ __device__ constexpr int group_floats(const int C) { return 6 * C * (C | 1) + 3 * kMaxC; }
 
-// A group of G lanes per pencil, lane l owning the indices l + G r, r < R
-// (C <= G R): rows and columns l + G r of A, V and L.
-template <int G, int R>
+// A group of G lanes per pencil (C <= G), lane l owning row and column l of
+// A, V and L.
+template <int G>
 __global__ void __launch_bounds__(G * kGroupPencils<G>)
     fused_mwf_group_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
                            const float* __restrict__ mu, const int mu_stride,
@@ -293,7 +281,7 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
   constexpr int kThreadsG = G * kPencils;
   extern __shared__ float2 sm2[];
   const int S = C | 1;  // row stride (odd: columns hit distinct banks)
-  const int cs = C * S, cc = C * C, per = group_floats(C, G) / 2;  // in float2
+  const int cs = C * S, cc = C * C, per = group_floats(C) / 2;  // in float2
   const int first = blockIdx.x * kPencils;
   const int count = min(kPencils, n - first);
 
@@ -328,15 +316,11 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
   tr = tr * (1.0f / C);
   const float scale = 1.0f / disco::max_keep_nan(tr, FLT_MIN);
   __syncwarp();
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = l + G * r;
-    if (k < C) {
-      for (int i = 0; i < C; ++i) {
-        const float2 a = A[i * S + k], b = L[i * S + k];
-        A[i * S + k] = make_float2(a.x * scale, a.y * scale);
-        L[i * S + k] = make_float2(b.x * scale, b.y * scale);
-      }
+  if (l < C) {
+    for (int i = 0; i < C; ++i) {
+      const float2 a = A[i * S + l], b = L[i * S + l];
+      A[i * S + l] = make_float2(a.x * scale, a.y * scale);
+      L[i * S + l] = make_float2(b.x * scale, b.y * scale);
     }
   }
   __syncwarp();
@@ -346,97 +330,67 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
   for (int c = 1; c < C; ++c) tr2 = tr2 + L[c * S + c].x;
   const float load = prm.loading * (tr2 * (1.0f / C)) + FLT_MIN;
 
-  // -- complex Cholesky, column by column: the owner of row i >= j forms
-  // L[i][j] less the sum over k < j (at i == j, with the load, the
-  // diagonal's radicand); the owner of row j takes the root and its
-  // reciprocal, and a shuffle broadcasts the reciprocal.
+  // -- complex Cholesky, column by column: lane i >= j forms L[i][j] less
+  // the sum over k < j (at i == j, with the load, the diagonal's radicand);
+  // lane j takes the root and its reciprocal, and a shuffle broadcasts the
+  // reciprocal.
   for (int j = 0; j < C; ++j) {
-    float2 x[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int kk = l + G * r;
-      const int i = kk >= j && kk < C ? kk : j;
-      x[r] = L[i * S + j];
-      if (i == j) x[r].x = x[r].x + load;
-      for (int k = 0; k < j; ++k) {
-        // A[i][j] - sum_k L[i][k] conj(L[j][k])
-        const float2 u = L[i * S + k], v = L[j * S + k];
-        x[r].x = x[r].x - (u.x * v.x + u.y * v.y);
-        x[r].y = x[r].y - (u.y * v.x - u.x * v.y);
-      }
+    const int i = l >= j && l < C ? l : j;
+    float2 x = L[i * S + j];
+    if (i == j) x.x = x.x + load;
+    for (int k = 0; k < j; ++k) {
+      // A[i][j] - sum_k L[i][k] conj(L[j][k])
+      const float2 u = L[i * S + k], v = L[j * S + k];
+      x.x = x.x - (u.x * v.x + u.y * v.y);
+      x.y = x.y - (u.y * v.x - u.x * v.y);
     }
-    float d = x[0].x;
-#pragma unroll
-    for (int r = 1; r < R; ++r) d = j / G == r ? x[r].x : d;
-    const float ljj = disco::sqrt_rn(d);  // used by the owner of row j only
+    const float ljj = disco::sqrt_rn(x.x);  // used by lane j only
     const float ivj = 1.0f / ljj;
-    const float iv = __shfl_sync(0xffffffffu, ivj, R == 1 ? j : j % G, G);
-    __syncwarp();  // row j is read by every lane before its owner writes it
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = l + G * r;
-      if (i == j) {
-        L[j * S + j] = make_float2(ljj, 0.0f);
-        inv[j] = ivj;
-      } else if (i > j && i < C) {
-        L[i * S + j] = make_float2(x[r].x * iv, x[r].y * iv);
-      }
+    const float iv = __shfl_sync(0xffffffffu, ivj, j, G);
+    __syncwarp();  // row j is read by every lane before lane j writes it
+    if (l == j) {
+      L[j * S + j] = make_float2(ljj, 0.0f);
+      inv[j] = ivj;
+    } else if (l > j && l < C) {
+      L[l * S + j] = make_float2(x.x * iv, x.y * iv);
     }
     __syncwarp();
   }
 
-  // -- whitening: B = L^-1 Rss, each lane solving its columns in place
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int kk = l + G * r;
-    const int k0 = kk < C ? kk : 0;  // idle slots read a valid column and write nothing
-    for (int i = 0; i < C; ++i) {
-      float2 x = A[i * S + k0];
-      for (int k = 0; k < i; ++k) {
-        const float2 u = L[i * S + k], b = A[k * S + k0];
-        x.x = x.x - (u.x * b.x - u.y * b.y);
-        x.y = x.y - (u.x * b.y + u.y * b.x);
-      }
-      if (kk < C) A[i * S + kk] = make_float2(x.x * inv[i], x.y * inv[i]);
+  // -- whitening: B = L^-1 Rss, lane j solving column j in place
+  const int j0 = l < C ? l : 0;  // idle lanes read a valid column and write nothing
+  for (int i = 0; i < C; ++i) {
+    float2 x = A[i * S + j0];
+    for (int k = 0; k < i; ++k) {
+      const float2 u = L[i * S + k], b = A[k * S + j0];
+      x.x = x.x - (u.x * b.x - u.y * b.y);
+      x.y = x.y - (u.x * b.y + u.y * b.x);
     }
+    if (l < C) A[i * S + l] = make_float2(x.x * inv[i], x.y * inv[i]);
   }
   __syncwarp();
-  // M = L^-1 B^H into V, each lane solving its columns:
-  // B^H[i][k] = conj(B[k][i])
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int kk = l + G * r;
-    const int k0 = kk < C ? kk : 0;
-    for (int i = 0; i < C; ++i) {
-      const float2 b = A[k0 * S + i];
-      float2 x = make_float2(b.x, -b.y);
-      for (int k = 0; k < i; ++k) {
-        const float2 u = L[i * S + k], m = V[k * S + k0];
-        x.x = x.x - (u.x * m.x - u.y * m.y);
-        x.y = x.y - (u.x * m.y + u.y * m.x);
-      }
-      if (kk < C) V[i * S + kk] = make_float2(x.x * inv[i], x.y * inv[i]);
+  // M = L^-1 B^H into V, lane j solving column j: B^H[i][j] = conj(B[j][i])
+  for (int i = 0; i < C; ++i) {
+    const float2 b = A[j0 * S + i];
+    float2 x = make_float2(b.x, -b.y);
+    for (int k = 0; k < i; ++k) {
+      const float2 u = L[i * S + k], m = V[k * S + j0];
+      x.x = x.x - (u.x * m.x - u.y * m.y);
+      x.y = x.y - (u.x * m.y + u.y * m.x);
     }
+    if (l < C) V[i * S + l] = make_float2(x.x * inv[i], x.y * inv[i]);
   }
   __syncwarp();
   // A = M^H re-hermitized: A[i][j] = (conj(M[j][i]) + M[i][j]) / 2
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = l + G * r;
-    if (k < C) {
-      for (int i = 0; i < C; ++i) {
-        const float2 mt = V[k * S + i], m = V[i * S + k];
-        A[i * S + k] = make_float2(0.5f * (mt.x + m.x), 0.5f * (m.y - mt.y));
-      }
+  if (l < C) {
+    for (int i = 0; i < C; ++i) {
+      const float2 mt = V[l * S + i], m = V[i * S + l];
+      A[i * S + l] = make_float2(0.5f * (mt.x + m.x), 0.5f * (m.y - mt.y));
     }
   }
   __syncwarp();
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = l + G * r;
-    if (k < C) {
-      for (int i = 0; i < C; ++i) V[i * S + k] = make_float2(i == k ? 1.0f : 0.0f, 0.0f);
-    }
+  if (l < C) {
+    for (int i = 0; i < C; ++i) V[i * S + l] = make_float2(i == l ? 1.0f : 0.0f, 0.0f);
   }
   __syncwarp();
 
@@ -447,7 +401,7 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
 #pragma unroll 1
     for (int p = 0; p < C - 1; ++p) {
 #pragma unroll 1
-      for (int q = p + 1; q < C; ++q) disco::group_rotation<G, R>(Am, Vm, C, p, q, l, prm.eps);
+      for (int q = p + 1; q < C; ++q) disco::group_rotation<G>(Am, Vm, C, p, q, l, prm.eps);
     }
   }
 
@@ -481,9 +435,9 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
   }
   __syncwarp();
 
-  // -- filter formation: (Q^-1)[0][0] = conj(u1[0] L00); each lane stores
-  // its rows
-  if (pencil < count) {
+  // -- filter formation: (Q^-1)[0][0] = conj(u1[0] L00); lane i stores
+  // row i
+  if (pencil < count && l < C) {
     const float2 u0 = V[top];
     const float qinv_r = u0.x * L[0].x;
     const float qinv_i = -u0.y * L[0].x;
@@ -491,28 +445,21 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
     const float m = mu ? mu[(size_t)idx * mu_stride] : mu_value;
     const float g = lam1 / (lam1 + m);
     const float cr = g * qinv_r, ci = g * qinv_i;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = l + G * r;
-      if (k < C) {
-        const float xr = qr[k], xi = qi[k];
-        w[(size_t)idx * C + k] = make_float2(xr * cr - xi * ci, xr * ci + xi * cr);
-        t1[(size_t)idx * C + k] =
-            make_float2(xr * qinv_r - xi * qinv_i, xr * qinv_i + xi * qinv_r);
-      }
-    }
+    const float xr = qr[l], xi = qi[l];
+    w[(size_t)idx * C + l] = make_float2(xr * cr - xi * ci, xr * ci + xi * cr);
+    t1[(size_t)idx * C + l] = make_float2(xr * qinv_r - xi * qinv_i, xr * qinv_i + xi * qinv_r);
   }
 }
 
-template <int G, int R>
+template <int G>
 void launch_group(const float2* a, const float2* b, const float* mu, int mu_stride,
                   float mu_value, float2* w, float2* t1, int n, int C, int sweeps,
                   const MwfParams& prm, cudaStream_t s) {
   constexpr int kPencils = kGroupPencils<G>;
   const int blocks = (n + kPencils - 1) / kPencils;
-  const size_t smem = sizeof(float) * kPencils * group_floats(C, G);
-  fused_mwf_group_kernel<G, R><<<blocks, G * kPencils, smem, s>>>(a, b, mu, mu_stride, mu_value,
-                                                                  w, t1, n, C, sweeps, prm);
+  const size_t smem = sizeof(float) * kPencils * group_floats(C);
+  fused_mwf_group_kernel<G><<<blocks, G * kPencils, smem, s>>>(a, b, mu, mu_stride, mu_value, w,
+                                                               t1, n, C, sweeps, prm);
 }
 
 }  // namespace
@@ -540,9 +487,9 @@ extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu,
     case 4: launch_thread<4>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
     default:
       if (C <= 8) {
-        launch_group<8, 1>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+        launch_group<8>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
       } else {
-        launch_group<16, 1>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+        launch_group<16>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
       }
       break;
   }

@@ -56,17 +56,15 @@ def _mu_argument(mu, batch_shape, device):
     """mu as the kernel takes it: (float32 device tensor or None, stride,
     value).  A number, or one value on the host, goes by value; one value
     on the device by its pointer with stride 0; one value per pencil as a
-    contiguous (n,) float32 array, copied only when it is not one
-    already."""
+    contiguous (n,) float32 array on the pencils' device, copied only when
+    it is not one already."""
     if not isinstance(mu, torch.Tensor):
         if np.ndim(mu) == 0:
             return None, 0, float(mu)
         mu = torch.as_tensor(mu, device=device)
     if mu.numel() == 1 and mu.device.type == "cpu":
         return None, 0, float(mu)
-    if mu.device != device:
-        raise ValueError(f"fused_mwf_kernel: mu on {mu.device}, pencils on {device}")
-    mu = mu.to(torch.float32)
+    mu = mu.to(device=device, dtype=torch.float32)
     if mu.numel() == 1:
         return mu, 0, 0.0
     return mu.expand(batch_shape).reshape(-1).contiguous(), 1, 0.0

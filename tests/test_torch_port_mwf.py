@@ -168,15 +168,22 @@ def test_precision_tokens():
 
 
 @pytest.mark.parametrize("mu", ["number", "numpy scalar", "one-element tensor", "per pencil",
-                                "per pencil, strided"])
+                                "per pencil, strided", "per pencil, other device"])
 def test_kernel_mu_argument_copies_only_what_it_must(mu):
     """The fused-solve wrapper hands the kernel one mu by value and one mu
-    per pencil as a contiguous float32 array, copying only a strided or
-    non-float32 one."""
+    per pencil as a contiguous float32 array on the pencils' device, copying
+    only a strided, non-float32 or elsewhere-held one."""
     per = torch.linspace(0.5, 2.0, 6 * 4).reshape(6, 4)
     arg = {"number": 1.5, "numpy scalar": np.float32(1.5),
            "one-element tensor": torch.tensor([1.5], dtype=torch.float64),
-           "per pencil": per, "per pencil, strided": per.t().contiguous().t()}[mu]
+           "per pencil": per, "per pencil, strided": per.t().contiguous().t(),
+           "per pencil, other device": per}[mu]
+    if mu == "per pencil, other device":
+        # pencils on the meta device: the host's per-pencil mu is moved there
+        tensor, stride, value = tmwf._mu_argument(arg, (6, 4), torch.device("meta"))
+        assert tensor.device.type == "meta" and tensor.dtype == torch.float32
+        assert stride == 1 and tensor.is_contiguous() and tensor.shape == (24,)
+        return
     tensor, stride, value = tmwf._mu_argument(arg, (6, 4), torch.device("cpu"))
     if mu in ("number", "numpy scalar", "one-element tensor"):
         assert tensor is None and stride == 0 and value == 1.5
