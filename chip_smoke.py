@@ -9,11 +9,14 @@ Run from the root of a checkout, with no arguments::
 Phases (any failure exits nonzero; nothing is caught and turned into a
 pass):
 
-1. The card's name and power limit (``nvidia-smi``); the four hand-written
+1. The card's name and power limit (``nvidia-smi``); the hand-written
    kernels are built from ``disco_tpu_torch/csrc`` into ``build/kernels/``
    (one ``nvcc`` per source, all started together) and their build
    seconds, ``-Xptxas -v`` register, spill and shared-memory counts and
-   SASS instruction counts (``cuobjdump -sass``) printed.
+   SASS instruction counts (``cuobjdump -sass``) printed.  Five sources:
+   the f32 STFT (a real FFT), the bf16 STFT (a tensor-core DFT product),
+   the covariances, the fused solve (each with f32 and bf16 instances) and
+   the eigensolver.
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (K=8 nodes, C=4 mics, 10 s at 16 kHz):
    the STFT on the clip (626 frames, not a multiple of the kernel's
@@ -26,13 +29,23 @@ pass):
    reported), the eigensolver on
    the whitened step-1 (C=4) and step-2 (C=11) matrices of the full-clip
    streaming run, on its generic path (C = 1, 2, 7, 16), a ragged batch
-   and a NaN matrix, each bit-identical to its plain version.
+   and a NaN matrix, each bit-identical to its plain version.  The bf16
+   lane: the STFT kernel within 1e-4 of the output scale (max-abs) of its
+   plain version at the same shapes and at the 16-clip batch, the
+   covariances' bf16 instances (shared and per-channel masks, C = 4 and
+   11, and the batch) within 1e-5 max-rel and bit-stable, the solve's bit
+   for bit at step 1, step 2 and the batch of distinct clips.
 3. The offline path — ``tango_clip_fused(y, s, n, solver='fused')`` —
    with every launch counter set to 0 before and read after (1 STFT, 2
    covariance, 2 fused-solve launches); the output is finite, within 1e-4
    of the output scale of the same clip run with the plain versions on
    the card, and improves SI-SDR at node 0 by more than 3 dB over the
-   noisy reference mic.
+   noisy reference mic.  The same in the bf16 lane for one clip and the
+   16-clip batch (1 bf16 STFT, 2 + 2 bf16 covariance and solve launches),
+   its SI-SDR also within 0.1 dB of the f32 lane's; ``tango`` on the
+   clip's spectra under the 'compressed', 'use_oracle_refs' and
+   'use_oracle_zs' policies and with a (K, K) ``z_mask`` and a NaN node,
+   each finite and within 1e-4 of its plain-version run.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -45,19 +58,24 @@ pass):
    node 0 over the noisy reference mic within 0.2 dB of the JAX package's
    on the same windows (``JAX_WINDOWS_GAIN_DB``) after 1, 2 and 3 s; the
    full-clip stream's more than 3 dB after the recursion's first three
-   seconds.
-5. CUDA-event times: the offline path on a 16-clip batch, the streaming
+   seconds.  The bf16 lane's nine windows (the bf16 STFT kernel): scan
+   bit-identical to the per-block loop, windows 2-9 within 1e-4 rel-l2
+   of the plain versions, the windows' SI-SDR gains within 0.1 dB of the
+   f32 lane's.
+5. CUDA-event times: the offline path on a 16-clip batch in both lanes, the streaming
    window's latency, and per kernel the kernel, its plain version and
    (where one exists) one PyTorch library call computing the same
    function, beside the bound from this run's shapes and the H100 SXM
    data-sheet peaks; the eigensolver both at the full-clip stream's
    batch and at the streaming window's (2056 matrices, C=4 and C=11), the
    covariances and the fused solve both at one clip's launches and at the
-   16-clip batch's; beside each kernel's events (which include the
-   wrapper's host time) its device time under the profiler.
-6. Where one 16-clip offline call and one streaming window spend their
-   device time, by kernel (``torch.profiler``), and the device's busy
-   share of their wall time.
+   16-clip batch's, in both lanes; beside each kernel's events (which
+   include the wrapper's host time) its device time under the profiler.
+   The bf16 STFT's bound counts its DFT product at the dense-bf16 peak;
+   its library call is one cuBLAS bf16 GEMM (``torch.matmul``, bf16 out).
+6. Where one 16-clip offline call (in both lanes) and one streaming
+   window spend their device time, by kernel (``torch.profiler``), and
+   the device's busy share of their wall time.
 
 The last two lines of standard output are one ``{"kernels": [...]}``
 object and ``{"ok": true, "device": {...}}``.
@@ -81,9 +99,11 @@ DUR_S = 10.0
 NOISE_SCALE = 0.5
 BATCH = 16               # clips per timed batch
 PEAK_FP32 = 67e12        # H100 SXM, FP32 outside the tensor cores (data sheet)
+PEAK_BF16 = 989e12       # H100 SXM, dense bf16 on the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth (data sheet)
-TOL = {"stft": 1e-5, "masked_cov": 1e-5, "fused_mwf": 1e-5, "clip": 1e-4,
-       "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2}
+TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "clip": 1e-4,
+       "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2,
+       "bf16_lane": 1e-2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
 BLOCKS_PER_DISPATCH = 16
@@ -152,9 +172,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least time in ms, what bounds it) at the data-sheet peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """(least time in ms, what bounds it) at the data-sheet peaks: the
+    operations' (float32 outside the tensor cores unless ``peak`` says
+    otherwise) and the memory's."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -168,6 +190,16 @@ def stft_cost(rows: int, length: int, n_fft: int = 512, hop: int = 256):
     flops = frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * n_freq)
     nbytes = rows * length * 4 + frames * n_freq * 12
     return flops, nbytes
+
+
+def stft_bf16_cost(rows: int, length: int, n_fft: int = 512, hop: int = 256):
+    """(operations, bytes) of the bf16 lane's STFT as the DFT product it
+    is: per frame the window, the (n_fft x 2 n_freq) product (2 operations
+    a multiply-add) and the magnitude; the bytes of :func:`stft_cost`."""
+    n_freq = n_fft // 2 + 1
+    frames = rows * (1 + length // hop)
+    flops = frames * (n_fft + 2 * n_fft * 2 * n_freq + 4 * n_freq)
+    return flops, stft_cost(rows, length, n_fft, hop)[1]
 
 
 def cov_cost(batch: int, D: int, F: int, T: int, chan: bool):
@@ -204,8 +236,8 @@ def eigh_cost(n: int, C: int, sweeps: int, complex_in: bool = True):
 
 def short_kernel_name(mangled: str) -> str:
     """The kernel's name and template arguments out of its mangled name."""
-    short = re.search(r"(stft_rfft_kernel|masked_cov_kernelILb[01]E"
-                      r"|(?:fused_mwf|eigh)_(?:thread|group)_kernelILi\d+E)", mangled)
+    short = re.search(r"(stft_rfft_kernel|stft_bf16_kernel|masked_cov_kernelILb[01]ELb[01]E"
+                      r"|(?:fused_mwf|eigh)_(?:thread|group)_kernelILi\d+E(?:Lb[01]E)?)", mangled)
     return short.group(1) if short else mangled
 
 
@@ -253,24 +285,35 @@ def ptxas_summary(log: str) -> list[dict]:
     return out
 
 
+def stft_bf16_plain(x, n_fft=512, hop=256, with_mag=False):
+    """The bf16 STFT kernel's plain version, with its wrapper's arguments."""
+    from disco_tpu_torch.ops import stft_ops
+
+    return stft_ops.stft_matmul(x, n_fft, hop, with_mag, precision="bf16")
+
+
 @contextmanager
-def plain_kernels():
+def plain_kernels(stft: bool = True):
     """Swap each kernel wrapper for its plain version, so the same path
     runs the plain PyTorch versions on the card (the reference runs of
-    phases 3 and 4)."""
+    phases 3 and 4), in either precision lane; ``stft=False`` keeps the STFT
+    kernels, so that the plain versions downstream see the kernels'
+    spectra."""
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
 
-    saved = (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel,
-             eigh_ops.eigh_jacobi_kernel)
-    stft_ops.stft_kernel = stft_ops.stft_matmul
-    cov_ops.masked_cov_kernel = cov_ops.masked_covariances_folded
+    saved = (stft_ops.stft_kernel, stft_ops.stft_bf16_kernel, cov_ops.masked_cov_kernel,
+             mwf_ops.fused_mwf_kernel, eigh_ops.eigh_jacobi_kernel)
+    if stft:
+        stft_ops.stft_kernel = stft_ops.stft_matmul
+        stft_ops.stft_bf16_kernel = stft_bf16_plain
+    cov_ops.masked_cov_kernel = cov_ops.masked_covariances_plain
     mwf_ops.fused_mwf_kernel = mwf_ops.fused_mwf_plain
     eigh_ops.eigh_jacobi_kernel = eigh_ops.eigh_jacobi_unsorted
     try:
         yield
     finally:
-        (stft_ops.stft_kernel, cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel,
-         eigh_ops.eigh_jacobi_kernel) = saved
+        (stft_ops.stft_kernel, stft_ops.stft_bf16_kernel, cov_ops.masked_cov_kernel,
+         mwf_ops.fused_mwf_kernel, eigh_ops.eigh_jacobi_kernel) = saved
 
 
 @contextmanager
@@ -301,17 +344,18 @@ def recorded_kernel_inputs():
     cov, mwf = cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel
     seen = {"masked_cov": [], "fused_mwf": []}
 
-    def record_cov(y, mask):
+    def record_cov(y, mask, precision="f32"):
         seen["masked_cov"].append((y, mask))
-        return cov(y, mask)
+        return cov(y, mask, precision)
 
-    def record_mwf(Rss, Rnn, mu=1.0, sweeps=None):
+    def record_mwf(Rss, Rnn, mu=1.0, sweeps=None, precision="f32"):
         seen["fused_mwf"].append((Rss, Rnn, mu))
-        return mwf(Rss, Rnn, mu, sweeps)
+        return mwf(Rss, Rnn, mu, sweeps, precision)
 
     # a wrapper adds to the counter of the function its module name holds:
     # while recording, the recorder's, so recorded launches count nowhere
     record_cov.launches = record_mwf.launches = 0
+    record_cov.launches_bf16 = record_mwf.launches_bf16 = 0
     cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel = record_cov, record_mwf
     try:
         yield seen
@@ -319,28 +363,35 @@ def recorded_kernel_inputs():
         cov_ops.masked_cov_kernel, mwf_ops.fused_mwf_kernel = cov, mwf
 
 
-def kernel_wrappers() -> dict:
-    """name -> the wrapper whose ``launches`` counts the kernel."""
+def kernel_counters() -> dict:
+    """kernel name -> (the wrapper, the attribute that counts its launches):
+    the bf16 instances of the covariance and solve kernels count apart."""
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
 
-    return {"stft": stft_ops.stft_kernel, "masked_cov": cov_ops.masked_cov_kernel,
-            "fused_mwf": mwf_ops.fused_mwf_kernel, "eigh_jacobi": eigh_ops.eigh_jacobi_kernel}
+    return {"stft": (stft_ops.stft_kernel, "launches"),
+            "stft_bf16": (stft_ops.stft_bf16_kernel, "launches"),
+            "masked_cov": (cov_ops.masked_cov_kernel, "launches"),
+            "masked_cov_bf16": (cov_ops.masked_cov_kernel, "launches_bf16"),
+            "fused_mwf": (mwf_ops.fused_mwf_kernel, "launches"),
+            "fused_mwf_bf16": (mwf_ops.fused_mwf_kernel, "launches_bf16"),
+            "eigh_jacobi": (eigh_ops.eigh_jacobi_kernel, "launches")}
 
 
 @contextmanager
 def counted(label: str, expected: dict, out: dict):
     """Set every launch counter to 0, run the body, read the counters into
-    ``out[label]`` and require ``expected``."""
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    ``out[label]`` and require ``expected`` (a kernel it does not name: 0)."""
+    counters = kernel_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     yield
     import torch
 
     torch.cuda.synchronize()
-    out[label] = {name: fn.launches for name, fn in wrappers.items()}
+    out[label] = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
     print(f"launches, {label}: {out[label]}", flush=True)
-    require(out[label] == expected, (label, out[label], expected))
+    want = {name: expected.get(name, 0) for name in counters}
+    require(out[label] == want, (label, out[label], want))
 
 
 def require(ok: bool, what) -> None:
@@ -399,9 +450,26 @@ def phase2_kernels() -> SimpleNamespace:
         print(f"phase 2: stft {label} {tuple(x.shape)} rel-l2 {r:.3e} max-abs {e:.3e}",
               flush=True)
         require(r <= TOL["stft"], ("stft", label, r))
-
-    d.Y = spec_p[0]                                              # (K, C, F, T)
+    d.Y, d.S, d.N = spec_p[0], spec_p[1], spec_p[2]              # (K, C, F, T)
     d.m = tf_mask_mag(mag_p[1][:, 0], mag_p[2][:, 0], "irm1")    # (K, F, T)
+    del spec_k, mag_k, spec_p, mag_p
+
+    # the bf16 lane's STFT: the same shapes and the 16-clip batch's rows
+    d.err["stft_bf16"] = 0.0
+    for label, x in (("window", d.x[..., :LW]), ("short", d.x[..., :300]), ("clip", d.x),
+                     ("batch", torch.stack(distinct_clips(d)))):
+        spec_k, mag_k = stft_ops.stft_bf16_kernel(x, with_mag=True)
+        spec_p, mag_p = stft_ops.stft_matmul(x, with_mag=True, precision="bf16")
+        torch.cuda.synchronize()
+        e = max(max_abs(spec_k, spec_p) / float(spec_p.abs().max()),
+                max_abs(mag_k, mag_p) / float(mag_p.abs().max()))
+        d.err["stft_bf16"] = max(d.err["stft_bf16"], max(max_abs(spec_k, spec_p),
+                                                         max_abs(mag_k, mag_p)))
+        print(f"phase 2: stft_bf16 {label} {tuple(x.shape)} max-abs {e:.3e} of the output "
+              f"scale", flush=True)
+        require(e <= TOL["stft_bf16"], ("stft_bf16", label, e))
+        del spec_k, mag_k, spec_p, mag_p
+
     oth = torch.as_tensor(others_index(K), device=d.dev)
     d.in_y = torch.cat([d.Y, d.Y[:, 0][oth]], dim=1)             # (K, C+K-1, F, T)
     chan_m = torch.cat([d.m[:, None].expand(K, C, *d.m.shape[1:]), d.m[oth]], dim=1)
@@ -416,6 +484,17 @@ def phase2_kernels() -> SimpleNamespace:
     for label in ("step1", "step2", "generic-C7"):
         check_mwf(d, label, *d.pencils[label])
 
+    # the bf16 instances: shared and per-channel masks at C = 4 and 11 (the
+    # per-mic step-1 masks stand in for a per-channel C = 4 stack)
+    mic_m = tf_mask_mag(d.S.abs(), d.N.abs(), "irm1")            # (K, C, F, T)
+    d.pencils_bf16 = {}
+    d.err["masked_cov_bf16"] = d.err["fused_mwf_bf16"] = 0.0
+    for label, yy, mm in (("step1", d.Y, d.m), ("step1-chan", d.Y, mic_m),
+                          ("step2", d.in_y, d.m), ("step2-chan", d.in_y, chan_m)):
+        d.pencils_bf16[label] = check_cov(d, label, yy, mm, "bf16")
+    for label in ("step1", "step2"):
+        check_mwf(d, label, *d.pencils_bf16[label], precision="bf16")
+
     # the launches of a 16-clip batch, as the path hands them to the kernels;
     # its clips differ, so a kernel that read another clip's bin or pencil
     # would disagree with its plain version
@@ -428,49 +507,72 @@ def phase2_kernels() -> SimpleNamespace:
         check_cov(d, label, yy, mm)
     for label, (Rss, Rnn, mu) in zip(("batch step1", "batch step2"), seen["fused_mwf"]):
         check_mwf(d, label, Rss, Rnn, mu)
+    with recorded_kernel_inputs() as seen:
+        tango_clip_fused(*distinct_clips(d), solver="fused", precision="bf16")
+    require(len(seen["masked_cov"]) == 2 and len(seen["fused_mwf"]) == 2,
+            ("bf16 kernel launches of one batched offline call",
+             {k: len(v) for k, v in seen.items()}))
+    d.batch_bf16 = seen
+    for label, (yy, mm) in zip(("batch step1", "batch step2"), seen["masked_cov"]):
+        check_cov(d, label, yy, mm, "bf16")
+    for label, (Rss, Rnn, mu) in zip(("batch step1", "batch step2"), seen["fused_mwf"]):
+        check_mwf(d, label, Rss, Rnn, mu, "bf16")
     phase2_eigh(d)
     return d
 
 
-def check_cov(d: SimpleNamespace, label: str, yy, mm):
-    """The covariance kernel against its plain version, and against its own
-    second run bit for bit; returns the plain version's pair."""
+def _lane(name: str, precision: str) -> str:
+    """The kernel's name in the precision lane (the bf16 instances' rows)."""
+    return name + ("_bf16" if precision == "bf16" else "")
+
+
+def check_cov(d: SimpleNamespace, label: str, yy, mm, precision: str = "f32"):
+    """The covariance kernel of a precision lane against its plain version
+    (bit for bit in the bf16 lane, whose plain version sums in the
+    kernel's order), and against its own second run bit for bit; returns
+    the plain version's pair."""
     import torch
 
     from disco_tpu_torch.ops import cov_ops
 
-    ks = cov_ops.masked_cov_kernel(yy, mm)
-    again = cov_ops.masked_cov_kernel(yy, mm)
-    ps = cov_ops.masked_covariances_folded(yy, mm)
+    name = _lane("masked_cov", precision)
+    ks = cov_ops.masked_cov_kernel(yy, mm, precision)
+    again = cov_ops.masked_cov_kernel(yy, mm, precision)
+    ps = cov_ops.masked_covariances_plain(yy, mm, precision)
     torch.cuda.synchronize()
     r = max(max_rel(ks[0], ps[0]), max_rel(ks[1], ps[1]))
     e = max(max_abs(ks[0], ps[0]), max_abs(ks[1], ps[1]))
     stable = all(torch.equal(a, b) for a, b in zip(ks, again))
-    d.err["masked_cov"] = max(d.err["masked_cov"], e)
-    print(f"phase 2: masked_cov {label} {tuple(yy.shape)} mask {tuple(mm.shape)} max-rel {r:.3e} "
-          f"max-abs {e:.3e} bit-stable run to run {stable}", flush=True)
-    require(r <= TOL["masked_cov"] and stable, ("masked_cov", label, r, stable))
+    bitwise = all(torch.equal(a, b) for a, b in zip(ks, ps))
+    d.err[name] = max(d.err[name], e)
+    print(f"phase 2: {name} {label} {tuple(yy.shape)} mask {tuple(mm.shape)} max-rel {r:.3e} "
+          f"max-abs {e:.3e} bit-stable run to run {stable} bit-identical {bitwise}", flush=True)
+    require(r <= TOL["masked_cov"] and stable, (name, label, r, stable))
+    require(bitwise or precision == "f32", (name, label, "bit-identical", bitwise))
     return ps
 
 
-def check_mwf(d: SimpleNamespace, label: str, Rss, Rnn, mu=1.0) -> None:
-    """The fused-solve kernel against its plain version; whether the two
-    agree bit for bit is reported."""
+def check_mwf(d: SimpleNamespace, label: str, Rss, Rnn, mu=1.0, precision: str = "f32") -> None:
+    """The fused-solve kernel of a precision lane against its plain version;
+    whether the two agree bit for bit is reported, and required in the
+    bf16 lane."""
     import torch
 
     from disco_tpu_torch.ops import mwf_ops
 
-    wk, tk = mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu)
-    wp, tp = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu)
+    name = _lane("fused_mwf", precision)
+    wk, tk = mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu, precision=precision)
+    wp, tp = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu, precision=precision)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(wk).all() and torch.isfinite(wp).all())
     r = max(rel_l2(wk, wp), rel_l2(tk, tp))
     e = max(max_abs(wk, wp), max_abs(tk, tp))
     bitwise = bool(torch.equal(wk, wp) and torch.equal(tk, tp))
-    d.err["fused_mwf"] = max(d.err["fused_mwf"], e)
-    print(f"phase 2: fused_mwf {label} {tuple(Rss.shape)} rel-l2 {r:.3e} max-abs {e:.3e} "
+    d.err[name] = max(d.err[name], e)
+    print(f"phase 2: {name} {label} {tuple(Rss.shape)} rel-l2 {r:.3e} max-abs {e:.3e} "
           f"finite {finite} bit-identical {bitwise}", flush=True)
-    require(finite and r <= TOL["fused_mwf"], ("fused_mwf", label, r))
+    require(finite and r <= TOL["fused_mwf"], (name, label, r))
+    require(bitwise or precision == "f32", (name, label, "bit-identical", bitwise))
 
 
 def batch_clips(d: SimpleNamespace):
@@ -557,9 +659,114 @@ def phase3_offline_path(d: SimpleNamespace) -> None:
           f"{sdr_in:.2f} -> {sdr_out:.2f} dB (gain {sdr_out - sdr_in:.2f})", flush=True)
     require(clip_err <= TOL["clip"], ("clip", clip_err))
     require(sdr_out - sdr_in > TOL["sdr_gain_db"], ("sdr gain", sdr_out - sdr_in))
+    d.sdr_f32 = sdr_out
+    phase3_bf16_clip(d)
+    phase3_policies_and_faults(d)
 
 
-def stream_windows(d: SimpleNamespace, first: int, last: int, state):
+def phase3_bf16_clip(d: SimpleNamespace) -> None:
+    """The offline path in the bf16 lane: one clip and the 16-clip batch,
+    with the launch counters, against the bf16 plain-version clip; SI-SDR
+    at node 0 within 0.1 dB of the f32 lane's and +3 dB over the input.
+
+    The lane rounds to bf16 after the STFT (the covariances' spectra) and
+    after the covariances (the solve's pencils).  Where the kernels and the
+    plain versions sum in other orders before such a point, a value near a
+    rounding boundary lands one bf16 step (2^-8) apart, and an
+    ill-conditioned bin's filter moves with it.  The covariance and solve
+    kernels are bit for bit their plain versions in this lane, and the STFT
+    kernel is held to its plain version in phase 2; so the clip is held
+    within 1e-4 of the plain versions fed the STFT kernel's spectra, and
+    against the plain versions from the signal (the STFT's order too)
+    within the lane's 1e-2 rel-l2 and 0.1 dB of SI-SDR.
+
+    Against the f32 lane: the lane of the STFT and the covariances (the
+    bf16 kernels, ``solver='eigh'``, whose solve stays float32) within the
+    JAX package's 0.1 dB gate (``tests/test_tango.py``); the whole lane's
+    SI-SDR cost with the fused solve, whose pencils are rounded to bf16
+    too, is printed: at the north-star scene's 11-channel step 2 it
+    exceeds 0.1 dB in the plain versions as in the kernels, and in the
+    JAX package's lane too (``exp/bf16_sdr_cost.py``, PERF.md)."""
+    import torch
+
+    from disco_tpu_torch.enhance.fused import tango_clip_fused
+
+    with counted("offline clip bf16", {"stft_bf16": 1, "masked_cov_bf16": 2,
+                                       "fused_mwf_bf16": 2}, d.launches):
+        out = tango_clip_fused(d.y, d.s, d.n, solver="fused", precision="bf16")
+    require(out.shape == (K, d.L) and bool(torch.isfinite(out).all()),
+            "non-finite or misshapen bf16 output")
+    yb, sb, nb = batch_clips(d)
+    with counted("offline batch bf16", {"stft_bf16": 1, "masked_cov_bf16": 2,
+                                        "fused_mwf_bf16": 2}, d.launches):
+        batch = tango_clip_fused(yb, sb, nb, solver="fused", precision="bf16")
+    del yb, sb, nb
+    with plain_kernels(stft=False):
+        fed = tango_clip_fused(d.y, d.s, d.n, solver="fused", precision="bf16")
+    with plain_kernels():
+        ref = tango_clip_fused(d.y, d.s, d.n, solver="fused", precision="bf16")
+    torch.cuda.synchronize()
+    clip_err = max_rel(out, fed)
+    batch_err = max(max_rel(batch[b], fed) for b in range(BATCH))
+    full_err, full_l2 = max_rel(out, ref), rel_l2(out, ref)
+    sdr_in = si_sdr(d.s_np[0, 0], d.y_np[0, 0])
+    sdr_out = si_sdr(d.s_np[0, 0], out[0].cpu().numpy())
+    sdr_ref = si_sdr(d.s_np[0, 0], ref[0].cpu().numpy())
+    print(f"phase 3: bf16 clip vs the bf16 plain versions fed the STFT kernel's spectra "
+          f"{clip_err:.3e} (bit-identical {bool(torch.equal(out, fed))}), every clip of the "
+          f"{BATCH}-clip batch {batch_err:.3e} of output scale; vs the bf16 plain versions from "
+          f"the signal {full_err:.3e} of output scale, rel-l2 {full_l2:.3e}, SI-SDR node 0 "
+          f"{sdr_ref:.4f}; SI-SDR node 0 {sdr_in:.4f} -> {sdr_out:.4f} dB (f32 lane "
+          f"{d.sdr_f32:.4f}, difference {sdr_out - d.sdr_f32:+.4f})", flush=True)
+    require(clip_err <= TOL["clip"] and batch_err <= TOL["clip"], ("bf16 clip", clip_err,
+                                                                    batch_err))
+    require(full_l2 <= TOL["bf16_lane"] and abs(sdr_out - sdr_ref) <= TOL["stream_sdr_db"],
+            ("bf16 clip vs the plain versions from the signal", full_l2, sdr_out, sdr_ref))
+    require(sdr_out - sdr_in > TOL["sdr_gain_db"], ("bf16 sdr gain", sdr_out - sdr_in))
+    with counted("offline clip bf16, solver='eigh'", {"stft_bf16": 1, "masked_cov_bf16": 2},
+                 d.launches):
+        cov_lane = tango_clip_fused(d.y, d.s, d.n, solver="eigh", precision="bf16")
+    f32_eigh = tango_clip_fused(d.y, d.s, d.n, solver="eigh")
+    sdr_cov = si_sdr(d.s_np[0, 0], cov_lane[0].cpu().numpy())
+    sdr_f32_eigh = si_sdr(d.s_np[0, 0], f32_eigh[0].cpu().numpy())
+    print(f"phase 3: SI-SDR node 0 against the f32 lane: the STFT and covariance lane "
+          f"(solver='eigh') {sdr_cov:.4f} vs {sdr_f32_eigh:.4f} dB (difference "
+          f"{sdr_cov - sdr_f32_eigh:+.4f}); the whole lane with the fused solve {sdr_out:.4f} vs "
+          f"{d.sdr_f32:.4f} dB (difference {sdr_out - d.sdr_f32:+.4f})", flush=True)
+    require(abs(sdr_cov - sdr_f32_eigh) <= TOL["stream_sdr_db"],
+            ("bf16 covariance lane vs f32 SI-SDR", sdr_cov, sdr_f32_eigh))
+
+
+def phase3_policies_and_faults(d: SimpleNamespace) -> None:
+    """``tango`` on the clip's spectra under the three policies that
+    substitute other signals for z, and with a (K, K) link mask and a NaN
+    node, each against its plain-version run."""
+    import torch
+
+    from disco_tpu_torch.enhance.tango import tango
+
+    zm = np.ones((K, K), np.float32)
+    zm[0, 1] = zm[3, 5] = zm[7, 0] = 0.0        # three dead links
+    z_nan = np.zeros(K)
+    z_nan[6] = 1                                 # node 6's streams corrupted
+    cases = [(p, dict(policy=p), {"masked_cov": 1, "fused_mwf": 2})
+             for p in ("compressed", "use_oracle_refs", "use_oracle_zs")]
+    cases.append(("local, (K, K) z_mask and a NaN node", dict(z_mask=zm, z_nan=z_nan),
+                  {"masked_cov": 2, "fused_mwf": 2}))
+    for label, kw, launches in cases:
+        with counted(f"tango {label}", launches, d.launches):
+            res = tango(d.Y, d.S, d.N, d.m, d.m, solver="fused", **kw)
+        with plain_kernels():
+            ref = tango(d.Y, d.S, d.N, d.m, d.m, solver="fused", **kw)
+        torch.cuda.synchronize()
+        err = max(max_rel(getattr(res, f), getattr(ref, f)) for f in ("yf", "sf", "nf"))
+        finite = bool(torch.isfinite(res.yf).all())
+        print(f"phase 3: tango {label}: vs its plain-version run {err:.3e} of output scale, "
+              f"finite {finite}", flush=True)
+        require(finite and err <= TOL["clip"], ("tango", label, err, finite))
+
+
+def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
     output, the state after each window)."""
@@ -571,7 +778,8 @@ def stream_windows(d: SimpleNamespace, first: int, last: int, state):
     for w in range(first, last):
         sl = slice(w * LW, (w + 1) * LW)
         o = streaming_clip_fused(d.y[..., sl], d.s[..., sl], d.n[..., sl], state=state,
-                                 solver="jacobi-pallas", blocks_per_dispatch=BLOCKS_PER_DISPATCH)
+                                 solver="jacobi-pallas", blocks_per_dispatch=BLOCKS_PER_DISPATCH,
+                                 precision=precision)
         state = o["state"]
         outs.append(o["yf"])
         states.append(state)
@@ -587,13 +795,7 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     import torch
 
     from disco_tpu_torch.core.dsp import istft
-    from disco_tpu_torch.enhance.stream_check import per_block_reference
-    from disco_tpu_torch.enhance.streaming import (
-        initial_stream_state,
-        state_leaves,
-        streaming_tango,
-        streaming_tango_scan,
-    )
+    from disco_tpu_torch.enhance.streaming import streaming_tango
     from disco_tpu_torch.ops.eigh_ops import eigh_jacobi_kernel, eigh_jacobi_unsorted
 
     per_window = 2 * (1 + LW // 256) // 4
@@ -623,26 +825,7 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     yfull = istft(full["yf"], length=d.L)
     require(bool(torch.isfinite(yfull).all()), "non-finite full-clip stream")
 
-    # scanned super ticks == the per-block loop, bit for bit, on the card
-    Ys, ms = d.Y[..., :64], d.m[..., :64]
-    F = d.Y.shape[-2]
-    ref, ref_state = per_block_reference(Ys, ms, block=8, update_every=4,
-                                         state=initial_stream_state(K, C, F),
-                                         solver="jacobi-pallas")
-    st, parts = initial_stream_state(K, C, F), []
-    for w in range(2):
-        sl = slice(32 * w, 32 * (w + 1))
-        o = streaming_tango_scan(Ys[..., sl], ms[..., sl], ms[..., sl], state=st,
-                                 z_avail=torch.ones((K, 8)), blocks_per_dispatch=4,
-                                 solver="jacobi-pallas")
-        st = o["state"]
-        parts.append(o["yf"])
-    same_out = bool(torch.equal(torch.cat(parts, dim=-1), ref))
-    same_state = all(torch.equal(a, b) for a, b in zip(state_leaves(st), state_leaves(ref_state)))
-    print(f"phase 4: streaming_tango_scan vs per_block_reference, 64 frames in super ticks of "
-          f"4 blocks: output bit-identical {same_out}, state bit-identical {same_state}",
-          flush=True)
-    require(same_out and same_state, "scan vs per-block bit-exactness")
+    check_scan_vs_per_block(d, "f32")
 
     # the plain versions from the state after the first window
     with plain_kernels():
@@ -675,6 +858,74 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     require(all(abs(gains["windows"][t] - g) <= TOL["witness_db"]
                 for t, g in JAX_WINDOWS_GAIN_DB.items()), ("windows vs JAX witness", gains))
     require(gains["full clip"][STREAM_SDR_FROM_S] > TOL["sdr_gain_db"], ("stream sdr gain", gains))
+    phase4_bf16_windows(d, gains["windows"])
+
+
+def check_scan_vs_per_block(d: SimpleNamespace, precision: str) -> None:
+    """Scanned super ticks == the per-block loop, bit for bit, on the card,
+    in a precision lane."""
+    import torch
+
+    from disco_tpu_torch.enhance.stream_check import per_block_reference
+    from disco_tpu_torch.enhance.streaming import (
+        initial_stream_state,
+        state_leaves,
+        streaming_tango_scan,
+    )
+
+    Ys, ms = d.Y[..., :64], d.m[..., :64]
+    F = d.Y.shape[-2]
+    ref, ref_state = per_block_reference(Ys, ms, block=8, update_every=4,
+                                         state=initial_stream_state(K, C, F),
+                                         solver="jacobi-pallas", precision=precision)
+    st, parts = initial_stream_state(K, C, F), []
+    for w in range(2):
+        sl = slice(32 * w, 32 * (w + 1))
+        o = streaming_tango_scan(Ys[..., sl], ms[..., sl], ms[..., sl], state=st,
+                                 z_avail=torch.ones((K, 8)), blocks_per_dispatch=4,
+                                 solver="jacobi-pallas", precision=precision)
+        st = o["state"]
+        parts.append(o["yf"])
+    same_out = bool(torch.equal(torch.cat(parts, dim=-1), ref))
+    same_state = all(torch.equal(a, b) for a, b in zip(state_leaves(st), state_leaves(ref_state)))
+    print(f"phase 4: {precision} streaming_tango_scan vs per_block_reference, 64 frames in super "
+          f"ticks of 4 blocks: output bit-identical {same_out}, state bit-identical {same_state}",
+          flush=True)
+    require(same_out and same_state, (precision, "scan vs per-block bit-exactness"))
+
+
+def phase4_bf16_windows(d: SimpleNamespace, f32_gains: dict) -> None:
+    """The streaming windows in the bf16 lane (the bf16 STFT kernel, the
+    bf16 tail accumulation, the eigensolver): scan against the per-block
+    loop bit for bit, windows 2-9 against the plain versions from the state
+    after window 1 (within 1e-4 fed the STFT kernel's spectra, within the
+    lane's 1e-2 from the signal: see :func:`phase3_bf16_clip`), and the
+    windows' SI-SDR gains within 0.1 dB of the f32 lane's."""
+    import torch
+
+    per_window = 2 * (1 + LW // 256) // 4
+    with counted("streaming windows bf16", {"stft_bf16": N_WINDOWS,
+                                            "eigh_jacobi": N_WINDOWS * per_window}, d.launches):
+        yw, states = stream_windows(d, 0, N_WINDOWS, None, "bf16")
+    Lc = N_WINDOWS * LW
+    require(yw.shape == (K, Lc) and bool(torch.isfinite(yw).all()),
+            "non-finite or misshapen bf16 streaming output")
+    check_scan_vs_per_block(d, "bf16")
+    with plain_kernels(stft=False):
+        yp, _ = stream_windows(d, 1, N_WINDOWS, states[0], "bf16")
+    with plain_kernels():
+        yq, _ = stream_windows(d, 1, N_WINDOWS, states[0], "bf16")
+    torch.cuda.synchronize()
+    err, err_full = rel_l2(yw[:, LW:], yp), rel_l2(yw[:, LW:], yq)
+    gains = sdr_gains(d.s_np[0, 0], d.y_np[0, 0], yw[0].cpu().numpy())
+    print(f"phase 4: bf16 windows 2-{N_WINDOWS} from the state after window 1, kernels vs plain "
+          f"versions: fed the STFT kernel's spectra rel-l2 {err:.3e}, from the signal "
+          f"{err_full:.3e}; SI-SDR gain at node 0 after t seconds "
+          + json.dumps(gains) + " (f32 lane " + json.dumps(f32_gains) + ")", flush=True)
+    require(err <= TOL["stream"], ("bf16 stream vs plain", err))
+    require(err_full <= TOL["bf16_lane"], ("bf16 stream vs plain from the signal", err_full))
+    require(all(abs(gains[t] - g) <= TOL["stream_sdr_db"] for t, g in f32_gains.items()),
+            ("bf16 windows vs f32 windows", gains, f32_gains))
 
 
 def sdr_gains(clean, noisy, out, keep=None) -> dict:
@@ -708,13 +959,16 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     from disco_tpu_torch.ops.eigh_ops import default_sweeps
 
     yb, sb, nb = batch_clips(d)
-    tango_clip_fused(yb, sb, nb, solver="fused")  # warm-up
-    runs = sorted(time_ms(lambda: tango_clip_fused(yb, sb, nb, solver="fused"), reps=1,
-                          warmup=0) for _ in range(5))
-    path_ms = runs[2]
     audio_s = BATCH * K * DUR_S
-    print(f"phase 5: offline path {BATCH} clips {path_ms} ms (median of {runs}) = "
-          f"{audio_s / (path_ms / 1e3)} enhanced audio-s per s", flush=True)
+    for precision in ("f32", "bf16"):
+        def path():
+            return tango_clip_fused(yb, sb, nb, solver="fused", precision=precision)
+
+        path()  # warm-up
+        runs = sorted(time_ms(path, reps=1, warmup=0) for _ in range(5))
+        path_ms = runs[2]
+        print(f"phase 5: offline path, {precision} lane, {BATCH} clips {path_ms} ms (median of "
+              f"{runs}) = {audio_s / (path_ms / 1e3)} enhanced audio-s per s", flush=True)
     del yb, sb, nb
 
     # streaming: windows 2..9 again from the state after window 1, each
@@ -742,51 +996,89 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "replaces": "disco_tpu/ops/stft_ops.py:183", **_launches(d, "stft"),
         "max_abs_err": d.err["stft"],
         "ms": time_ms(lambda: stft_ops.stft_kernel(d.x, with_mag=True), reps=20),
+        "device_ms": device_ms(lambda: stft_ops.stft_kernel(d.x, with_mag=True),
+                               "stft_rfft_kernel"),
         "plain_ms": time_ms(lambda: stft_ops.stft_matmul(d.x, with_mag=True), reps=20),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.stft(rows, 512, 256, window=win, center=True,
                                                  pad_mode="reflect", return_complex=True), reps=20),
     })
+    # the bf16 lane's tensor-core DFT; its library call is one cuBLAS GEMM,
+    # torch.matmul of the bf16 windowed frames and the bf16 [cos | sin]
+    # table, whose output is bf16
+    fl, nbytes = stft_bf16_cost(rows.shape[0], d.L)
+    b_ms, b_by = bound(fl, nbytes, PEAK_BF16)
+    frames = torch.nn.functional.pad(rows, (256, 256), mode="reflect").unfold(-1, 512, 256)
+    frames16 = (frames * win).to(torch.bfloat16)
+    table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
+                        dim=1).to(device=d.dev, dtype=torch.bfloat16)
+    entries.append({
+        "name": "stft_bf16", "route": "cuda", "source": "disco_tpu_torch/csrc/stft_bf16.cu",
+        "replaces": "disco_tpu/ops/stft_ops.py:183", **_launches(d, "stft_bf16"),
+        "max_abs_err": d.err["stft_bf16"],
+        "ms": time_ms(lambda: stft_ops.stft_bf16_kernel(d.x, with_mag=True), reps=20),
+        "device_ms": device_ms(lambda: stft_ops.stft_bf16_kernel(d.x, with_mag=True),
+                               "stft_bf16_kernel"),
+        "plain_ms": time_ms(lambda: stft_ops.stft_matmul(d.x, with_mag=True, precision="bf16"),
+                            reps=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.matmul(frames16, table16), reps=20),
+        "library_call": "torch.matmul(bf16 (96, 626, 512), bf16 (512, 514)) -> bf16 (cuBLAS)",
+    })
+    del frames, frames16, table16
 
-    def cov_times(label, yy, mm, plain_reps):
+    def cov_times(label, yy, mm, plain_reps, precision):
         lead, (D, F, T) = yy.shape[:-3], yy.shape[-3:]
         chan = mm.ndim == yy.ndim
         fl, nbytes = cov_cost(math.prod(lead), D, F, T, chan)
+        lib = (library_cov(yy, mm) if precision == "f32" else
+               lambda: cov_ops.masked_covariances_folded(yy, mm, precision="bf16"))
         return {
             "shape": f"{label} {tuple(yy.shape)}",
-            "ms": time_ms(lambda: cov_ops.masked_cov_kernel(yy, mm), reps=50),
-            "device_ms": device_ms(lambda: cov_ops.masked_cov_kernel(yy, mm), "masked_cov_kernel"),
-            "plain_ms": time_ms(lambda: cov_ops.masked_covariances_folded(yy, mm),
+            "ms": time_ms(lambda: cov_ops.masked_cov_kernel(yy, mm, precision), reps=50),
+            "device_ms": device_ms(lambda: cov_ops.masked_cov_kernel(yy, mm, precision),
+                                   "masked_cov_kernel"),
+            "plain_ms": time_ms(lambda: cov_ops.masked_covariances_plain(yy, mm, precision),
                                 reps=plain_reps),
-            "library_ms": time_ms(library_cov(yy, mm), reps=plain_reps),
+            "library_ms": time_ms(lib, reps=plain_reps),
             "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
         }
 
-    def mwf_times(label, Rss, Rnn, mu, plain_reps):
+    def mwf_times(label, Rss, Rnn, mu, plain_reps, precision):
         D = Rss.shape[-1]
         fl, nbytes = mwf_cost(Rss[..., 0, 0].numel(), D, default_sweeps(D))
         return {
             "shape": f"{label} {tuple(Rss.shape)}",
-            "ms": time_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu), reps=20),
-            "device_ms": device_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu), "fused_mwf"),
-            "plain_ms": time_ms(lambda: mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu), reps=plain_reps,
-                                warmup=1),
+            "ms": time_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu, precision=precision),
+                          reps=20),
+            "device_ms": device_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu,
+                                                                    precision=precision),
+                                   "fused_mwf"),
+            "plain_ms": time_ms(lambda: mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu,
+                                                                precision=precision),
+                                reps=plain_reps, warmup=1),
             "library_ms": None, "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
         }
 
-    # covariances and fused solve: the step-1 (C=4) and step-2 (D=11)
-    # launches of one clip; beside them, those of the 16-clip batch
-    per = [cov_times(label, yy, d.m, 20) for label, yy in (("step1", d.Y), ("step2", d.in_y))]
-    entries.append(_summed(d, "masked_cov", "disco_tpu_torch/csrc/cov.cu",
-                           "disco_tpu/ops/cov_ops.py:233", per))
-    entries[-1]["batch_launches"] = [cov_times(f"batch {label}", yy, mm, 5) for label, (yy, mm)
-                                     in zip(("step1", "step2"), d.batch["masked_cov"])]
-    per = [mwf_times(label, *d.pencils[label], 1.0, 2) for label in ("step1", "step2")]
-    entries.append(_summed(d, "fused_mwf", "disco_tpu_torch/csrc/mwf.cu",
-                           "disco_tpu/ops/mwf_ops.py:434", per))
-    entries[-1]["batch_launches"] = [mwf_times(f"batch {label}", Rss, Rnn, mu, 1) for label,
-                                     (Rss, Rnn, mu) in zip(("step1", "step2"), d.batch["fused_mwf"])]
-    for e in entries[1:]:
+    # covariances and fused solve, each lane: the step-1 (C=4) and step-2
+    # (D=11) launches of one clip; beside them, those of the 16-clip batch
+    for precision, pencils, batch in (("f32", d.pencils, d.batch),
+                                      ("bf16", d.pencils_bf16, d.batch_bf16)):
+        per = [cov_times(label, yy, d.m, 20, precision)
+               for label, yy in (("step1", d.Y), ("step2", d.in_y))]
+        entries.append(_summed(d, _lane("masked_cov", precision), "disco_tpu_torch/csrc/cov.cu",
+                               "disco_tpu/ops/cov_ops.py:233", per))
+        entries[-1]["batch_launches"] = [cov_times(f"batch {label}", yy, mm, 5, precision)
+                                         for label, (yy, mm)
+                                         in zip(("step1", "step2"), batch["masked_cov"])]
+        per = [mwf_times(label, *pencils[label], 1.0, 2, precision)
+               for label in ("step1", "step2")]
+        entries.append(_summed(d, _lane("fused_mwf", precision), "disco_tpu_torch/csrc/mwf.cu",
+                               "disco_tpu/ops/mwf_ops.py:434", per))
+        entries[-1]["batch_launches"] = [mwf_times(f"batch {label}", Rss, Rnn, mu, 1, precision)
+                                         for label, (Rss, Rnn, mu)
+                                         in zip(("step1", "step2"), batch["fused_mwf"])]
+    for e in entries[2:]:
         for row in e["per_launch"] + e["batch_launches"]:
             print(f"phase 5: {e['name']}: " + json.dumps(row), flush=True)
 
@@ -926,6 +1218,8 @@ def phase6_breakdown(d: SimpleNamespace) -> None:
     yb, sb, nb = batch_clips(d)
     profiled(f"one {BATCH}-clip offline call",
              lambda: tango_clip_fused(yb, sb, nb, solver="fused"))
+    profiled(f"one {BATCH}-clip offline call, bf16 lane",
+             lambda: tango_clip_fused(yb, sb, nb, solver="fused", precision="bf16"))
     del yb, sb, nb
     profiled("one streaming window (window 2)", lambda: stream_windows(d, 1, 2, d.stream_state_1))
 

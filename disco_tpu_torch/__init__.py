@@ -24,7 +24,8 @@ Precision.  Importing the package sets
 reference pins true float32 products (``disco_tpu/ops/stft_ops.py``'s
 ``precision="float32"`` DFT passes, ``Precision.HIGHEST`` in
 ``disco_tpu/ops/cov_ops.py``), and TF32 keeps only ~3 decimal digits.
-The bf16 lane is not ported yet (``ops.resolve.resolve_precision``).
+The opt-in bf16 lane (``precision='bf16'``) rounds operands to bf16 at
+the points ``ops/resolve.py`` lists and accumulates in float32.
 
 Weights and state.  The two-step TANGO paths have no learned
 parameters: the masks are oracle masks and the DFT/IDFT/Hann tables are

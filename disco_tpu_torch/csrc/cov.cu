@@ -11,6 +11,16 @@
 // as the upper triangle c <= d plus its Hermitian mirror.  Y is read as
 // interleaved complex64 (B, C, F, T) and the pair is written as complex64
 // (B, F, C, C), the layouts of the caller: no planar split, no transpose.
+// The bf16 lane (the BF16 instances; the TPU kernel's precision='bf16'
+// branch, which feeds it bf16 y planes) rounds the real and imaginary part
+// of each Y value to bf16 in registers as the tile is consumed, and keeps
+// everything else, the frame-slice order included: the same complex64 input
+// read once, with no cast pass before the launch (ops/resolve.py's rounding
+// points; PERF.md says why not bf16 planes).  Its products and sums are
+// rounded one by one (no fused multiply-add), so that its plain version
+// (cov_ops._masked_cov_sliced, the same order) gives the same bits: a
+// covariance that moved by one float32 rounding could round to another
+// bf16 value in the fused solve's bf16 lane.
 //
 // Bound on an H100: bytes.  The step-2 stack of the main path (8 nodes x
 // 11 channels x 257 bins x 626 frames) is ~118 MB read once, ~35 us at
@@ -71,7 +81,7 @@ __host__ __device__ constexpr int bin_bytes(const int C, const bool chan) {
   return loads > parts ? loads : parts;
 }
 
-template <bool CHAN>
+template <bool CHAN, bool BF16>
 __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __restrict__ mask,
                                   float2* __restrict__ rss, float2* __restrict__ rnn,
                                   const int n_bins, const int C, const int F, const int T,
@@ -149,7 +159,11 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
       const float* md_row = ms + (k & 1) * n_mask * kTile + (CHAN ? d : 0) * kTile;
       const float2* w_row = ws + (k & 1) * kTile;
       for (int tt = s; tt < nt; tt += kSlices) {
-        const float2 yc = yc_row[tt], yd = yd_row[tt];
+        float2 yc = yc_row[tt], yd = yd_row[tt];
+        if constexpr (BF16) {
+          yc = disco::bf16_round2(yc);
+          yd = disco::bf16_round2(yd);
+        }
         float wsv, wnv;
         if constexpr (CHAN) {
           const float mc = mc_row[tt], md = md_row[tt];
@@ -161,12 +175,23 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
           wnv = wv.y;
         }
         // Y_c conj(Y_d): re = rc rd + ic id, im = ic rd - rc id
-        const float prr = yc.x * yd.x + yc.y * yd.y;
-        const float pii = yc.y * yd.x - yc.x * yd.y;
-        ssr += wsv * prr;
-        ssi += wsv * pii;
-        nnr += wnv * prr;
-        nni += wnv * pii;
+        if constexpr (BF16) {
+          // every product and sum rounded on its own, as the plain version
+          // rounds them (the products of bf16 values are exact)
+          const float prr = __fadd_rn(__fmul_rn(yc.x, yd.x), __fmul_rn(yc.y, yd.y));
+          const float pii = __fsub_rn(__fmul_rn(yc.y, yd.x), __fmul_rn(yc.x, yd.y));
+          ssr = __fadd_rn(ssr, __fmul_rn(wsv, prr));
+          ssi = __fadd_rn(ssi, __fmul_rn(wsv, pii));
+          nnr = __fadd_rn(nnr, __fmul_rn(wnv, prr));
+          nni = __fadd_rn(nni, __fmul_rn(wnv, pii));
+        } else {
+          const float prr = yc.x * yd.x + yc.y * yd.y;
+          const float pii = yc.y * yd.x - yc.x * yd.y;
+          ssr += wsv * prr;
+          ssi += wsv * pii;
+          nnr += wnv * prr;
+          nni += wnv * pii;
+        }
       }
     }
     if (k + 1 < n_tiles) {
@@ -207,12 +232,28 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
   }
 }
 
+template <bool CHAN, bool BF16>
+void launch(const float2* y, const float* mask, float2* rss, float2* rnn, const int blocks,
+            const int threads, const size_t smem, cudaStream_t s, const int n_bins, const int C,
+            const int F, const int T, const int bins, const float inv_t) {
+  masked_cov_kernel<CHAN, BF16><<<blocks, threads, smem, s>>>(y, mask, rss, rnn, n_bins, C, F, T,
+                                                              bins, inv_t);
+}
+
+template <bool CHAN, bool BF16>
+cudaError_t raise_smem_limit(const int bytes) {
+  return cudaFuncSetAttribute(masked_cov_kernel<CHAN, BF16>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 }  // namespace
 
 // y: (B, C, F, T) complex64; mask: (B, F, T) float32, or (B, C, F, T) when
-// per_channel_mask != 0; rss, rnn: (B, F, C, C) complex64.
+// per_channel_mask != 0; rss, rnn: (B, F, C, C) complex64; bf16 != 0 runs the
+// bf16 lane.
 extern "C" int disco_masked_cov(const void* y, const void* mask, void* rss, void* rnn, int B,
-                                int C, int F, int T, int per_channel_mask, void* stream) {
+                                int C, int F, int T, int per_channel_mask, int bf16,
+                                void* stream) {
   if (B <= 0 || F <= 0) return (int)cudaSuccess;
   if (C < 1 || C > kMaxC || T < 1) return (int)cudaErrorInvalidValue;
   const bool chan = per_channel_mask != 0;
@@ -237,11 +278,10 @@ extern "C" int disco_masked_cov(const void* y, const void* mask, void* rss, void
   if (!(set.load(std::memory_order_relaxed) & bit)) {
     // the most any launch takes: a block of several bins, or one bin at C = 16
     const int most = bin_bytes(kMaxC, true) > kMaxSmem ? bin_bytes(kMaxC, true) : kMaxSmem;
-    err = cudaFuncSetAttribute(masked_cov_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(masked_cov_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    err = raise_smem_limit<true, false>(most);
+    if (err == cudaSuccess) err = raise_smem_limit<false, false>(most);
+    if (err == cudaSuccess) err = raise_smem_limit<true, true>(most);
+    if (err == cudaSuccess) err = raise_smem_limit<false, true>(most);
     if (err != cudaSuccess) return (int)err;
     set.fetch_or(bit, std::memory_order_relaxed);
   }
@@ -250,11 +290,13 @@ extern "C" int disco_masked_cov(const void* y, const void* mask, void* rss, void
   const float* mm = static_cast<const float*>(mask);
   float2* a = static_cast<float2*>(rss);
   float2* b = static_cast<float2*>(rnn);
-  if (chan)
-    masked_cov_kernel<true><<<blocks, threads, smem, s>>>(yy, mm, a, b, n_bins, C, F, T, bins,
-                                                          inv_t);
+  if (chan && bf16)
+    launch<true, true>(yy, mm, a, b, blocks, threads, smem, s, n_bins, C, F, T, bins, inv_t);
+  else if (chan)
+    launch<true, false>(yy, mm, a, b, blocks, threads, smem, s, n_bins, C, F, T, bins, inv_t);
+  else if (bf16)
+    launch<false, true>(yy, mm, a, b, blocks, threads, smem, s, n_bins, C, F, T, bins, inv_t);
   else
-    masked_cov_kernel<false><<<blocks, threads, smem, s>>>(yy, mm, a, b, n_bins, C, F, T, bins,
-                                                           inv_t);
+    launch<false, false>(yy, mm, a, b, blocks, threads, smem, s, n_bins, C, F, T, bins, inv_t);
   return (int)cudaGetLastError();
 }

@@ -63,10 +63,18 @@ __device__ __forceinline__ float clip_lambda(const float best, const MwfParams& 
   return lam > prm.lam_ceil ? prm.lam_ceil : lam;
 }
 
+// A pencil entry as the chain starts from it: the bf16 lane (BF16 instances,
+// the TPU kernel's precision='bf16' branch) rounds its real and imaginary
+// part to bf16 at load (ops/resolve.py's rounding points, _bf16_round of the
+// reference); the rest of the chain is the f32 lane's.
+__device__ __forceinline__ float2 load_plane(const float2 v, const bool bf16) {
+  return bf16 ? make_float2(disco::bf16_round(v.x), disco::bf16_round(v.y)) : v;
+}
+
 // ---------------------------------------------------------------- C <= 4
 constexpr int kThreads = 32;
 
-template <int C>
+template <int C, bool BF16>
 __global__ void __launch_bounds__(kThreads)
     fused_mwf_thread_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
                             const float* __restrict__ mu, const int mu_stride,
@@ -87,11 +95,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < C; ++i) {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      const float2 s = S[i * C + j];
+      const float2 s = load_plane(S[i * C + j], BF16);
       Ar[i][j] = s.x;
       Ai[i][j] = s.y;
       if (j <= i) {
-        const float2 v = N[i * C + j];
+        const float2 v = load_plane(N[i * C + j], BF16);
         Lr[i][j] = v.x;
         Li[i][j] = v.y;
       }
@@ -252,10 +260,14 @@ __global__ void __launch_bounds__(kThreads)
 template <int C>
 void launch_thread(const float2* a, const float2* b, const float* mu, int mu_stride,
                    float mu_value, float2* w, float2* t1, int n, int sweeps,
-                   const MwfParams& prm, cudaStream_t s) {
+                   const MwfParams& prm, bool bf16, cudaStream_t s) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  fused_mwf_thread_kernel<C><<<blocks, kThreads, 0, s>>>(a, b, mu, mu_stride, mu_value, w, t1,
-                                                         n, sweeps, prm);
+  if (bf16)
+    fused_mwf_thread_kernel<C, true><<<blocks, kThreads, 0, s>>>(a, b, mu, mu_stride, mu_value,
+                                                                  w, t1, n, sweeps, prm);
+  else
+    fused_mwf_thread_kernel<C, false><<<blocks, kThreads, 0, s>>>(a, b, mu, mu_stride, mu_value,
+                                                                   w, t1, n, sweeps, prm);
 }
 
 // ---------------------------------------------------------------- C >= 5
@@ -270,7 +282,7 @@ __host__ __device__ constexpr int group_floats(const int C) { return 6 * C * (C 
 
 // A group of G lanes per pencil (C <= G), lane l owning row and column l of
 // A, V and L.
-template <int G>
+template <int G, bool BF16>
 __global__ void __launch_bounds__(G * kGroupPencils<G>)
     fused_mwf_group_kernel(const float2* __restrict__ rss, const float2* __restrict__ rnn,
                            const float* __restrict__ mu, const int mu_stride,
@@ -293,8 +305,8 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
     const int m = e / cc, r = (e - m * cc) / C, k = e - m * cc - r * C;
     float2 x = make_float2(0.0f, 0.0f), v = make_float2(0.0f, 0.0f);
     if (m < count) {
-      x = a2[e];
-      v = b2[e];
+      x = load_plane(a2[e], BF16);
+      v = load_plane(b2[e], BF16);
     }
     sm2[m * per + r * S + k] = x;
     sm2[m * per + cs + r * S + k] = v;
@@ -454,23 +466,27 @@ __global__ void __launch_bounds__(G * kGroupPencils<G>)
 template <int G>
 void launch_group(const float2* a, const float2* b, const float* mu, int mu_stride,
                   float mu_value, float2* w, float2* t1, int n, int C, int sweeps,
-                  const MwfParams& prm, cudaStream_t s) {
+                  const MwfParams& prm, bool bf16, cudaStream_t s) {
   constexpr int kPencils = kGroupPencils<G>;
   const int blocks = (n + kPencils - 1) / kPencils;
   const size_t smem = sizeof(float) * kPencils * group_floats(C);
-  fused_mwf_group_kernel<G><<<blocks, G * kPencils, smem, s>>>(a, b, mu, mu_stride, mu_value, w,
-                                                               t1, n, C, sweeps, prm);
+  if (bf16)
+    fused_mwf_group_kernel<G, true><<<blocks, G * kPencils, smem, s>>>(
+        a, b, mu, mu_stride, mu_value, w, t1, n, C, sweeps, prm);
+  else
+    fused_mwf_group_kernel<G, false><<<blocks, G * kPencils, smem, s>>>(
+        a, b, mu, mu_stride, mu_value, w, t1, n, C, sweeps, prm);
 }
 
 }  // namespace
 
 // rss, rnn: (n, C, C) complex64; mu: (n,) float32 read at mu[i * mu_stride]
 // (mu_stride 0: one value for all), or null for mu_value; w, t1: (n, C)
-// complex64.
+// complex64; bf16 != 0 runs the bf16 lane.
 extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu, int mu_stride,
                                float mu_value, void* w, void* t1, int n, int C, int sweeps,
                                float eps, float loading, float lam_floor, float lam_ceil,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (C < 1 || C > kMaxC || sweeps < 0) return (int)cudaErrorInvalidValue;
   const MwfParams prm{eps, loading, lam_floor, lam_ceil};
@@ -480,16 +496,17 @@ extern "C" int disco_fused_mwf(const void* rss, const void* rnn, const void* mu,
   const float* m = static_cast<const float*>(mu);
   float2* wo = static_cast<float2*>(w);
   float2* to = static_cast<float2*>(t1);
+  const bool bf = bf16 != 0;
   switch (C) {
-    case 1: launch_thread<1>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
-    case 2: launch_thread<2>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
-    case 3: launch_thread<3>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
-    case 4: launch_thread<4>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, s); break;
+    case 1: launch_thread<1>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, bf, s); break;
+    case 2: launch_thread<2>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, bf, s); break;
+    case 3: launch_thread<3>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, bf, s); break;
+    case 4: launch_thread<4>(a, b, m, mu_stride, mu_value, wo, to, n, sweeps, prm, bf, s); break;
     default:
       if (C <= 8) {
-        launch_group<8>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+        launch_group<8>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, bf, s);
       } else {
-        launch_group<16>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, s);
+        launch_group<16>(a, b, m, mu_stride, mu_value, wo, to, n, C, sweeps, prm, bf, s);
       }
       break;
   }

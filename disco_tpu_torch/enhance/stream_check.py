@@ -15,7 +15,7 @@ from disco_tpu_torch.enhance.streaming import streaming_tango
 
 
 def per_block_reference(Y, m, *, block: int, update_every: int, state, plan=None,
-                        solver: str = "eigh", device=None):
+                        solver: str = "eigh", precision: str = "f32", device=None):
     """``streaming_tango`` block by block over (K, C, F, T) spectra ``Y``
     and (K, F, T) masks ``m`` (both steps use ``m``): blocks of ``block``
     frames, the explicit ``state`` carried from call to call, and per-block
@@ -32,7 +32,7 @@ def per_block_reference(Y, m, *, block: int, update_every: int, state, plan=None
                  else plan[:, i * per:(i + 1) * per])
         o = streaming_tango(Y[..., lo:hi], m[..., lo:hi], m[..., lo:hi],
                             update_every=update_every, state=state, z_avail=avail,
-                            solver=solver, device=device)
+                            solver=solver, precision=precision, device=device)
         state = o["state"]
         outs.append(o["yf"])
     return torch.cat(outs, dim=-1), state

@@ -25,8 +25,12 @@ and per-block streams are bit-identical inside the port.
 The JAX package folds an omitted float default at trace time and traces a
 passed one in float32 (``_float_kw``); the port has no trace, and computes
 every power of ``lambda_cor`` through :func:`_lam_pow`, in float64 on the
-host, so that all its paths scale by the same float32 numbers.  The
-``between_blocks`` chaos seam and the bf16 lane are not ported
+host, so that all its paths scale by the same float32 numbers.  Under
+``precision='bf16'`` the blocks' tail accumulation rounds its frames and
+weights to bf16 and contracts in float32 (``ops.cov_ops.outer_acc_bf16``,
+as the JAX package's lane); the refresh frame's outer product stays
+float32, and the solve takes the lane only under the ``'fused*'``
+solvers.  The ``between_blocks`` chaos seam is not ported
 (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from disco_tpu_torch.beam.filters import rank1_gevd
 from disco_tpu_torch.device import resolve_device
 from disco_tpu_torch.enhance.tango import others_index
+from disco_tpu_torch.ops.cov_ops import outer_acc_bf16
 from disco_tpu_torch.ops.resolve import resolve_precision
 
 #: Default filter-refresh block length (frames).
@@ -125,13 +130,15 @@ def state_to_numpy(state):
     return _map_state(state, lambda x: x.detach().cpu().numpy())
 
 
-def _block_covariances(XSb, XNb, lam: float, Rss0, Rnn0):
+def _block_covariances(XSb, XNb, lam: float, Rss0, Rnn0, precision: str = "f32"):
     """Scan over frame blocks, emitting the refresh-point covariances.
 
     Args:
       XSb, XNb: (..., B, u, F, D) speech / noise statistic frame blocks.
       lam: smoothing factor.
       Rss0, Rnn0: (..., F, D, D) covariances the recursion starts from.
+      precision: the lane of the blocks' tail accumulation (module
+        docstring).
 
     Returns:
       ((Rss_end, Rnn_end), (Rss_ref, Rnn_ref)): the end-of-stream carry and
@@ -140,10 +147,12 @@ def _block_covariances(XSb, XNb, lam: float, Rss0, Rnn0):
     B, u = XSb.shape[-4], XSb.shape[-3]
     decay = _lam_pow(lam, u - 1)
     tail_w = torch.tensor([_lam_pow(lam, k) for k in range(u - 2, -1, -1)],
-                          dtype=torch.float32, device=XSb.device)[:, None, None]
+                          dtype=torch.float32, device=XSb.device)
 
     def acc_tail(x):  # (..., u-1, F, D) -> sum_t w_t x_t x_t^H, (..., F, D, D)
-        return torch.einsum("...tfc,...tfd->...fcd", tail_w * x, x.conj())
+        if precision == "bf16":
+            return outer_acc_bf16(tail_w, x)
+        return torch.einsum("...tfc,...tfd->...fcd", tail_w[:, None, None] * x, x.conj())
 
     Rss, Rnn = Rss0, Rnn0
     ref_s, ref_n = [], []
@@ -200,7 +209,7 @@ def _stream_filter(X, XS, XN, lam: float, u: int, mu: float, ref: int, extras, i
 
     Rss0, Rnn0, w_seed = init_state
     (Rss_e, Rnn_e), (Rss_ref, Rnn_ref) = _block_covariances(blocks(XS), blocks(XN), lam,
-                                                            Rss0, Rnn0)
+                                                            Rss0, Rnn0, precision)
     if pad:
         # padded zero frames only decay the carry: undo it
         undo = _lam_pow(lam, -pad)

@@ -31,7 +31,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("stft.cu", "cov.cu", "mwf.cu", "eigh.cu")
+SOURCES = ("stft.cu", "stft_bf16.cu", "cov.cu", "mwf.cu", "eigh.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libdisco_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,11 +44,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, win, tw, post, spec, mag, B, L, n_fft, hop, T, stream
     "disco_stft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # y, mask, rss, rnn, B, C, F, T, per_channel_mask, stream
-    "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, win, frag, spec, mag, B, L, n_fft, hop, T, stream
+    "disco_stft_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # y, mask, rss, rnn, B, C, F, T, per_channel_mask, bf16, stream
+    "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rss, rnn, mu, mu_stride, mu_value, w, t1, n, C, sweeps, eps, loading,
-    # lam_floor, lam_ceil, stream
-    "disco_fused_mwf": [_P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # lam_floor, lam_ceil, bf16, stream
+    "disco_fused_mwf": [_P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     # a, lam, v, n, C, complex_in, sweeps, eps, stream
     "disco_eigh_jacobi": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

@@ -10,12 +10,14 @@ Per (C, C) Hermitian pencil (Rss, Rnn) and its mu, one chain:
     -> q1 = L^-H u1 -> W = q1 lam/(lam+mu) conj(u1[0] L00), t1 = q1 conj(u1[0] L00)
 
 Only W and t1 (..., C) are produced; NaNs propagate (the e1 sanitize step
-is :func:`rank1_gevd_fused`'s).
+is :func:`rank1_gevd_fused`'s).  The bf16 lane (``precision='bf16'``)
+rounds the real and imaginary planes of both pencils to bf16 at load and
+runs the f32 chain on them (``ops/resolve.py``'s rounding points).
 
 * :func:`fused_mwf_kernel` — the wrapper of the hand-written CUDA kernel
   ``csrc/mwf.cu`` (port of ``fused_mwf_pallas`` -> ``_mwf_kernel``), a
-  thread per pencil up to C = 4, a group of lanes per pencil above.  On a
-  CPU tensor it runs :func:`fused_mwf_plain`.
+  thread per pencil up to C = 4, a group of lanes per pencil above, and
+  its bf16 instances.  On a CPU tensor it runs :func:`fused_mwf_plain`.
 * :func:`fused_mwf_plain` — the plain version: the exact chain of
   ``_mwf_kernel`` (element-wise Cholesky and whitening, the same rotation
   order and guard, the same running max) on batched PyTorch tensors.
@@ -31,7 +33,7 @@ import torch
 from disco_tpu_torch.beam.filters import DIAG_LOADING, EIG_CEIL, EIG_FLOOR, _sanitize
 from disco_tpu_torch.ops import _build
 from disco_tpu_torch.ops.eigh_ops import ROTATION_EPS, default_sweeps, jacobi_sweeps
-from disco_tpu_torch.ops.resolve import check_impl, resolve_precision
+from disco_tpu_torch.ops.resolve import bf16_round, check_impl, resolve_precision
 
 #: the largest pencil size the kernel takes (its generic path's array bound)
 MAX_CHANNELS = 16
@@ -70,16 +72,20 @@ def _mu_argument(mu, batch_shape, device):
     return mu.expand(batch_shape).reshape(-1).contiguous(), 1, 0.0
 
 
-def fused_mwf_plain(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None):
+def fused_mwf_plain(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None,
+                    precision: str = "f32"):
     """The plain version of :func:`fused_mwf_kernel` — ``_mwf_kernel``'s
-    chain step for step on (B,)-shaped element tensors.  Returns (W, t1),
-    each (..., C) complex64, unsanitized."""
+    chain step for step on (B,)-shaped element tensors, from the pencils'
+    planes rounded to bf16 in the bf16 lane.  Returns (W, t1), each (..., C)
+    complex64, unsanitized."""
     C = Rss.shape[-1]
     if sweeps is None:
         sweeps = default_sweeps(C)
     bs = Rss.shape[:-2]
     Sr, Si = _planes(Rss, C)
     Nr, Ni = _planes(Rnn, C)
+    if resolve_precision(precision) == "bf16":
+        Sr, Si, Nr, Ni = (bf16_round(p) for p in (Sr, Si, Nr, Ni))
     mu = _mu_per_pencil(mu, bs, Rss.device)
 
     # joint scale normalization (filter-invariant)
@@ -179,16 +185,20 @@ def fused_mwf_plain(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | 
     return W.reshape(bs + (C,)), t1.reshape(bs + (C,))
 
 
-def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None):
+def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None,
+                     precision: str = "f32"):
     """The fused-solve kernel's wrapper (port of ``fused_mwf_pallas``):
     (..., C, C) pencils and a scalar or per-pencil ``mu`` -> (W, t1), each
     (..., C) complex64, unsanitized.
 
-    A CUDA tensor launches ``csrc/mwf.cu`` (counted in
-    ``fused_mwf_kernel.launches``); a CPU tensor runs :func:`fused_mwf_plain`.
+    A CUDA tensor launches ``csrc/mwf.cu``, its bf16 instances under
+    ``precision='bf16'`` (counted in ``fused_mwf_kernel.launches`` and
+    ``fused_mwf_kernel.launches_bf16``); a CPU tensor runs
+    :func:`fused_mwf_plain`.
     """
+    bf16 = resolve_precision(precision) == "bf16"
     if Rss.device.type == "cpu":
-        return fused_mwf_plain(Rss, Rnn, mu, sweeps)
+        return fused_mwf_plain(Rss, Rnn, mu, sweeps, precision)
     if Rss.device.type != "cuda" or Rnn.device != Rss.device:
         raise ValueError(f"fused_mwf_kernel: pencils on {Rss.device} and {Rnn.device}; "
                          "expected both on one CUDA device (or the CPU)")
@@ -211,23 +221,28 @@ def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int |
     mu_ptr = None if mu_t is None else mu_t.data_ptr()
     rc = lib.disco_fused_mwf(rss.data_ptr(), rnn.data_ptr(), mu_ptr, mu_stride, mu_value,
                              W.data_ptr(), t1.data_ptr(), math.prod(bs), C, sweeps, ROTATION_EPS,
-                             DIAG_LOADING, _LAM_FLOOR, EIG_CEIL,
+                             DIAG_LOADING, _LAM_FLOOR, EIG_CEIL, int(bf16),
                              _build.stream_handle(Rss.device))
     _build.check(rc, "disco_fused_mwf")
-    fused_mwf_kernel.launches += 1
+    if bf16:
+        fused_mwf_kernel.launches_bf16 += 1
+    else:
+        fused_mwf_kernel.launches += 1
     return W, t1
 
 
 fused_mwf_kernel.launches = 0
+fused_mwf_kernel.launches_bf16 = 0
 
 
 def rank1_gevd_fused(Rss, Rnn, mu=1.0, impl: str = "auto", sweeps: int | None = None,
                      precision: str = "f32", sanitize: bool = True):
     """The fused rank-1 GEVD-MWF solve behind the ``'fused*'`` solver specs:
-    the hand-written kernel on a CUDA tensor (``'auto'``/``'pallas'``), the
-    plain chain on a CPU tensor; ``'xla'`` on a CUDA tensor raises.
-    ``sanitize`` replaces non-finite filters by the e1 selector."""
-    resolve_precision(precision)
+    the hand-written kernel of the ``precision`` lane on a CUDA tensor
+    (``'auto'``/``'pallas'``), the plain chain on a CPU tensor; ``'xla'`` on
+    a CUDA tensor raises.  ``sanitize`` replaces non-finite filters by the
+    e1 selector."""
+    precision = resolve_precision(precision)
     check_impl(impl, Rss, "fused_mwf_plain")
-    W, t1 = fused_mwf_kernel(Rss, Rnn, mu=mu, sweeps=sweeps)
+    W, t1 = fused_mwf_kernel(Rss, Rnn, mu=mu, sweeps=sweeps, precision=precision)
     return _sanitize(W, t1) if sanitize else (W, t1)

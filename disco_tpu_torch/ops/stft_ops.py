@@ -1,21 +1,29 @@
-"""The fused STFT (+ magnitude) kernel, its plain version, and the matmul
-ISTFT — counterpart of ``disco_tpu/ops/stft_ops.py``.
+"""The fused STFT (+ magnitude) kernels, their plain version, and the
+matmul ISTFT — counterpart of ``disco_tpu/ops/stft_ops.py``.
 
 * :func:`stft_kernel` — the wrapper of the hand-written CUDA kernel
-  ``csrc/stft.cu`` (port of ``stft_pallas`` -> ``_stft_kernel``): reflect
-  padding, framing, periodic Hann window, one 512-point real FFT per frame
-  (from the twiddle tables of :func:`rfft_tables`) and the optional
-  magnitude in one launch, written straight into the (B, F, T) complex64
-  spec and float32 magnitude planes.  On a CPU tensor it runs
-  :func:`stft_matmul`.
+  ``csrc/stft.cu`` (port of ``stft_pallas`` -> ``_stft_kernel``, f32
+  lane): reflect padding, framing, periodic Hann window, one 512-point
+  real FFT per frame (from the twiddle tables of :func:`rfft_tables`) and
+  the optional magnitude in one launch, written straight into the
+  (B, F, T) complex64 spec and float32 magnitude planes.  On a CPU tensor
+  it runs :func:`stft_matmul`.
+* :func:`stft_bf16_kernel` — the wrapper of ``csrc/stft_bf16.cu``, the
+  same kernel's bf16 lane: a DFT product on the tensor cores (bf16 frames
+  and tables, float32 accumulators; the real FFT has no bf16 form), fed
+  the tables in ``mma.sync`` fragment order (:func:`dft_fragments`).  On a
+  CPU tensor it runs ``stft_matmul(..., precision='bf16')``.
 * :func:`stft_matmul` — the plain version: the same function, the framed
   signal times the DFT tables of :func:`dft_matrices` with ``torch.matmul``
   in true float32 (TF32 is off package-wide), as the TPU kernel computes
-  it.  It is the kernel's yardstick, not a copy of the FFT's steps; those
-  are held by a numpy model of the kernel on its own tables
+  it; under ``precision='bf16'`` the windowed frames and the tables are
+  rounded to bf16 first (``ops/resolve.py``'s rounding points).  It is the
+  kernels' yardstick, not a copy of the FFT's steps; those are held by a
+  numpy model of the kernel on its own tables
   (``tests/test_torch_port_fft.py``).
-* :func:`stft_with_mag` / :func:`stft_fused` — the ``impl`` seams of the
-  enhancement path (``'auto' | 'xla' | 'pallas'``, ops.resolve routing).
+* :func:`stft_with_mag` / :func:`stft_fused` — the ``impl`` and
+  ``precision`` seams of the enhancement path (``'auto' | 'xla' |
+  'pallas'``, ops.resolve routing).
 * :func:`istft_matmul` — the inverse as two products against the
   inverse-DFT tables plus the 50%-overlap chunk add (outside any kernel in
   the reference too).
@@ -30,7 +38,7 @@ import torch.nn.functional as F
 
 from disco_tpu_torch.core.dsp import N_FFT, N_HOP, hann_periodic
 from disco_tpu_torch.ops import _build
-from disco_tpu_torch.ops.resolve import check_impl, resolve_precision
+from disco_tpu_torch.ops.resolve import bf16_round, check_impl, resolve_precision
 
 #: the one (n_fft, hop) the CUDA kernel computes (its FFT is 512 = 2 x 16 x 16)
 KERNEL_N_FFT, KERNEL_HOP = 512, 256
@@ -82,12 +90,36 @@ def idft_matrices(n_fft: int = N_FFT):
 
 
 @functools.lru_cache(maxsize=8)
-def _tables(n_fft: int, device: str):
-    """(window, Dre, Dim) on ``device``, contiguous float32."""
-    dre, dim = dft_matrices(n_fft)
-    return (hann_periodic(n_fft, device=device),
-            torch.from_numpy(dre).to(device).contiguous(),
-            torch.from_numpy(dim).to(device).contiguous())
+def _tables(n_fft: int, device: str, precision: str = "f32"):
+    """(window, Dre, Dim) on ``device``, contiguous float32; the tables
+    rounded to bf16 under ``precision='bf16'``."""
+    dre, dim = (torch.from_numpy(d) for d in dft_matrices(n_fft))
+    if precision == "bf16":
+        dre, dim = bf16_round(dre), bf16_round(dim)
+    return (hann_periodic(n_fft, device=device), dre.to(device).contiguous(),
+            dim.to(device).contiguous())
+
+
+@functools.lru_cache(maxsize=8)
+def dft_fragments(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
+    """The bf16 DFT tables in the B-fragment order of ``mma.sync.m16n8k16``,
+    as ``csrc/stft_bf16.cu`` reads them: (2 * G, n_fft / 16, 32, 4) bf16 with
+    G = ceil((n_fft/2 + 1) / 8) groups of 8 bins (the bins past n_fft/2
+    zero).  Tile 2p holds the cos table of bins 8p .. 8p + 7, tile 2p + 1
+    their sin table; for k-step s and lane l = 4 g + q, its four values are
+    the table at samples 16 s + (2q, 2q + 1, 2q + 8, 2q + 9) of bin 8p + g."""
+    _, dre, dim = _tables(n_fft, "cpu", "bf16")
+    n_freq = n_fft // 2 + 1
+    groups = -(-n_freq // 8)
+    pad = 8 * groups - n_freq
+    dre, dim = (F.pad(d, (0, pad)).reshape(n_fft, groups, 8) for d in (dre, dim))
+    tiles = torch.stack([dre, dim], dim=2).permute(1, 2, 0, 3).reshape(2 * groups, n_fft, 8)
+    q = torch.arange(4)[:, None]
+    offs = torch.cat([2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9], dim=1)      # (q, 4)
+    ks = 16 * torch.arange(n_fft // 16)[:, None, None] + offs[None]         # (s, q, 4)
+    frag = tiles[:, ks, :]                                                  # (tile, s, q, 4, g)
+    frag = frag.permute(0, 1, 4, 2, 3).reshape(2 * groups, n_fft // 16, 32, 4)
+    return frag.to(torch.bfloat16).contiguous().to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -108,13 +140,19 @@ def _padded_rows(x: torch.Tensor, n_fft: int):
     return F.pad(x.reshape(-1, L), (pad, pad), mode="reflect"), bs
 
 
-def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
-    """The plain version of :func:`stft_kernel`: frames (``unfold`` of the
-    reflect-padded rows) times the window, times the DFT tables in float32;
-    ``mag = sqrt(re^2 + im^2)`` from the same products."""
+def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False,
+                precision: str = "f32"):
+    """The plain version of :func:`stft_kernel` and, under
+    ``precision='bf16'``, of :func:`stft_bf16_kernel`: frames (``unfold`` of
+    the reflect-padded rows) times the window, times the DFT tables in
+    float32; ``mag = sqrt(re^2 + im^2)`` from the same products.  The bf16
+    lane rounds the windowed frames and the tables to bf16 first."""
+    precision = resolve_precision(precision)
     xp, bs = _padded_rows(x, n_fft)
-    win, dre, dim = _tables(n_fft, str(x.device))
+    win, dre, dim = _tables(n_fft, str(x.device), precision)
     wf = xp.unfold(-1, n_fft, hop) * win            # (B, T, n_fft)
+    if precision == "bf16":
+        wf = bf16_round(wf)
     re = torch.matmul(wf, dre).transpose(-1, -2)    # (B, F, T)
     im = torch.matmul(wf, dim).transpose(-1, -2)
     shape = bs + re.shape[-2:]
@@ -124,8 +162,22 @@ def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag:
     return spec, torch.sqrt(re * re + im * im).reshape(shape)
 
 
+def _kernel_rows(x: torch.Tensor, n_fft: int, hop: int, name: str):
+    """The checks of both STFT kernels' wrappers; (rows (B, L) contiguous,
+    batch shape, n_freq, T)."""
+    _require_cuda_f32(x, name)
+    if (n_fft, hop) != (KERNEL_N_FFT, KERNEL_HOP):
+        raise ValueError(f"{name}: the kernel computes the {KERNEL_N_FFT}/{KERNEL_HOP} "
+                         f"STFT; got n_fft={n_fft}, hop={hop}")
+    bs, L = x.shape[:-1], x.shape[-1]
+    if L <= n_fft // 2:
+        raise ValueError(f"centered STFT needs more than {n_fft // 2} samples "
+                         f"(reflect padding); got {L}")
+    return x.reshape(-1, L).contiguous(), bs, n_fft // 2 + 1, 1 + L // hop
+
+
 def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
-    """The STFT kernel's wrapper (port of ``stft_pallas``): ``x``
+    """The STFT kernel's wrapper (port of ``stft_pallas``, f32 lane): ``x``
     (..., L) float32 -> spec (..., F, T) complex64 [, mag (..., F, T)].
 
     A CUDA tensor launches ``csrc/stft.cu`` (and counts the launch in
@@ -134,18 +186,8 @@ def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag:
     """
     if x.device.type == "cpu":
         return stft_matmul(x, n_fft, hop, with_mag)
-    _require_cuda_f32(x, "stft_kernel")
-    if (n_fft, hop) != (KERNEL_N_FFT, KERNEL_HOP):
-        raise ValueError(f"stft_kernel: the kernel computes the {KERNEL_N_FFT}/{KERNEL_HOP} "
-                         f"STFT; got n_fft={n_fft}, hop={hop}")
-    bs, L = x.shape[:-1], x.shape[-1]
-    if L <= n_fft // 2:
-        raise ValueError(f"centered STFT needs more than {n_fft // 2} samples "
-                         f"(reflect padding); got {L}")
-    rows = x.reshape(-1, L).contiguous()
-    B = rows.shape[0]
-    n_freq = n_fft // 2 + 1
-    T = 1 + L // hop
+    rows, bs, n_freq, T = _kernel_rows(x, n_fft, hop, "stft_kernel")
+    B, L = rows.shape
     win, tw, post = _fft_tables(n_fft, str(x.device))
     spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
     mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
@@ -164,6 +206,39 @@ def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag:
 stft_kernel.launches = 0
 
 
+def stft_bf16_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
+                     with_mag: bool = False):
+    """The STFT kernel's wrapper in the bf16 lane (port of ``stft_pallas``
+    with ``precision='bf16'``): the outputs of :func:`stft_kernel`.
+
+    A CUDA tensor launches ``csrc/stft_bf16.cu`` (counted in
+    ``stft_bf16_kernel.launches``), which pads by reflection itself and
+    takes ``n_fft=512, hop=256`` only; a CPU tensor runs
+    ``stft_matmul(..., precision='bf16')``.
+    """
+    if x.device.type == "cpu":
+        return stft_matmul(x, n_fft, hop, with_mag, precision="bf16")
+    rows, bs, n_freq, T = _kernel_rows(x, n_fft, hop, "stft_bf16_kernel")
+    B, L = rows.shape
+    win = hann_periodic(n_fft, device=x.device)
+    frag = dft_fragments(n_fft, str(x.device))
+    spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
+    mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
+    lib = _build.load()
+    rc = lib.disco_stft_bf16(rows.data_ptr(), win.data_ptr(), frag.data_ptr(), spec.data_ptr(),
+                             None if mag is None else mag.data_ptr(), B, L, n_fft, hop, T,
+                             _build.stream_handle(x.device))
+    _build.check(rc, "disco_stft_bf16")
+    stft_bf16_kernel.launches += 1
+    spec = spec.reshape(bs + (n_freq, T))
+    if not with_mag:
+        return spec
+    return spec, mag.reshape(bs + (n_freq, T))
+
+
+stft_bf16_kernel.launches = 0
+
+
 def _require_cuda_f32(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}; expected 'cuda' or 'cpu'")
@@ -171,22 +246,28 @@ def _require_cuda_f32(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name}: expected float32 signals, got {x.dtype}")
 
 
+def _lane_kernel(precision: str):
+    """The STFT kernel wrapper of a precision lane."""
+    return stft_bf16_kernel if resolve_precision(precision) == "bf16" else stft_kernel
+
+
 def stft_with_mag(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
                   impl: str = "auto", precision: str = "f32"):
     """Fused STFT returning ``(spec, mag)`` for all leading-axis channels in
     one pass — the analysis stage of the enhancement path (the y/s/n
-    streams stack on a leading axis and transform together)."""
-    resolve_precision(precision)
+    streams stack on a leading axis and transform together).  A CUDA
+    tensor launches the kernel of the ``precision`` lane."""
+    kernel = _lane_kernel(precision)
     check_impl(impl, x, "stft_matmul")
-    return stft_kernel(x, n_fft, hop, with_mag=True)
+    return kernel(x, n_fft, hop, with_mag=True)
 
 
 def stft_fused(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
                impl: str = "auto", precision: str = "f32") -> torch.Tensor:
     """Spec-only twin of :func:`stft_with_mag`."""
-    resolve_precision(precision)
+    kernel = _lane_kernel(precision)
     check_impl(impl, x, "stft_matmul")
-    return stft_kernel(x, n_fft, hop)
+    return kernel(x, n_fft, hop)
 
 
 @functools.lru_cache(maxsize=8)

@@ -89,7 +89,7 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {tile, slices}:\n{log}")
         lib = ctypes.CDLL(str(lib_path))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.disco_masked_cov.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        lib.disco_masked_cov.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
         for label, (yy, mm) in shapes.items():
             *lead, C, F, T = yy.shape
             rs = torch.empty(tuple(lead) + (F, C, C), dtype=torch.complex64, device=dev)
@@ -98,7 +98,7 @@ def main() -> int:
 
             def run():
                 rc = lib.disco_masked_cov(yy.data_ptr(), mm.data_ptr(), rs.data_ptr(),
-                                          rn.data_ptr(), B, C, F, T, 0, None)
+                                          rn.data_ptr(), B, C, F, T, 0, 0, None)
                 assert rc == 0, rc
 
             ms = cs.time_ms(run, reps=20)

@@ -73,8 +73,8 @@ def test_cov_seam_validates(rng):
     yt, mt = torch.from_numpy(y), torch.from_numpy(m)
     with pytest.raises(ValueError, match="unknown impl"):
         tops.masked_covariances_fused(yt, mt, impl="triton")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tops.masked_covariances_fused(yt, mt, precision="bf16")
+    with pytest.raises(ValueError, match="unknown precision"):
+        tops.masked_covariances_fused(yt, mt, precision="fp8")
 
 
 def test_frame_mean_and_materialized_covariances_match_jax(rng):

@@ -11,7 +11,10 @@ pencil counts, the generic channel-count path, one channel); the main
 path's own shapes are held by ``chip_smoke.py``.  Tolerances as in the
 CPU parity tests: 1e-5 (rel-l2 for the STFT and the solve, max-rel for
 the covariances); the eigensolver is also held bit for bit to its plain
-version, as its design promises (``csrc/eigh.cu``).
+version, as its design promises (``csrc/eigh.cu``).  The bf16 lane's
+kernels against their bf16 plain versions: the STFT within 1e-4 of the
+output scale (max-abs; the tensor cores' float32 accumulation order is not
+a sequential sum), the covariances and the solve bit for bit.
 """
 import numpy as np
 import pytest
@@ -94,6 +97,50 @@ def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
         assert torch.equal(a, a2)  # fixed reduction order: bit-stable
 
 
+@pytest.mark.parametrize("shape", [(3, 257), (5, 12345), (2, 3, 2, 8500), (2, 16128)])
+@pytest.mark.parametrize("with_mag", [False, True])
+def test_stft_bf16_kernel(cuda, rng, shape, with_mag):
+    """The bf16 lane's tensor-core DFT: the shortest rows (2 frames), frame
+    counts that are not a multiple of its 64-frame tile (49, 34), batched
+    leading axes and one streaming window (64 frames)."""
+    from disco_tpu_torch.ops import stft_ops
+
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    before = stft_ops.stft_bf16_kernel.launches
+    got = stft_ops.stft_bf16_kernel(x, with_mag=with_mag)
+    want = stft_ops.stft_matmul(x, with_mag=with_mag, precision="bf16")
+    torch.cuda.synchronize()
+    assert stft_ops.stft_bf16_kernel.launches == before + 1
+    for a, b in zip(got if with_mag else (got,), want if with_mag else (want,)):
+        assert a.shape == b.shape == shape[:-1] + (257, 1 + shape[-1] // 256)
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    with pytest.raises(ValueError, match="512/256"):
+        stft_ops.stft_bf16_kernel(x, n_fft=256, hop=128)
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("T", [1, 37, 300, 626])
+@pytest.mark.parametrize("C", list(range(1, 17)))
+def test_masked_cov_kernel_bf16(cuda, rng, C, T, per_channel):
+    """The covariance kernel's bf16 instances at every channel count: bit for
+    bit their plain version (which sums in the kernel's order), and so
+    bit-stable from run to run."""
+    from disco_tpu_torch.ops import cov_ops
+
+    y = torch.from_numpy(complex_normal(rng, (2, C, 257, T))).to(cuda)
+    m = torch.from_numpy(rng.random((2,) + ((C,) if per_channel else ()) + (257, T))
+                         .astype(np.float32)).to(cuda)
+    before = cov_ops.masked_cov_kernel.launches_bf16
+    got = cov_ops.masked_cov_kernel(y, m, precision="bf16")
+    again = cov_ops.masked_cov_kernel(y, m, precision="bf16")
+    want = cov_ops.masked_covariances_plain(y, m, precision="bf16")
+    torch.cuda.synchronize()
+    assert cov_ops.masked_cov_kernel.launches_bf16 == before + 2
+    for a, a2, b in zip(got, again, want):
+        assert max_rel(a, b) <= TOL
+        assert torch.equal(a, b) and torch.equal(a, a2)
+
+
 def _solve_inputs(rng, C, n, cuda):
     """n (C, C) pencils on the card with a NaN one (index 7, when n > 7) and
     an identity pencil pair (index 3, when n > 3)."""
@@ -133,6 +180,22 @@ def test_fused_mwf_kernel(cuda, rng, C, mu):
     want = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu)
     torch.cuda.synchronize()
     assert mwf_ops.fused_mwf_kernel.launches == before + 1
+    _check_solve(got, want, 45, cuda)
+
+
+@pytest.mark.parametrize("C", list(range(1, 17)))
+def test_fused_mwf_kernel_bf16(cuda, rng, C):
+    """The fused solve's bf16 instances at every pencil size, bit for bit
+    their plain version (the planes rounded at load, then the f32 chain)."""
+    from disco_tpu_torch.ops import mwf_ops
+
+    Rss, Rnn = _solve_inputs(rng, C, 45, cuda)
+    mu = torch.linspace(0.5, 2.0, 45, device=cuda)
+    before = mwf_ops.fused_mwf_kernel.launches_bf16
+    got = mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu, precision="bf16")
+    want = mwf_ops.fused_mwf_plain(Rss, Rnn, mu=mu, precision="bf16")
+    torch.cuda.synchronize()
+    assert mwf_ops.fused_mwf_kernel.launches_bf16 == before + 1
     _check_solve(got, want, 45, cuda)
 
 
@@ -230,10 +293,15 @@ def test_plain_versions_never_run_on_card_tensors(cuda):
 
     with pytest.raises(ValueError, match="stft_matmul"):
         stft_ops.stft_with_mag(torch.zeros(2, 4000, device=cuda), impl="xla")
-    with pytest.raises(ValueError, match="masked_covariances_folded"):
-        cov_ops.masked_covariances_fused(torch.zeros(1, 2, 257, 8, dtype=torch.complex64,
-                                                     device=cuda),
-                                         torch.zeros(1, 257, 8, device=cuda), impl="xla")
+    for precision in ("f32", "bf16"):
+        with pytest.raises(ValueError, match="stft_matmul"):
+            stft_ops.stft_fused(torch.zeros(2, 4000, device=cuda), impl="xla",
+                                precision=precision)
+        with pytest.raises(ValueError, match="masked_covariances_plain"):
+            cov_ops.masked_covariances_fused(torch.zeros(1, 2, 257, 8, dtype=torch.complex64,
+                                                         device=cuda),
+                                             torch.zeros(1, 257, 8, device=cuda), impl="xla",
+                                             precision=precision)
     eye = torch.eye(3, dtype=torch.complex64, device=cuda).expand(4, 3, 3)
     with pytest.raises(ValueError, match="fused_mwf_plain"):
         rank1_gevd(eye, eye, solver="fused-xla")
@@ -248,6 +316,20 @@ def test_clip_on_card_matches_plain_clip_on_host(cuda):
     got = tango_clip_fused(y, s, n).cpu()
     want = tango_clip_fused(y, s, n, device="cpu")
     assert max_rel(got, want) <= 1e-4
+
+
+def test_bf16_clip_on_card_matches_plain_clip_on_host(cuda):
+    """The bf16 lane's clip: its three kernels on the card, their plain
+    versions on the host.  The two devices sum in other orders before each
+    bf16 rounding point, so a value near a rounding boundary may land one
+    bf16 step apart (2^-8 relative) and move its bin's filter: the clips
+    agree within 2^-8 of the output scale, not 1e-4."""
+    from disco_tpu_torch.enhance.fused import tango_clip_fused
+
+    y, s, n = scene(3, 2, 10000, seed=3, noise_scale=0.5)
+    got = tango_clip_fused(y, s, n, precision="bf16").cpu()
+    want = tango_clip_fused(y, s, n, precision="bf16", device="cpu")
+    assert max_rel(got, want) <= 2.0 ** -8
 
 
 def test_streaming_window_on_card_matches_plain_window_on_host(cuda):

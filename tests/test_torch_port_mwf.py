@@ -18,6 +18,7 @@ from disco_tpu import solver_spec as jspec
 from disco_tpu.beam import filters as jfilters
 from disco_tpu.ops import eigh_ops as jeigh
 from disco_tpu.ops import mwf_ops as jmwf
+from disco_tpu.ops import resolve as jresolve
 from disco_tpu_torch import solver_spec as tspec
 from disco_tpu_torch.beam import filters as tfilters
 from disco_tpu_torch.ops import eigh_ops as teigh
@@ -124,11 +125,12 @@ def test_gevd_full_rank_and_unsanitized_match_jax(rng):
 
 
 def test_unported_solver_lanes_raise(rng):
-    """The bf16 lane is not ported; an unknown eigensolver is refused.
-    (``'jacobi-pallas'`` is ported: tests/test_torch_port_eigh.py.)"""
+    """An unknown precision lane and an unknown eigensolver are refused.
+    (``'jacobi-pallas'`` is ported: tests/test_torch_port_eigh.py; the bf16
+    lane: tests/test_torch_port_bf16.py.)"""
     Rss, Rnn = (torch.from_numpy(a) for a in _c64(*pencils(rng, 3, F=2)))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tfilters.rank1_gevd(Rss, Rnn, solver="fused", precision="bf16")
+    with pytest.raises(ValueError, match="unknown precision"):
+        tfilters.rank1_gevd(Rss, Rnn, solver="fused", precision="fp8")
     with pytest.raises(ValueError, match="unknown eigh_impl"):
         tfilters.gevd_mwf(Rss, Rnn, eigh_impl="qr")
 
@@ -157,14 +159,17 @@ def test_solver_tables_match_jax():
 
 def test_precision_tokens():
     assert tresolve.resolve_precision(" F32 ") == "f32"
-    assert tresolve.check_canonical_precision("f32") == "f32"
+    assert tresolve.resolve_precision(" BF16 ") == "bf16"
+    assert tresolve.PRECISIONS == jresolve.PRECISIONS
     for fn in (tresolve.resolve_precision, tresolve.check_canonical_precision):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("bf16")
+        assert fn("f32") == "f32" and fn("bf16") == "bf16"
         with pytest.raises(ValueError):
             fn("fp8")
-    with pytest.raises(ValueError, match="not canonical"):
-        tresolve.check_canonical_precision("F32")
+    for token in ("F32", "BF16"):
+        with pytest.raises(ValueError, match="not canonical"):
+            tresolve.check_canonical_precision(token)
+    assert tresolve.compute_dtype("bf16") == torch.bfloat16
+    assert tresolve.compute_dtype("f32") == torch.float32
 
 
 @pytest.mark.parametrize("mu", ["number", "numpy scalar", "one-element tensor", "per pencil",

@@ -312,8 +312,8 @@ def test_streaming_validates_its_inputs(port_spectra):
         tstream.streaming_tango(Y, m, m, with_diagnostics=True, device="cpu")
     with pytest.raises(ValueError, match="either pass masks_z"):
         tfused.streaming_clip_fused(np.zeros((K, C, 3840), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tstream.streaming_tango(Y, m, m, precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        tstream.streaming_tango(Y, m, m, precision="fp8", device="cpu")
 
 
 def test_streaming_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, port_spectra):

@@ -155,18 +155,15 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, clip, spectra)
 
 
 def test_unported_options_raise(spectra):
+    """Every policy, the fault seam and the bf16 lane are ported
+    (tests/test_torch_port_policies.py, tests/test_torch_port_bf16.py); what
+    the reference refuses is refused: an unknown policy, a precision token
+    that is not canonical."""
     Y, S, N, mz, mw = spectra
-    for policy in ("compressed", "use_oracle_refs", "use_oracle_zs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttango.tango(Y, S, N, mz, mw, policy=policy, device="cpu")
     with pytest.raises(ValueError, match="unknown mask_for_z policy"):
         ttango.tango(Y, S, N, mz, mw, policy="far", device="cpu")
-    with pytest.raises(NotImplementedError, match="fault seam"):
-        ttango.tango(Y, S, N, mz, mw, z_mask=np.ones(K), device="cpu")
-    with pytest.raises(NotImplementedError, match="fault seam"):
-        ttango.tango(Y, S, N, mz, mw, z_nan=np.zeros(K), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttango.tango(Y, S, N, mz, mw, precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="not canonical"):
+        ttango.tango(Y, S, N, mz, mw, precision="BF16", device="cpu")
 
 
 def test_others_index_matches_jax():
