@@ -14,9 +14,11 @@ pass):
    (one ``nvcc`` per source, all started together) and their build
    seconds, ``-Xptxas -v`` register, spill and shared-memory counts and
    SASS instruction counts (``cuobjdump -sass``) printed.  Five sources:
-   the f32 STFT (a real FFT), the bf16 STFT (a tensor-core DFT product),
-   the covariances, the fused solve (each with f32 and bf16 instances) and
-   the eigensolver.
+   the f32 STFT (a real FFT), the bf16 STFT (a tensor-core DFT product in
+   tiles of 256 frames and slabs of 64 bins, the table through an mbarrier
+   ring, the signal in phases by cp.async), the covariances, the fused
+   solve (each with f32 and bf16 instances; the covariances' bf16 instances
+   round each element once a tile) and the eigensolver.
 2. Every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (K=8 nodes, C=4 mics, 10 s at 16 kHz):
    the STFT on the clip (626 frames, not a multiple of the kernel's
@@ -34,7 +36,10 @@ pass):
    plain version at the same shapes and at the 16-clip batch, the
    covariances' bf16 instances (shared and per-channel masks, C = 4 and
    11, and the batch) within 1e-5 max-rel and bit-stable, the solve's bit
-   for bit at step 1, step 2 and the batch of distinct clips.
+   for bit at step 1, step 2 and the batch of distinct clips.  Then the
+   port's ``core.dsp`` STFT/ISTFT at 1024/512 and 512/128 (the rFFT route,
+   no STFT kernel launched) and 512/256 (one ``csrc/stft.cu`` launch), on
+   the card against the host within 1e-5.
 3. The offline path — ``tango_clip_fused(y, s, n, solver='fused')`` —
    with every launch counter set to 0 before and read after (1 STFT, 2
    covariance, 2 fused-solve launches); the output is finite, within 1e-4
@@ -73,6 +78,8 @@ pass):
    include the wrapper's host time) its device time under the profiler.
    The bf16 STFT's bound counts its DFT product at the dense-bf16 peak;
    its library call is one cuBLAS bf16 GEMM (``torch.matmul``, bf16 out).
+   Both STFT kernels are also timed at the 16-clip batch's rows (events and
+   device time; the bf16 one beside its plain version and the GEMM).
 6. Where one 16-clip offline call (in both lanes) and one streaming
    window spend their device time, by kernel (``torch.profiler``), and
    the device's busy share of their wall time.
@@ -638,6 +645,38 @@ def phase2_eigh(d: SimpleNamespace) -> None:
         require(bitwise and nan_pairs, ("eigh", label, "bit-identical", bitwise, "NaN", nan_pairs))
 
 
+def phase2_sizes(d: SimpleNamespace) -> None:
+    """The port's STFT and ISTFT (``core.dsp``) at sizes the kernels do not
+    compute, on the card against the same on the host: 1024/512 and 512/128
+    take the rFFT route and launch no STFT kernel; 512/256 launches
+    ``csrc/stft.cu`` once.  Rows of the clip stack, 1e-5 rel-l2 (the STFT)
+    and 1e-5 of the output scale (the ISTFT, and its reconstruction of the
+    signal)."""
+    import torch
+
+    from disco_tpu_torch.core import dsp
+    from disco_tpu_torch.ops import stft_ops
+
+    x = d.x.reshape(-1, d.L)[:8, :48000].contiguous()
+    for n_fft, hop, launches in ((1024, 512, 0), (512, 128, 0), (512, 256, 1)):
+        before = stft_ops.stft_kernel.launches, stft_ops.stft_bf16_kernel.launches
+        spec = dsp.stft(x, n_fft, hop)
+        y = dsp.istft(spec, x.shape[-1], n_fft, hop)
+        torch.cuda.synchronize()
+        got = (stft_ops.stft_kernel.launches - before[0],
+               stft_ops.stft_bf16_kernel.launches - before[1])
+        host = dsp.stft(x.cpu(), n_fft, hop)
+        y_host = dsp.istft(host, x.shape[-1], n_fft, hop)
+        e_spec = rel_l2(spec.cpu(), host)
+        e_y, e_rec = max_rel(y.cpu(), y_host), max_rel(y.cpu(), x.cpu())
+        print(f"phase 2: core.dsp stft/istft {n_fft}/{hop} on {tuple(x.shape)}: STFT kernel "
+              f"launches {got}, card vs host STFT rel-l2 {e_spec:.3e}, ISTFT {e_y:.3e} of the "
+              f"output scale, reconstruction {e_rec:.3e}", flush=True)
+        require(got == (launches, 0), ("stft route", n_fft, hop, got))
+        require(max(e_spec, e_y, e_rec) <= TOL["stft"], ("stft sizes", n_fft, hop, e_spec, e_y,
+                                                         e_rec))
+
+
 def phase3_offline_path(d: SimpleNamespace) -> None:
     """The offline path through its entry point, with the launch counters."""
     import torch
@@ -1026,6 +1065,39 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "library_call": "torch.matmul(bf16 (96, 626, 512), bf16 (512, 514)) -> bf16 (cuBLAS)",
     })
     del frames, frames16, table16
+    # both STFT kernels at the 16-clip batch's rows (the clip stack BATCH
+    # times): events and device time, the bound of those rows, and for the
+    # bf16 lane its plain version and the cuBLAS bf16 GEMM on the same rows
+    xb = d.x[None].expand(BATCH, *d.x.shape).contiguous()
+    rows_b = xb.reshape(-1, d.L)
+    fl, nbytes = stft_cost(rows_b.shape[0], d.L)
+    entries[0]["batch_launches"] = [{
+        "shape": f"batch {tuple(xb.shape)}",
+        "ms": time_ms(lambda: stft_ops.stft_kernel(xb, with_mag=True), reps=10),
+        "device_ms": device_ms(lambda: stft_ops.stft_kernel(xb, with_mag=True),
+                               "stft_rfft_kernel", reps=5),
+        "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
+    }]
+    fl, nbytes = stft_bf16_cost(rows_b.shape[0], d.L)
+    frames16 = (torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256)
+                * win).to(torch.bfloat16)
+    table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
+                        dim=1).to(device=d.dev, dtype=torch.bfloat16)
+    entries[1]["batch_launches"] = [{
+        "shape": f"batch {tuple(xb.shape)}",
+        "ms": time_ms(lambda: stft_ops.stft_bf16_kernel(xb, with_mag=True), reps=10),
+        "device_ms": device_ms(lambda: stft_ops.stft_bf16_kernel(xb, with_mag=True),
+                               "stft_bf16_kernel", reps=5),
+        "plain_ms": time_ms(lambda: stft_ops.stft_matmul(xb, with_mag=True, precision="bf16"),
+                            reps=3, warmup=1),
+        "library_ms": time_ms(lambda: torch.matmul(frames16, table16), reps=10),
+        "library_call": f"torch.matmul(bf16 {tuple(frames16.shape)}, bf16 (512, 514)) -> bf16 "
+                        "(cuBLAS)",
+        "bound_ms": bound(fl, nbytes, PEAK_BF16)[0], "flops": fl, "bytes": nbytes,
+    }]
+    for e in entries[:2]:
+        print(f"phase 5: {e['name']}: " + json.dumps(e["batch_launches"][0]), flush=True)
+    del xb, rows_b, frames16, table16
 
     def cov_times(label, yy, mm, plain_reps, precision):
         lead, (D, F, T) = yy.shape[:-3], yy.shape[-3:]
@@ -1253,6 +1325,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase1_build()
     d = phase2_kernels()
+    phase2_sizes(d)
     d.launches = {}
     phase3_offline_path(d)
     phase4_streaming_path(d)

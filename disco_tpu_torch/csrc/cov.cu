@@ -12,15 +12,23 @@
 // interleaved complex64 (B, C, F, T) and the pair is written as complex64
 // (B, F, C, C), the layouts of the caller: no planar split, no transpose.
 // The bf16 lane (the BF16 instances; the TPU kernel's precision='bf16'
-// branch, which feeds it bf16 y planes) rounds the real and imaginary part
-// of each Y value to bf16 in registers as the tile is consumed, and keeps
-// everything else, the frame-slice order included: the same complex64 input
-// read once, with no cast pass before the launch (ops/resolve.py's rounding
-// points; PERF.md says why not bf16 planes).  Its products and sums are
-// rounded one by one (no fused multiply-add), so that its plain version
+// branch, which feeds it bf16 y planes) reads the same complex64 input once,
+// with no cast pass before the launch (ops/resolve.py's rounding points;
+// PERF.md says why not bf16 planes), and keeps everything else, the
+// frame-slice order included, so that its plain version
 // (cov_ops._masked_cov_sliced, the same order) gives the same bits: a
-// covariance that moved by one float32 rounding could round to another
-// bf16 value in the fused solve's bf16 lane.
+// covariance that moved by one float32 rounding could round to another bf16
+// value in the fused solve's bf16 lane.  Two things make it cheap:
+// - Each element is rounded once, where it lands: when a tile's copies are
+//   in, one pass of the bin's group rounds the tile's C x nt complex values
+//   to bf16 in place in shared memory, so the pair loop reads values already
+//   rounded (before, every pair rounded both of its operands again, ~12
+//   times an element and frame at C = 11).
+// - Only the exact is fused: a product of two bf16 values is exact in
+//   float32, so prr = fmaf(rc, rd, ic id) rounds only the sum, as the plain
+//   version's rc rd + ic id does (and pii alike): the same bits.  The
+//   weighted accumulations ss + w prr are not exact and keep one rounding a
+//   product and one a sum (__fmul_rn, __fadd_rn).
 //
 // Bound on an H100: bytes.  The step-2 stack of the main path (8 nodes x
 // 11 channels x 257 bins x 626 frames) is ~118 MB read once, ~35 us at
@@ -130,22 +138,34 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
     }
     cp_async_commit();
   };
-  // the shared mask's weights of tile k, once per frame
-  auto weigh = [&](const int k) {
-    if (CHAN || !live) return;
+  // once per tile k, when its copies are in: the shared mask's weights, once
+  // per frame, and in the bf16 lane every element rounded to bf16 in place
+  auto prepare = [&](const int k) {
+    if (!live) return;
     const int nt = min(kTile, T - k * kTile);
-    const float* md = ms + (k & 1) * kTile;
-    for (int tt = r; tt < nt; tt += group) {
-      const float m = md[tt], om = 1.0f - m;
-      ws[(k & 1) * kTile + tt] = make_float2((m * m) * inv_t, (om * om) * inv_t);
+    if constexpr (!CHAN) {
+      const float* md = ms + (k & 1) * kTile;
+      for (int tt = r; tt < nt; tt += group) {
+        const float m = md[tt], om = 1.0f - m;
+        ws[(k & 1) * kTile + tt] = make_float2((m * m) * inv_t, (om * om) * inv_t);
+      }
+    }
+    if constexpr (BF16) {
+      float2* yd = ys + (k & 1) * C * kRow;
+      for (int e = r; e < C * kTile; e += group) {
+        const int cc = e / kTile, tt = e - cc * kTile;
+        if (tt < nt) yd[cc * kRow + tt] = disco::bf16_round2(yd[cc * kRow + tt]);
+      }
     }
   };
+  // whether prepare writes what other threads read: a barrier after it
+  constexpr bool kPrepared = !CHAN || BF16;
 
   const int n_tiles = (T + kTile - 1) / kTile;
   issue(0);
   cp_async_wait_all();
   __syncthreads();
-  weigh(0);
+  prepare(0);
   __syncthreads();
 
   float ssr = 0.0f, ssi = 0.0f, nnr = 0.0f, nni = 0.0f;
@@ -159,11 +179,7 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
       const float* md_row = ms + (k & 1) * n_mask * kTile + (CHAN ? d : 0) * kTile;
       const float2* w_row = ws + (k & 1) * kTile;
       for (int tt = s; tt < nt; tt += kSlices) {
-        float2 yc = yc_row[tt], yd = yd_row[tt];
-        if constexpr (BF16) {
-          yc = disco::bf16_round2(yc);
-          yd = disco::bf16_round2(yd);
-        }
+        const float2 yc = yc_row[tt], yd = yd_row[tt];
         float wsv, wnv;
         if constexpr (CHAN) {
           const float mc = mc_row[tt], md = md_row[tt];
@@ -176,10 +192,10 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
         }
         // Y_c conj(Y_d): re = rc rd + ic id, im = ic rd - rc id
         if constexpr (BF16) {
-          // every product and sum rounded on its own, as the plain version
-          // rounds them (the products of bf16 values are exact)
-          const float prr = __fadd_rn(__fmul_rn(yc.x, yd.x), __fmul_rn(yc.y, yd.y));
-          const float pii = __fsub_rn(__fmul_rn(yc.y, yd.x), __fmul_rn(yc.x, yd.y));
+          // the products of bf16 values are exact: one rounding a pair sum,
+          // as the plain version's; then a rounded product and a rounded sum
+          const float prr = fmaf(yc.x, yd.x, __fmul_rn(yc.y, yd.y));
+          const float pii = fmaf(yc.y, yd.x, -__fmul_rn(yc.x, yd.y));
           ssr = __fadd_rn(ssr, __fmul_rn(wsv, prr));
           ssi = __fadd_rn(ssi, __fmul_rn(wsv, pii));
           nnr = __fadd_rn(nnr, __fmul_rn(wnv, prr));
@@ -197,8 +213,8 @@ __global__ void masked_cov_kernel(const float2* __restrict__ y, const float* __r
     if (k + 1 < n_tiles) {
       cp_async_wait_all();
       __syncthreads();  // tile k summed by all, tile k + 1 landed
-      weigh(k + 1);
-      if (!CHAN) __syncthreads();
+      prepare(k + 1);
+      if (kPrepared) __syncthreads();
     }
   }
 

@@ -44,8 +44,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, win, tw, post, spec, mag, B, L, n_fft, hop, T, stream
     "disco_stft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, win, frag, spec, mag, B, L, n_fft, hop, T, stream
-    "disco_stft_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, win, frag, nyq, spec, mag, B, L, n_fft, hop, T, stream
+    "disco_stft_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # y, mask, rss, rnn, B, C, F, T, per_channel_mask, bf16, stream
     "disco_masked_cov": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rss, rnn, mu, mu_stride, mu_value, w, t1, n, C, sweeps, eps, loading,

@@ -19,8 +19,9 @@ under the 'distant' policy).
   (``tests/test_torch_port_cov_partition.py`` models it), so it meets the
   plain version within 1e-5 and itself bit for bit.  ``precision='bf16'``
   launches its bf16 instance, which rounds the spectra's real and
-  imaginary planes to bf16 as it reads them (``ops/resolve.py``'s rounding
-  points).  On a CPU tensor it runs :func:`masked_covariances_plain`.
+  imaginary planes to bf16 once, as each tile lands in shared memory
+  (``ops/resolve.py``'s rounding points), and sums in the plain version's
+  order (:func:`_masked_cov_sliced`, bit for bit).  On a CPU tensor it runs :func:`masked_covariances_plain`.
 * :func:`masked_covariances_plain` — the plain version: the f32 lane is
   :func:`masked_covariances_folded`; the bf16 lane the same float32 fold on
   the spectra rounded to bf16, with the kernel's float32 weights.

@@ -11,8 +11,10 @@ matmul ISTFT — counterpart of ``disco_tpu/ops/stft_ops.py``.
 * :func:`stft_bf16_kernel` — the wrapper of ``csrc/stft_bf16.cu``, the
   same kernel's bf16 lane: a DFT product on the tensor cores (bf16 frames
   and tables, float32 accumulators; the real FFT has no bf16 form), fed
-  the tables in ``mma.sync`` fragment order (:func:`dft_fragments`).  On a
-  CPU tensor it runs ``stft_matmul(..., precision='bf16')``.
+  the tables in its ``wgmma`` operand layout and chunk order
+  (:func:`dft_fragments`; bin 256 from :func:`nyquist_table` on the CUDA
+  cores).  On a CPU tensor it runs
+  ``stft_matmul(..., precision='bf16')``.
 * :func:`stft_matmul` — the plain version: the same function, the framed
   signal times the DFT tables of :func:`dft_matrices` with ``torch.matmul``
   in true float32 (TF32 is off package-wide), as the TPU kernel computes
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from disco_tpu_torch.core.dsp import N_FFT, N_HOP, hann_periodic
+from disco_tpu_torch.core.dsp import N_FFT, N_HOP, hann_periodic, ola_finish
 from disco_tpu_torch.ops import _build
 from disco_tpu_torch.ops.resolve import bf16_round, check_impl, resolve_precision
 
@@ -100,26 +102,52 @@ def _tables(n_fft: int, device: str, precision: str = "f32"):
             dim.to(device).contiguous())
 
 
+#: ``csrc/stft_bf16.cu``'s geometry: bin groups of 8 a slab, table chunks of
+#: 32 samples; the frame samples chunk c covers start at ``chunk_starts()[c]``
+BF16_SLAB_GROUPS, BF16_CHUNK = 8, 32
+
+
+def chunk_starts(n_fft: int = N_FFT) -> np.ndarray:
+    """The first frame sample of each table chunk of ``csrc/stft_bf16.cu``,
+    in the order the kernel consumes them: phase p (p = 0 .. 7) holds frame
+    samples 32 p .. 32 p + 31 (its LO rows, chunk 2 p) and 256 + 32 p ..
+    256 + 32 p + 31 (its HI rows, chunk 2 p + 1)."""
+    c = np.arange(n_fft // BF16_CHUNK)
+    return (n_fft // 2) * (c & 1) + BF16_CHUNK * (c >> 1)
+
+
 @functools.lru_cache(maxsize=8)
 def dft_fragments(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
-    """The bf16 DFT tables in the B-fragment order of ``mma.sync.m16n8k16``,
-    as ``csrc/stft_bf16.cu`` reads them: (2 * G, n_fft / 16, 32, 4) bf16 with
-    G = ceil((n_fft/2 + 1) / 8) groups of 8 bins (the bins past n_fft/2
-    zero).  Tile 2p holds the cos table of bins 8p .. 8p + 7, tile 2p + 1
-    their sin table; for k-step s and lane l = 4 g + q, its four values are
-    the table at samples 16 s + (2q, 2q + 1, 2q + 8, 2q + 9) of bin 8p + g."""
+    """The bf16 DFT tables of bins 0 .. n_fft/2 - 1 in the order
+    ``csrc/stft_bf16.cu`` copies them into its shared-memory ring, each
+    chunk a ``wgmma`` B operand in the no-swizzle core-matrix layout:
+    (S, n_fft / 32, 16, 4, 8, 8) bf16 for S slabs of 64 bins.  Slab s,
+    chunk c (frame samples ``chunk_starts()[c]`` + 0 .. 31), column group
+    j (the cos table of bin group 8 s + j // 2 for even j, its sin table for
+    odd j), sample group kg, row r and sample kk hold the table at sample
+    n0 + 8 kg + kk of bin 8 (8 s + j // 2) + r: an 8 x 8 core matrix of 128
+    contiguous bytes, core matrices 128 bytes apart along the samples and
+    512 along the columns.  Bin n_fft/2 is :func:`nyquist_table`'s."""
     _, dre, dim = _tables(n_fft, "cpu", "bf16")
-    n_freq = n_fft // 2 + 1
-    groups = -(-n_freq // 8)
-    pad = 8 * groups - n_freq
-    dre, dim = (F.pad(d, (0, pad)).reshape(n_fft, groups, 8) for d in (dre, dim))
-    tiles = torch.stack([dre, dim], dim=2).permute(1, 2, 0, 3).reshape(2 * groups, n_fft, 8)
-    q = torch.arange(4)[:, None]
-    offs = torch.cat([2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9], dim=1)      # (q, 4)
-    ks = 16 * torch.arange(n_fft // 16)[:, None, None] + offs[None]         # (s, q, 4)
-    frag = tiles[:, ks, :]                                                  # (tile, s, q, 4, g)
-    frag = frag.permute(0, 1, 4, 2, 3).reshape(2 * groups, n_fft // 16, 32, 4)
+    bins = n_fft // 2
+    slabs = bins // (8 * BF16_SLAB_GROUPS)
+    tab = torch.stack([d[:, :bins] for d in (dre, dim)])                 # (2, n, bins)
+    tab = tab.reshape(2, n_fft, slabs, BF16_SLAB_GROUPS, 8)              # (c, n, s, group, r)
+    tab = tab.permute(2, 3, 0, 1, 4).reshape(slabs, 2 * BF16_SLAB_GROUPS, n_fft, 8)
+    n0 = torch.from_numpy(chunk_starts(n_fft))
+    idx = n0[:, None, None] + 8 * torch.arange(BF16_CHUNK // 8)[None, :, None] \
+        + torch.arange(8)[None, None, :]                                   # (c, kg, kk)
+    frag = tab[:, :, idx, :]                                     # (s, j, c, kg, kk, r)
+    frag = frag.permute(0, 2, 1, 3, 5, 4)                         # (s, c, j, kg, r, kk)
     return frag.to(torch.bfloat16).contiguous().to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def nyquist_table(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
+    """(2, n_fft) float32: the bf16 cos and sin tables of bin n_fft/2, which
+    ``csrc/stft_bf16.cu`` sums on the CUDA cores."""
+    _, dre, dim = _tables(n_fft, "cpu", "bf16")
+    return torch.stack([dre[:, -1], dim[:, -1]]).contiguous().to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -222,12 +250,13 @@ def stft_bf16_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
     B, L = rows.shape
     win = hann_periodic(n_fft, device=x.device)
     frag = dft_fragments(n_fft, str(x.device))
+    nyq = nyquist_table(n_fft, str(x.device))
     spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
     mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
     lib = _build.load()
-    rc = lib.disco_stft_bf16(rows.data_ptr(), win.data_ptr(), frag.data_ptr(), spec.data_ptr(),
-                             None if mag is None else mag.data_ptr(), B, L, n_fft, hop, T,
-                             _build.stream_handle(x.device))
+    rc = lib.disco_stft_bf16(rows.data_ptr(), win.data_ptr(), frag.data_ptr(), nyq.data_ptr(),
+                             spec.data_ptr(), None if mag is None else mag.data_ptr(), B, L,
+                             n_fft, hop, T, _build.stream_handle(x.device))
     _build.check(rc, "disco_stft_bf16")
     stft_bf16_kernel.launches += 1
     spec = spec.reshape(bs + (n_freq, T))
@@ -304,11 +333,4 @@ def istft_matmul(spec: torch.Tensor, length: int, n_fft: int = N_FFT, hop: int =
     wss = torch.zeros((n_frames + 1, hop), dtype=frames.dtype, device=frames.device)
     wss[:n_frames] += w2[:hop]
     wss[1:] += w2[hop:]
-    wss = wss.reshape(-1)
-    ok = wss > torch.finfo(frames.dtype).tiny
-    y = torch.where(ok, y / torch.where(ok, wss, torch.ones_like(wss)), y)
-
-    y = y[:, pad: pad + length]
-    if y.shape[-1] < length:
-        y = F.pad(y, (0, length - y.shape[-1]))
-    return y.reshape(bs + (length,))
+    return ola_finish(y, wss.reshape(-1), pad, length).reshape(bs + (length,))

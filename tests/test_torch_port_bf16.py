@@ -16,8 +16,8 @@ to the JAX package at the lane tolerances of
 * SI-SDR within 0.1 dB of the f32 lane.
 
 Inside the port the plain versions follow the rounding points exactly:
-a numpy model of ``csrc/stft_bf16.cu``'s fragment layout reproduces the
-plain STFT, and the solve's bf16 lane is its f32 chain on the rounded
+a numpy model of ``csrc/stft_bf16.cu``'s tiles, phases, chunk table and
+``wgmma`` operand layout reproduces the plain STFT, and the solve's bf16 lane is its f32 chain on the rounded
 pencils, bit for bit.
 """
 import importlib
@@ -80,84 +80,151 @@ def test_stft_bf16_matches_jax(rng, length):
     assert 1e-5 < max_rel(spec, tstft.stft_matmul(torch.from_numpy(x))) <= TOL_STFT
 
 
-def _model_stft_bf16(x: np.ndarray) -> np.ndarray:
-    """A numpy model of ``csrc/stft_bf16.cu`` on (B, L) rows: the block's
-    windowed bf16 frames, the A tiles as ``ldmatrix.x4`` hands them to the
-    ``m16n8k16`` A fragment, the B tiles as the kernel reads them from
-    :func:`dft_fragments` into the B fragment, and the accumulators stored by
-    the kernel's epilogue.  Returns the (B, 257, T) spectrum."""
-    frag = tstft.dft_fragments(512).to(torch.float32).numpy()       # (66, 32, 32, 4)
-    win = tstft.hann_periodic(512).numpy()
+def _reflect(L: int, s: np.ndarray) -> np.ndarray:
+    s = np.where(s < 0, -s, s)
+    return np.where(s >= L, 2 * (L - 1) - s, s)
+
+
+def _core(m, k):
+    """The bf16 index of element (m, k) of the kernel's core-matrix tiles
+    (32 samples a row: 512 bytes between row groups of 8, 128 between
+    sample groups of 8)."""
+    return ((m >> 3) * 512 + (k >> 3) * 128 + (m & 7) * 16 + (k & 7) * 2) // 2
+
+
+def _model_build(x: np.ndarray, win: np.ndarray, f0: int, p: int):
+    """``csrc/stft_bf16.cu``'s raw rows and ``convert(p)`` for each warpgroup
+    of the tile at frame ``f0``: four (LO, HI) pairs of flat (2048,) float64 core-matrix
+    tiles of bf16 values.  Chunk row l is HI of frame l - 1 (chunk t of its
+    row) and LO of frame l (chunk t - 1: the same samples in one row, else
+    the reflected head of frame l's row)."""
     B, L = x.shape
     T = 1 + L // 256
-    lane = np.arange(32)
-    g, q = lane >> 2, lane & 3
-    # ldmatrix: lane l addresses row (l & 7) + 8 ((l >> 3) & 1), column 8 (l >> 4)
-    # of the tile; register j of lane l holds two values of the row that lane
-    # 8 j + l // 4 addressed, at columns 2 (l % 4) + (0, 1)
-    src = 8 * np.arange(4)[None, :] + (lane // 4)[:, None]           # (lane, j)
-    a_row = ((src & 7) + 8 * ((src >> 3) & 1))[..., None] + 0 * np.arange(2)
-    a_col = (8 * (src >> 4))[..., None] + 2 * q[:, None, None] + np.arange(2)
-    # the mma A fragment: register j of lane (g, q) is A[g + 8 (j & 1)][2q + 8 (j >> 1) + e]
-    f_row = g[:, None, None] + 8 * (np.arange(4) & 1)[None, :, None] + 0 * np.arange(2)
-    f_col = 2 * q[:, None, None] + 8 * (np.arange(4) >> 1)[None, :, None] + np.arange(2)
-    out = np.zeros((B, 257, T), np.complex128)
-    for b in range(B):
-        for t0 in range(0, T, 64):
-            n = np.arange(512)
-            s = (t0 + np.arange(64))[:, None] * 256 + n[None, :] - 256
-            s = np.where(s < 0, -s, s)
-            s = np.where(s >= L, 2 * (L - 1) - s, s)
-            ok = (s >= 0) & (s < L)
-            frames = np.where(ok, x[b][np.clip(s, 0, L - 1)] * win, 0.0).astype(np.float32)
-            frames = bf16_round(torch.from_numpy(frames)).numpy().astype(np.float64)
-            for p in range(33):
-                acc = np.zeros((4, 2, 16, 8))
-                for i in range(4):
-                    for st in range(32):
-                        tile = frames[16 * i:16 * i + 16, 16 * st:16 * st + 16]
-                        A = np.zeros((16, 16))
-                        A[f_row, f_col] = tile[a_row, a_col]
-                        for c in range(2):
-                            Bt = np.zeros((16, 8))
-                            v = frag[2 * p + c, st]                    # (lane, 4)
-                            Bt[2 * q + 0, g], Bt[2 * q + 1, g] = v[:, 0], v[:, 1]
-                            Bt[2 * q + 8, g], Bt[2 * q + 9, g] = v[:, 2], v[:, 3]
-                            acc[i, c] += A @ Bt
-                # the epilogue: accumulator h of lane (g, q) at frame 16 i + g + 8 (h >> 1),
-                # bin 8 p + 2 q + (h & 1), read from the C fragment
-                for i in range(4):
-                    for h in range(4):
-                        row, col = g + 8 * (h >> 1), 2 * q + (h & 1)
-                        k, t = 8 * p + col, t0 + 16 * i + row
-                        keep = (k < 257) & (t < T)
-                        out[b, k[keep], t[keep]] = (acc[i, 0][row, col]
-                                                    + 1j * acc[i, 1][row, col])[keep]
+    n = 32 * p + np.arange(32)
+
+    def chunk(b, j):
+        return x[b][_reflect(L, 256 * j + n)]
+
+    def window(v, w0):
+        prod = (v * win[w0 + n]).astype(np.float32)
+        return bf16_round(torch.from_numpy(prod)).numpy()
+    k = np.arange(32)
+    out = []
+    for wg in range(4):
+        info = [(B, 0) if f < 0 else divmod(f, T) for f in range(f0 + 64 * wg - 1, f0 + 64 * wg + 64)]
+        lo, hi = np.zeros(2048), np.zeros(2048)
+        for l in range(65):
+            b, t = info[1] if l == 0 else info[l]
+            xs = chunk(b, t - 1 if l == 0 else t) if b < B else np.zeros(32)
+            if l > 0 and info[l][0] < B:
+                hi[_core(l - 1, k)] = window(xs, 256)
+            if l < 64:
+                b1, t1 = info[l + 1]
+                if b1 < B:
+                    lo[_core(l, k)] = window(chunk(b1, -1) if (l > 0 and t1 == 0) else xs, 0)
+        out.append((lo, hi))
     return out
 
 
-def test_stft_bf16_kernel_layout_model_reproduces_the_plain_version(rng):
-    """The kernel's fragment and ldmatrix indexing, modelled in float64 on
-    its own table, meets the plain version within float32 roundoff: a
-    misplaced lane, register, tile or bin would be off by O(1)."""
-    x = rng.standard_normal((1, 5000)).astype(np.float32)     # 20 frames, ragged tile
+def _model_stft_bf16(x: np.ndarray) -> np.ndarray:
+    """A numpy model of ``csrc/stft_bf16.cu`` on (B, L) rows: the tiles of
+    256 frames numbered across rows, each of the 4 slabs of 8 bin groups
+    (bins 0 .. 255; bin 256 is summed on the CUDA cores), each warpgroup's
+    64 frames in the eight phases' core-matrix tiles as its raw rows and
+    ``convert`` fill them, the ``wgmma`` operands read from those tiles and
+    from the ring's chunks (:func:`dft_fragments`) by the kernel's
+    descriptors (512 bytes between row groups, 128 between sample groups,
+    the k-step 256 bytes on), and the accumulators through the epilogue's staging to the
+    spectrum.  Returns the (B, 257, T) spectrum."""
+    frag = tstft.dft_fragments(512).to(torch.float64).numpy().reshape(4, 16, -1)  # (s, c, 4096)
+    nyq = tstft.nyquist_table(512).numpy().astype(np.float64)         # (2, 512)
+    win = tstft.hann_periodic(512).numpy()
+    B, L = x.shape
+    T = 1 + L // 256
+    n_frames = B * T
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    r = np.arange(64)[:, None]
+    kk = np.arange(16)[None, :]
+    q32 = np.arange(32)
+    out = np.zeros((B, 257, T), np.complex128)
+    for f0 in range(0, n_frames, 256):
+        bufs = [_model_build(x, win, f0, p) for p in range(8)]   # [p][wg] -> (lo, hi)
+        f = f0 + np.arange(256)
+        keep = f < n_frames
+        b, t = np.divmod(f[keep], T)
+        # bin 256 on the CUDA cores: LO and HI rows of each phase against its table
+        rows = np.zeros((256, 512))
+        for p in range(8):
+            for wg in range(4):
+                for h in range(2):
+                    rows[64 * wg:64 * wg + 64, 256 * h + 32 * p + q32] = \
+                        bufs[p][wg][h][_core(r, q32[None, :])]
+        out[b, 256, t] = (rows @ (nyq[0] + 1j * nyq[1]))[keep]
+        for slab in range(4):
+            stage = np.zeros((64, 256), np.complex128)
+            for wg in range(4):
+                acc = np.zeros((64, 128))                # the warpgroup's D: frames x columns
+                for c in range(16):
+                    tile = bufs[c >> 1][wg][c & 1]       # phase c // 2: LO, then HI
+                    for ks in range(2):
+                        A = tile[_core(r, 16 * ks + kk)]                       # (64, 16)
+                        Bm = frag[slab, c][_core(np.arange(128)[:, None], 16 * ks + kk)]
+                        acc += A @ Bm.T
+                # the epilogue: acc[4 j + h] of lane (g, q) of warp ww is D at frame
+                # 16 ww + g + 8 (h >> 1), column 8 j + 2 q + (h & 1); staged as bin
+                # 8 gg + 2 q + (h & 1) with re = column group 2 gg, im = 2 gg + 1
+                for ww in range(4):
+                    for gg in range(8):
+                        for h in range(4):
+                            fr = 16 * ww + g + 8 * (h >> 1)
+                            col = 2 * q + (h & 1)
+                            re = acc[fr, 8 * (2 * gg) + col]
+                            im = acc[fr, 8 * (2 * gg + 1) + col]
+                            stage[8 * gg + col, 64 * wg + fr] = re + 1j * im
+            for k in range(64):
+                out[b, 64 * slab + k, t] = stage[k, keep]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 5000), (3, 23000)])
+def test_stft_bf16_kernel_layout_model_reproduces_the_plain_version(rng, shape):
+    """The kernel's tiles, phase builds, core-matrix operands, descriptors,
+    ring chunks and epilogue indexing, modelled in float64 on its own table, meets the
+    plain version within float32 roundoff: a misplaced lane, register,
+    tile, chunk, bin or frame would be off by O(1).  One ragged tile (20 frames), and two tiles of 3
+    rows of 90 frames (the first across all three rows, the second ragged)."""
+    x = rng.standard_normal(shape).astype(np.float32)
     want = tstft.stft_matmul(torch.from_numpy(x), precision="bf16")
     assert max_rel(_model_stft_bf16(x), want) <= 1e-5
 
 
 def test_stft_bf16_tables():
-    """The fragment table holds the bf16-rounded DFT tables: tile 2p the
-    cos, 2p + 1 the sin of bins 8p .. 8p + 7, the padded bins zero."""
+    """The chunk table holds the bf16-rounded DFT tables of bins 0 .. 255 as
+    core matrices: column group 2j the cos, 2j + 1 the sin of bin group
+    8 s + j, each chunk the samples its phase and buffer consume; the
+    bin-256 table holds the last
+    column, with period 2 in the sample (the kernel sums bin 256 from each
+    frame's even and odd sums)."""
     frag = tstft.dft_fragments(512)
-    assert frag.dtype == torch.bfloat16 and tuple(frag.shape) == (66, 32, 32, 4)
+    assert frag.dtype == torch.bfloat16 and tuple(frag.shape) == (4, 16, 16, 4, 8, 8)
+    np.testing.assert_array_equal(tstft.chunk_starts(512),
+                                  [0, 256, 32, 288, 64, 320, 96, 352, 128, 384, 160, 416, 192,
+                                   448, 224, 480])
     dre, dim = (bf16_round(torch.from_numpy(d)) for d in tstft.dft_matrices(512))
     f = frag.to(torch.float32)
-    # lane 4 g + q, value 0: sample 16 s + 2 q of bin 8 p + g
-    for p, g, q, s in [(0, 0, 0, 0), (3, 5, 2, 7), (31, 7, 3, 31), (32, 0, 1, 9)]:
-        k, n = 8 * p + g, 16 * s + 2 * q
-        assert f[2 * p, s, 4 * g + q, 0] == dre[n, k]
-        assert f[2 * p + 1, s, 4 * g + q, 3] == dim[n + 9, k]
-    assert not f[64:, :, 4:].any()        # bins 257..263
+    # slab s, chunk c, column group j, sample group kg, row r, sample kk: sample
+    # chunk_starts[c] + 8 kg + kk of bin 8 (8 s + j // 2) + r
+    for s, c, j, kg, r, kk in [(0, 0, 0, 0, 0, 0), (1, 2, 5, 3, 3, 7),
+                               (3, 15, 15, 3, 7, 2), (2, 9, 0, 1, 4, 1)]:
+        n = tstft.chunk_starts(512)[c] + 8 * kg + kk
+        k = 8 * (8 * s + j // 2) + r
+        want = (dre if j % 2 == 0 else dim)[n, k]
+        assert f[s, c, j, kg, r, kk] == want
+    nyq = tstft.nyquist_table(512)
+    assert nyq.dtype == torch.float32 and torch.equal(nyq, torch.stack([dre[:, 256], dim[:, 256]]))
+    # the kernel's premise for bin 256: its angle is -pi n, so the table has period 2
+    assert torch.equal(nyq[:, 2:], nyq[:, :-2])
 
 
 # ----------------------------------------------------------- covariances

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from disco_tpu_torch.ops import cov_ops
-from tests.torch_port_helpers import complex_normal, max_rel
+from disco_tpu_torch.ops import cov_ops, stft_ops
+from disco_tpu_torch.ops.resolve import bf16_round
+from tests.torch_port_helpers import complex_normal, max_rel, scene
 
 TOL = 1e-5
 SOURCE = (Path(cov_ops.__file__).resolve().parent.parent / "csrc" / "cov.cu").read_text()
@@ -69,13 +70,20 @@ def test_pairs_cover_the_upper_triangle_once(C):
                                                        for d in range(c, C)]
 
 
-def model_cov(y: torch.Tensor, mask: torch.Tensor):
+def model_cov(y: torch.Tensor, mask: torch.Tensor, bf16: bool = False):
     """The kernel's sums in its order: (..., C, F, T) complex64 spectra and a
-    (..., F, T) or (..., C, F, T) mask -> (Rss, Rnn), (..., F, C, C)."""
+    (..., F, T) or (..., C, F, T) mask -> (Rss, Rnn), (..., F, C, C).  With
+    ``bf16`` the ``BF16`` instance's arithmetic: each element rounded to
+    bf16 once (as its tile lands), each pair sum by one fused multiply-add
+    of two exact products (a float64 sum of the float32 products rounded
+    once to float32: a correctly rounded sum of two float32 values, since
+    53 >= 2 x 24 + 2), the weighted accumulations unfused."""
     chan = mask.ndim == y.ndim
     C, T = y.shape[-3], y.shape[-1]
     inv_t = torch.tensor(1.0, dtype=torch.float32) / T
     yr, yi = y.real.movedim(-3, -2), y.imag.movedim(-3, -2)  # (..., F, C, T)
+    if bf16:
+        yr, yi = bf16_round(yr), bf16_round(yi)
     m = mask.movedim(-3, -2) if chan else mask[..., None, :]  # (..., F, C or 1, T)
     cs, ds = zip(*(pair_of(p, C) for p in range(C * (C + 1) // 2)))
     cs, ds = list(cs), list(ds)
@@ -85,8 +93,14 @@ def model_cov(y: torch.Tensor, mask: torch.Tensor):
     else:
         om = 1.0 - m
         w_s, w_n = (m * m) * inv_t, (om * om) * inv_t
-    prr = yr[..., cs, :] * yr[..., ds, :] + yi[..., cs, :] * yi[..., ds, :]
-    pii = yi[..., cs, :] * yr[..., ds, :] - yr[..., cs, :] * yi[..., ds, :]
+    rc, ic, rd, id_ = yr[..., cs, :], yi[..., cs, :], yr[..., ds, :], yi[..., ds, :]
+    if bf16:
+        f64 = torch.float64
+        prr = ((rc * rd).to(f64) + (ic * id_).to(f64)).to(torch.float32)
+        pii = ((ic * rd).to(f64) - (rc * id_).to(f64)).to(torch.float32)
+    else:
+        prr = rc * rd + ic * id_
+        pii = ic * rd - rc * id_
     zero = torch.zeros(prr.shape[:-1], dtype=torch.float32)
     parts = []
     for s in range(SLICES):
@@ -123,3 +137,54 @@ def test_model_of_the_kernel_matches_the_folded_einsum(C, T, chan):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert max_rel(a, b) <= TOL, max_rel(a, b)
+
+
+@pytest.mark.parametrize("chan", [False, True])
+@pytest.mark.parametrize("C,T", [(1, 1), (4, 37), (3, 64), (11, 5), (5, 33)])
+def test_model_of_the_bf16_instance_is_its_plain_version_bit_for_bit(C, T, chan):
+    """The ``BF16`` instance's arithmetic (each element rounded once, the
+    exact pair products fused) gives ``_masked_cov_sliced``'s bits: what
+    the card test at C = 1..16 requires of the kernel."""
+    rng = np.random.default_rng(C * 100 + T)
+    y = torch.from_numpy(complex_normal(rng, (1, C, 257, T)))
+    m = torch.from_numpy(rng.random((1,) + ((C,) if chan else ()) + (257, T)).astype(np.float32))
+    for a, b in zip(model_cov(y, m, bf16=True), cov_ops.masked_covariances_plain(y, m, "bf16")):
+        assert torch.equal(a, b)
+
+
+def _bf16_values(rng, n: int, lo: float, hi: float) -> np.ndarray:
+    """n random bf16-representable float32 values of either sign with
+    magnitudes in [lo, hi): an 8-bit significand (1.xxxxxxx) times a power
+    of two."""
+    e = rng.integers(int(np.floor(np.log2(lo))), int(np.ceil(np.log2(hi))), n)
+    mant = rng.integers(128, 256, n)
+    return (rng.choice([-1.0, 1.0], n) * mant * np.exp2(e - 7.0)).astype(np.float32)
+
+
+def test_bf16_products_are_exact_so_fusing_them_changes_no_bit():
+    """The premise of the ``BF16`` instance's pair sums.  Over the range of
+    the north-star scene's bf16 spectra (a 1-s cut of K=8 nodes x C=4 mics,
+    its extremes included), a product of two bf16 values is exact in
+    float32 (it equals the float64 product), so ``fmaf(a, b, c d)`` and the
+    unfused ``a b + c d`` round the same exact sum once, and so do the
+    imaginary part's ``fmaf(a, b, -(c d))`` and ``a b - c d``.  The fused
+    result is emulated as the float64 sum rounded to float32, which is the
+    correctly rounded float32 sum of the two (exact) float32 products."""
+    y, _, _ = scene(8, 4, 16000, seed=0, noise_scale=0.5)
+    spec = stft_ops.stft_matmul(torch.from_numpy(y), precision="bf16")
+    planes = torch.cat([bf16_round(spec.real).flatten(), bf16_round(spec.imag).flatten()]).numpy()
+    mags = np.abs(planes[planes != 0])
+    lo, hi = float(mags.min()), float(mags.max())
+    rng = np.random.default_rng(0)
+    extremes = np.array([lo, -lo, hi, -hi, 0.0], np.float32)
+    a, b, c, d = (np.concatenate([_bf16_values(rng, 200000, lo, hi), extremes,
+                                  rng.permutation(extremes)]) for _ in range(4))
+    assert np.array_equal(bf16_round(torch.from_numpy(a)).numpy(), a)
+    ab, cd = a * b, c * d                                         # float32 products
+    assert ab.dtype == np.float32
+    assert np.array_equal(ab.astype(np.float64), a.astype(np.float64) * b.astype(np.float64))
+    assert np.array_equal(cd.astype(np.float64), c.astype(np.float64) * d.astype(np.float64))
+    for sign in (1.0, -1.0):
+        fused = (ab.astype(np.float64) + sign * cd.astype(np.float64)).astype(np.float32)
+        unfused = ab + np.float32(sign) * cd
+        assert np.array_equal(fused.view(np.uint32), unfused.view(np.uint32))

@@ -97,12 +97,15 @@ def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
         assert torch.equal(a, a2)  # fixed reduction order: bit-stable
 
 
-@pytest.mark.parametrize("shape", [(3, 257), (5, 12345), (2, 3, 2, 8500), (2, 16128)])
+@pytest.mark.parametrize("shape", [(3, 257), (5, 12345), (2, 3, 2, 8500), (2, 16128),
+                                   (1, 257), (1, 76544), (3, 23000)])
 @pytest.mark.parametrize("with_mag", [False, True])
 def test_stft_bf16_kernel(cuda, rng, shape, with_mag):
-    """The bf16 lane's tensor-core DFT: the shortest rows (2 frames), frame
-    counts that are not a multiple of its 64-frame tile (49, 34), batched
-    leading axes and one streaming window (64 frames)."""
+    """The bf16 lane's tensor-core DFT, whose tiles of 256 frames are
+    numbered across rows: the shortest rows (2 frames, one row alone too),
+    frame counts that are not a multiple of the tile (245 over 5 rows, 300
+    in one row, 270 over 3 rows: a tile across rows), batched leading axes
+    and one streaming window (64 frames)."""
     from disco_tpu_torch.ops import stft_ops
 
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
@@ -285,6 +288,27 @@ def test_eigh_jacobi_kernel_ragged_batches(cuda, rng, C, n):
     assert torch.equal(V.nan_to_num(), p_V.nan_to_num())
     nan_rows = torch.isnan(lam).any(-1).nonzero().flatten().tolist()
     assert nan_rows == ([] if bad is None else [bad])
+
+
+def test_stft_istft_sizes_take_their_routes_on_the_card(cuda, rng):
+    """``core.dsp``'s STFT at 512/256 launches the STFT kernel once; at
+    1024/512 (and 512/128) it takes the rFFT route and launches none.  Each
+    size's STFT and ISTFT on the card match the same on the host."""
+    from disco_tpu_torch.core import dsp
+    from disco_tpu_torch.ops import stft_ops
+
+    x = rng.standard_normal((2, 4000)).astype(np.float32)
+    for n_fft, hop, launches in ((512, 256, 1), (1024, 512, 0), (512, 128, 0)):
+        before = stft_ops.stft_kernel.launches, stft_ops.stft_bf16_kernel.launches
+        spec = dsp.stft(torch.from_numpy(x).to(cuda), n_fft, hop)
+        y = dsp.istft(spec, 4000, n_fft, hop)
+        torch.cuda.synchronize()
+        assert stft_ops.stft_kernel.launches == before[0] + launches
+        assert stft_ops.stft_bf16_kernel.launches == before[1]
+        host = dsp.stft(torch.from_numpy(x), n_fft, hop)
+        assert rel_l2(spec.cpu(), host) <= TOL
+        assert max_rel(y.cpu(), dsp.istft(host, 4000, n_fft, hop)) <= TOL
+        assert max_rel(y.cpu(), torch.from_numpy(x)) <= TOL
 
 
 def test_plain_versions_never_run_on_card_tensors(cuda):
