@@ -51,6 +51,24 @@ pass):
    clip's spectra under the 'compressed', 'use_oracle_refs' and
    'use_oracle_zs' policies and with a (K, K) ``z_mask`` and a NaN node,
    each finite and within 1e-4 of its plain-version run.
+3d. The CRNN-masked offline path on the same clip: two canonical CRNNs
+   (conv 32/64/64, GRU 256, FF 257) of seeded random weights, made as the
+   JAX package's variable tree and loaded through ``nn.convert``, step 1
+   on the reference mic (``n_ch = 1``) and step 2 on it and the other
+   nodes' z_y (``n_ch = K``): ``stft_with_mag`` → ``estimate_masks`` →
+   ``tango(solver='fused')`` with the counters set to 0 before and read
+   after (1 STFT, 3 covariance, 2 fused-solve launches); the masks finite
+   and in [0, 1]; the clip within 1e-4 of the output scale of the plain
+   versions fed the same masks and the STFT kernel's spectra, with the
+   covariances summed in the kernel's order and arithmetic (the untrained
+   CRNNs' masks leave the pencils near-degenerate, and two plain
+   formulations of the STFT or of the covariances already differ by more
+   than 1e-4 there: ``exp/crnn_clip_witness.py``); the distance to the
+   plain versions from the signal reported; the card's CRNN masks within
+   1e-4 (max-abs) of the same modules' on the host on the same inputs; the
+   stream route within 1e-5 of the per-window route; a second run of the
+   masks within 1e-6 (bit-identity reported); ``_batched_masks`` on the
+   16 distinct clips within 1e-5 of each clip's ``estimate_masks``.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -79,10 +97,13 @@ pass):
    The bf16 STFT's bound counts its DFT product at the dense-bf16 peak;
    its library call is one cuBLAS bf16 GEMM (``torch.matmul``, bf16 out).
    Both STFT kernels are also timed at the 16-clip batch's rows (events and
-   device time; the bf16 one beside its plain version and the GEMM).
-6. Where one 16-clip offline call (in both lanes) and one streaming
-   window spend their device time, by kernel (``torch.profiler``), and
-   the device's busy share of their wall time.
+   device time; the bf16 one beside its plain version and the GEMM).  The
+   CRNN-masked path on the 16 distinct clips, by part (step-1 masks,
+   step-1 z, step-2 masks, ``tango``), each the median of 5, the CRNNs'
+   rates by the operations of their shapes.
+6. Where one 16-clip offline call (in both lanes), the 16-clip CRNN mask
+   stage and one streaming window spend their device time, by kernel
+   (``torch.profiler``), and the device's busy share of their wall time.
 
 The last two lines of standard output are one ``{"kernels": [...]}``
 object and ``{"ok": true, "device": {...}}``.
@@ -110,7 +131,10 @@ PEAK_BF16 = 989e12       # H100 SXM, dense bf16 on the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth (data sheet)
 TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "clip": 1e-4,
        "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2,
-       "bf16_lane": 1e-2}
+       "bf16_lane": 1e-2, "crnn_host": 1e-4, "crnn_route": 1e-5, "crnn_batch": 1e-5,
+       "crnn_rerun": 1e-6}
+#: the seeds of the two canonical CRNNs' random weights (phase 3d)
+CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
 BLOCKS_PER_DISPATCH = 16
@@ -300,20 +324,24 @@ def stft_bf16_plain(x, n_fft=512, hop=256, with_mag=False):
 
 
 @contextmanager
-def plain_kernels(stft: bool = True):
+def plain_kernels(stft: bool = True, cov_order: bool = False):
     """Swap each kernel wrapper for its plain version, so the same path
     runs the plain PyTorch versions on the card (the reference runs of
     phases 3 and 4), in either precision lane; ``stft=False`` keeps the STFT
     kernels, so that the plain versions downstream see the kernels'
-    spectra."""
+    spectra; ``cov_order=True`` sums the covariances in the kernel's order
+    and arithmetic in either lane (``cov_ops._masked_cov_sliced``)."""
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
+
+    def cov_sliced(y, mask, precision="f32"):
+        return cov_ops._masked_cov_sliced(y, mask, precision)
 
     saved = (stft_ops.stft_kernel, stft_ops.stft_bf16_kernel, cov_ops.masked_cov_kernel,
              mwf_ops.fused_mwf_kernel, eigh_ops.eigh_jacobi_kernel)
     if stft:
         stft_ops.stft_kernel = stft_ops.stft_matmul
         stft_ops.stft_bf16_kernel = stft_bf16_plain
-    cov_ops.masked_cov_kernel = cov_ops.masked_covariances_plain
+    cov_ops.masked_cov_kernel = cov_sliced if cov_order else cov_ops.masked_covariances_plain
     mwf_ops.fused_mwf_kernel = mwf_ops.fused_mwf_plain
     eigh_ops.eigh_jacobi_kernel = eigh_ops.eigh_jacobi_unsorted
     try:
@@ -805,6 +833,148 @@ def phase3_policies_and_faults(d: SimpleNamespace) -> None:
         require(finite and err <= TOL["clip"], ("tango", label, err, finite))
 
 
+def seeded_crnn_variables(n_ch: int, seed: int) -> dict:
+    """The variable tree of the JAX package's canonical CRNN
+    (``CRNN(input_shape=(n_ch, 21, 257))``: ``params``/``batch_stats`` of
+    ``CNN2d_0`` (three Conv/BatchNorm pairs), ``RNN_0/GRUCell_0`` and
+    ``FF_0/Dense_0``) drawn from a seeded numpy generator: kernels at the
+    scale of flax's default initializer (variance 1/fan_in), biases and
+    BatchNorm shifts and means N(0, 0.1), scales 1 + N(0, 0.1), variances in
+    [0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+
+    def kernel(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+
+    def small(n, base=0.0):
+        return (base + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+    cnn, stats = {}, {}
+    chans = (n_ch, 32, 64, 64)
+    for i in range(3):
+        c = chans[i + 1]
+        cnn[f"Conv_{i}"] = {"kernel": kernel(3, 3, chans[i], c), "bias": small(c)}
+        cnn[f"BatchNorm_{i}"] = {"scale": small(c, 1.0), "bias": small(c)}
+        stats[f"BatchNorm_{i}"] = {"mean": small(c),
+                                   "var": (0.5 + rng.random(c)).astype(np.float32)}
+    gru = {g: {"kernel": kernel(256, 256), "bias": small(256)} for g in ("ir", "iz", "in", "hn")}
+    gru.update({g: {"kernel": kernel(256, 256)} for g in ("hr", "hz")})
+    return {"params": {"CNN2d_0": cnn, "RNN_0": {"GRUCell_0": gru},
+                       "FF_0": {"Dense_0": {"kernel": kernel(256, 257), "bias": small(257)}}},
+            "batch_stats": {"CNN2d_0": stats}}
+
+
+def canonical_crnn(n_ch: int, seed: int, device):
+    """The port's canonical CRNN holding :func:`seeded_crnn_variables`,
+    loaded through ``nn.convert``, on ``device``."""
+    from disco_tpu_torch.nn.convert import state_dict_from_flax
+    from disco_tpu_torch.nn.crnn import build_crnn
+
+    model = build_crnn(n_ch=n_ch)
+    model.load_state_dict(state_dict_from_flax(seeded_crnn_variables(n_ch, seed), model))
+    return model.to(device).eval()
+
+
+def phase3d_crnn_masked_clip(d: SimpleNamespace) -> None:
+    """The CRNN-masked offline path on the north-star clip, with two
+    canonical CRNNs of seeded random weights (step 1 on the reference mic,
+    ``n_ch = 1``; step 2 on it and the other nodes' z_y, ``n_ch = K``):
+    ``stft_with_mag`` of the [y, s, n] stack → ``estimate_masks`` →
+    ``tango(solver='fused')`` → ISTFT."""
+    import torch
+
+    from unittest import mock
+
+    from disco_tpu_torch.core.dsp import istft, stft
+    from disco_tpu_torch.enhance import inference
+    from disco_tpu_torch.enhance.driver import _batched_masks, _z_for_mask_device, estimate_masks
+    from disco_tpu_torch.enhance.tango import tango
+    from disco_tpu_torch.enhance.zexport import compute_z_signals
+    from disco_tpu_torch.ops.stft_ops import stft_with_mag
+
+    t0 = time.perf_counter()
+    d.crnn = [canonical_crnn(1, CRNN_SEEDS["step1"], d.dev),
+              canonical_crnn(K, CRNN_SEEDS["step2"], d.dev)]
+    with counted("crnn-masked clip", {"stft": 1, "masked_cov": 3, "fused_mwf": 2}, d.launches):
+        spec, mag = stft_with_mag(d.x)
+        Y = spec[0]
+        masks_z, mask_w = estimate_masks(Y, spec[1], spec[2], d.crnn, "irm1", K, z_sigs="zs_hat",
+                                         mags=(mag[1], mag[2]))
+        out = istft(tango(Y, spec[1], spec[2], masks_z, mask_w, solver="fused").yf, d.L)
+    masks = torch.stack([masks_z, mask_w])
+    in_range = bool(torch.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1)
+    print(f"phase 3d: masks finite and in [0, 1]: {in_range}; step-1 mean {float(masks_z.mean())} "
+          f"std {float(masks_z.std())}, step-2 mean {float(mask_w.mean())} std "
+          f"{float(mask_w.std())}", flush=True)
+    require(in_range and out.shape == (K, d.L) and bool(torch.isfinite(out).all()),
+            "crnn-masked clip: masks out of [0, 1] or a non-finite clip")
+
+    # The same clip through the plain versions, fed the same masks and the
+    # STFT kernel's spectra (the STFT kernel is held to its plain version in
+    # phase 2), the covariances summed in the kernel's order and arithmetic
+    # (``_masked_cov_sliced``): the untrained CRNNs' masks (~0.5 +- 0.17)
+    # leave the GEVD pencils near-degenerate, and two plain formulations of
+    # the STFT or of the covariances move this clip by more than 1e-4 of its
+    # scale (exp/crnn_clip_witness.py).  The distance to the plain versions
+    # from the signal is reported.
+    with plain_kernels(stft=False, cov_order=True):
+        ref = istft(tango(Y, spec[1], spec[2], masks_z, mask_w, solver="fused").yf, d.L)
+    with plain_kernels():
+        spec_p, _ = stft_with_mag(d.x)
+        ref_p = istft(tango(spec_p[0], spec_p[1], spec_p[2], masks_z, mask_w, solver="fused").yf,
+                      d.L)
+    clip_err, full_err = max_rel(out, ref), max_rel(out, ref_p)
+    print(f"phase 3d: CRNN-masked clip vs the plain versions fed the same masks and the STFT "
+          f"kernel's spectra, the covariances in the kernel's order: {clip_err:.3e} of output "
+          f"scale (bit-identical {bool(torch.equal(out, ref))}); vs the plain versions from the "
+          f"signal {full_err:.3e}; SI-SDR node 0 {si_sdr(d.s_np[0, 0], d.y_np[0, 0]):.2f} -> "
+          f"{si_sdr(d.s_np[0, 0], out[0].cpu().numpy()):.2f} dB", flush=True)
+    require(clip_err <= TOL["clip"], ("crnn-masked clip", clip_err))
+    del ref, ref_p, spec_p
+
+    # the card's CRNNs against the same modules on the host, on the same inputs
+    zs = _z_for_mask_device(*(compute_z_signals(None, None, None, Y=Y, masks_z=masks_z)[k]
+                              for k in ("z_y", "zn")), K, "zs_hat")
+    host = [canonical_crnn(1, CRNN_SEEDS["step1"], "cpu"),
+            canonical_crnn(K, CRNN_SEEDS["step2"], "cpu")]
+    card_w = inference.crnn_masks_batched(Y[:, 0], d.crnn[1], zs=zs)
+    host_z = inference.crnn_masks_batched(Y[:, 0].cpu(), host[0], device="cpu")
+    host_w = inference.crnn_masks_batched(Y[:, 0].cpu(), host[1], zs=zs.cpu(), device="cpu")
+    host_err = max(max_abs(masks_z.cpu(), host_z), max_abs(card_w.cpu(), host_w))
+    print(f"phase 3d: card CRNN masks vs the host's on the same spectra and weights: max-abs "
+          f"{host_err:.3e} (step 2 recomputed from the same z: {max_abs(card_w, mask_w):.3e} from "
+          f"the path's)", flush=True)
+    require(host_err <= TOL["crnn_host"], ("crnn card vs host", host_err))
+
+    # the stream route (convs hoisted) against the per-window route, on the card
+    with mock.patch.object(inference, "_conv_stream_safe", lambda model: False):
+        window_w = inference.crnn_masks_batched(Y[:, 0], d.crnn[1], zs=zs)
+    route_err = max_abs(card_w, window_w)
+    print(f"phase 3d: stream route vs per-window route (step 2, {K} streams): max-abs "
+          f"{route_err:.3e}", flush=True)
+    require(route_err <= TOL["crnn_route"], ("crnn routes", route_err))
+    del window_w
+
+    # a second card run of the mask stage
+    again = estimate_masks(Y, None, None, d.crnn, "irm1", K, z_sigs="zs_hat")
+    identical = all(torch.equal(a, b) for a, b in zip(again, (masks_z, mask_w)))
+    rerun_err = max(max_abs(a, b) for a, b in zip(again, (masks_z, mask_w)))
+    print(f"phase 3d: second card run of the masks: bit-identical {identical}, max-abs "
+          f"{rerun_err:.3e}", flush=True)
+    require(rerun_err <= TOL["crnn_rerun"], ("crnn rerun", rerun_err))
+
+    # the 16 distinct clips as one batch against each clip alone
+    d.crnn_batch = tuple(stft(a) for a in distinct_clips(d))           # (B, K, C, F, T) each
+    Mz, Mw = _batched_masks(*d.crnn_batch, d.crnn, "irm1", 1.0, K, "zs_hat")
+    batch_err = 0.0
+    for b in range(BATCH):
+        mz, mw = estimate_masks(d.crnn_batch[0][b], None, None, d.crnn, "irm1", K)
+        batch_err = max(batch_err, max_abs(Mz[b], mz), max_abs(Mw[b], mw))
+    print(f"phase 3d: _batched_masks on {BATCH} distinct clips vs each clip's estimate_masks: "
+          f"max-abs {batch_err:.3e}; phase 3d took {time.perf_counter() - t0:.1f} s", flush=True)
+    require(batch_err <= TOL["crnn_batch"], ("crnn batch vs clips", batch_err))
+
+
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
@@ -1009,6 +1179,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         print(f"phase 5: offline path, {precision} lane, {BATCH} clips {path_ms} ms (median of "
               f"{runs}) = {audio_s / (path_ms / 1e3)} enhanced audio-s per s", flush=True)
     del yb, sb, nb
+    phase5_crnn_mask_stage(d)
 
     # streaming: windows 2..9 again from the state after window 1, each
     # timed on the host clock to its synchronize (the latency a caller sees)
@@ -1184,6 +1355,56 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     return entries
 
 
+def crnn_cost(n_streams: int, n_ch: int, T: int, win: int = 21, win_out: int = 15) -> float:
+    """Operations of one canonical CRNN over ``n_streams`` streams of ``T``
+    frames by the stream route: the three 3x3 convs over the padded
+    streams (T + win - 1 frames), and per window the GRU's 15 steps
+    (input and hidden products, 3 gates of 256) and the 257-wide FF on
+    each of its 15 frames."""
+    flops, t, f, c_in = 0.0, T + win - 1, 257, n_ch
+    for c_out in (32, 64, 64):
+        t -= 2
+        flops += 2 * n_streams * c_out * t * f * c_in * 9
+        f, c_in = f // 4, c_out
+    steps = n_streams * T * win_out
+    return flops + steps * (2 * 3 * 256 * (256 + 256) + 2 * 256 * 257)
+
+
+def phase5_crnn_mask_stage(d: SimpleNamespace) -> None:
+    """CUDA-event times (median of 5) of the CRNN-masked path on the 16
+    distinct clips, by part: step-1 masks, step-1 z, step-2 masks, and
+    ``tango(solver='fused')`` with those masks."""
+    from disco_tpu_torch.enhance.driver import _z_for_mask_device
+    from disco_tpu_torch.enhance.inference import crnn_masks_batched
+    from disco_tpu_torch.enhance.tango import tango, tango_step1
+
+    Yb, Sb, Nb = d.crnn_batch
+    B, _, _, F, T = Yb.shape
+    refs = Yb[:, :, 0].reshape(B * K, F, T)
+    Mz = crnn_masks_batched(refs, d.crnn[0]).reshape(B, K, F, T)
+    z = tango_step1(Yb, Sb, Nb, Mz)
+    zs = _z_for_mask_device(z["z_y"], z["zn"], K, "zs_hat").reshape(B * K, K - 1, F, T)
+    Mw = crnn_masks_batched(refs, d.crnn[1], zs=zs).reshape(B, K, F, T)
+    del z
+    parts = {"step-1 masks": (lambda: crnn_masks_batched(refs, d.crnn[0]), crnn_cost(B * K, 1, T)),
+             "step-1 z": (lambda: tango_step1(Yb, Sb, Nb, Mz), None),
+             "step-2 masks": (lambda: crnn_masks_batched(refs, d.crnn[1], zs=zs),
+                              crnn_cost(B * K, K, T)),
+             "tango": (lambda: tango(Yb, Sb, Nb, Mz, Mw, solver="fused"), None)}
+    total = 0.0
+    for label, (fn, flops) in parts.items():
+        fn()  # warm-up
+        runs = sorted(time_ms(fn, reps=1, warmup=0) for _ in range(5))
+        total += runs[2]
+        rate = "" if flops is None else (f"; {flops / 1e12:.3f} TFLOP by the CRNN's shapes = "
+                                         f"{flops / (runs[2] / 1e3) / 1e12:.2f} TFLOP/s")
+        print(f"phase 5: CRNN-masked path, {BATCH} clips, {label} {runs[2]} ms (median of "
+              f"{runs}){rate}", flush=True)
+    print(f"phase 5: CRNN-masked path, {BATCH} clips, the four parts {total} ms = "
+          f"{BATCH * K * DUR_S / (total / 1e3)} enhanced audio-s per s (the STFT and ISTFT "
+          f"not included)", flush=True)
+
+
 def library_cov(yy, mm):
     """One ``torch.einsum`` call per covariance computing the kernel's pair
     (the shared mask's weights made before, as the kernel's wrapper is
@@ -1283,8 +1504,9 @@ def profiled(label: str, fn) -> None:
 
 
 def phase6_breakdown(d: SimpleNamespace) -> None:
-    """Where the time of one 16-clip offline call and of one streaming
-    window goes."""
+    """Where the time of one 16-clip offline call, of the 16-clip CRNN mask
+    stage and of one streaming window goes."""
+    from disco_tpu_torch.enhance.driver import _batched_masks
     from disco_tpu_torch.enhance.fused import tango_clip_fused
 
     yb, sb, nb = batch_clips(d)
@@ -1293,6 +1515,8 @@ def phase6_breakdown(d: SimpleNamespace) -> None:
     profiled(f"one {BATCH}-clip offline call, bf16 lane",
              lambda: tango_clip_fused(yb, sb, nb, solver="fused", precision="bf16"))
     del yb, sb, nb
+    profiled(f"the {BATCH}-clip CRNN mask stage (_batched_masks)",
+             lambda: _batched_masks(*d.crnn_batch, d.crnn, "irm1", 1.0, K, "zs_hat"))
     profiled("one streaming window (window 2)", lambda: stream_windows(d, 1, 2, d.stream_state_1))
 
 
@@ -1328,6 +1552,7 @@ def main() -> int:
     phase2_sizes(d)
     d.launches = {}
     phase3_offline_path(d)
+    phase3d_crnn_masked_clip(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

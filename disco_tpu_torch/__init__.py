@@ -10,7 +10,10 @@ tests/test_torch_port_imports.py).
 Device rule.  Entry points (``enhance.tango.tango``,
 ``enhance.fused.tango_clip_fused`` and ``streaming_clip_fused``,
 ``enhance.streaming.streaming_tango``, ``streaming_tango_scan`` and
-``streaming_step1``) run on ``"cuda"`` unless the caller passes
+``streaming_step1``, the mask stage ``enhance.inference.crnn_mask`` and
+``crnn_masks_batched``, ``enhance.zexport.compute_z_signals``,
+``enhance.driver.estimate_masks`` and ``_batched_masks``, and
+``enhance.separation``) run on ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they
 raise ``RuntimeError`` — they never move to the CPU silently.  Below the
 entry points every kernel wrapper routes by the device of the tensor it is
@@ -28,11 +31,13 @@ The opt-in bf16 lane (``precision='bf16'``) rounds operands to bf16 at
 the points ``ops/resolve.py`` lists and accumulates in float32.
 
 Weights and state.  The two-step TANGO paths have no learned
-parameters: the masks are oracle masks and the DFT/IDFT/Hann tables are
-computed.  What crosses from the JAX package is the streaming
-continuation state, through ``enhance.streaming.state_from_numpy`` (and
-back through ``state_to_numpy``).  The flax -> ``state_dict`` converter
-arrives with the CRNN port.
+parameters (the DFT/IDFT/Hann tables are computed); the CRNN mask
+estimators of ``nn`` do, and weights of the JAX package's flax modules
+cross through ``nn.convert.state_dict_from_flax``.  A model is never moved
+to the call's device: one on another device raises ValueError.  The
+streaming continuation state crosses through
+``enhance.streaming.state_from_numpy`` (and back through
+``state_to_numpy``).
 """
 import torch
 

@@ -1,6 +1,7 @@
 """Spatial covariance estimation (counterpart of
 ``disco_tpu/beam/covariance.py``: the offline frame-mean estimator of
-reference tango.py:357-364)."""
+reference tango.py:357-364 and the online exponential smoothing of
+internal_formulas.py:84-103)."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +20,14 @@ def masked_covariances(y: torch.Tensor, mask: torch.Tensor):
     reference tango.py:347-348 (``m * y`` and ``(1 - m) * y``)."""
     m = mask[..., None, :, :]
     return frame_mean_covariance(m * y), frame_mean_covariance((1.0 - m) * y)
+
+
+def smoothed_covariance(R: torch.Tensor, x: torch.Tensor, lambda_cor: float = 0.95,
+                        mask=None) -> torch.Tensor:
+    """One step of exponential smoothing ``R <- lambda R + (1 - lambda) [m]
+    x x^H`` (internal_formulas.py:84-103): ``R`` (..., C, C), the frame
+    ``x`` (..., C), an optional mask weight broadcast over the update."""
+    upd = x[..., :, None] * x[..., None, :].conj()
+    if mask is not None:
+        upd = torch.as_tensor(mask)[..., None, None] * upd
+    return lambda_cor * R + (1.0 - lambda_cor) * upd

@@ -17,9 +17,12 @@ names that kernel's plain version, which runs on CPU tensors only, as
 """
 from __future__ import annotations
 
+import re
+
 import torch
 
 from disco_tpu_torch.core.mathx import FLOAT64_EPS
+from disco_tpu_torch.device import resolve_device
 from disco_tpu_torch.solver_spec import FUSED_IMPLS, RANK1_SOLVERS, parse_solver_spec  # noqa: F401
 
 # Eigenvalue clamp range of the reference (internal_formulas.py:6-7,59-62)
@@ -28,6 +31,25 @@ EIG_CEIL = 1e6
 # Relative diagonal loading so the float32 Cholesky exists for
 # near-singular noise covariances
 DIAG_LOADING = 1e-6
+
+
+def get_filter_type(name: str):
+    """Parse a filter spec like 'gevd', 'rank2-gevd', 'rank12-gevd',
+    'gevd-power', 'r1-mwf', 'mwf' (internal_formulas.py:10-28):
+    returns (type, rank)."""
+    if name == "gevd-power":
+        return "gevd-power", 1
+    if "gevd" in name:
+        if "-" in name:
+            m = re.fullmatch(r"rank(\d+)-gevd", name)
+            if m is None:
+                raise ValueError(
+                    f"malformed GEVD filter spec {name!r}; expected 'gevd', 'rankN-gevd' or 'gevd-power'"
+                )
+            return "gevd", int(m.group(1))
+        return "gevd", "full"
+    return name, None
+
 
 def _herm(A: torch.Tensor) -> torch.Tensor:
     return A.conj().transpose(-1, -2)
@@ -175,3 +197,59 @@ def rank1_gevd(Rss, Rnn, mu: float = 1.0, solver: str = "eigh", sanitize: bool =
     if base in ("jacobi", "jacobi-pallas"):
         return gevd_mwf(Rss, Rnn, mu=mu, rank=1, sanitize=sanitize, eigh_impl=base, sweeps=n)
     return gevd_mwf_power(Rss, Rnn, mu=mu, sanitize=sanitize, **({} if n is None else {"iters": n}))
+
+
+def solver_lane_info(spec: str, device=None) -> dict:
+    """What a solver spec runs on ``device`` (``"cuda"`` when None): the
+    parsed base and N, and ``impl`` — ``'cuda'`` for the hand-written
+    kernel ('fused', 'fused-pallas', 'jacobi-pallas' on a CUDA device),
+    ``'plain'`` for its plain version (those specs on the CPU, and
+    'fused-xla' / 'jacobi'), ``'torch'`` for the ``torch.linalg``
+    formulations ('eigh', 'power').  The JAX package's function of the same
+    name names its own backends ('pallas' / 'xla')."""
+    base, n = parse_solver_spec(spec)
+    if base in ("fused", "fused-pallas", "jacobi-pallas"):
+        impl = "cuda" if resolve_device(device).type == "cuda" else "plain"
+    elif base in ("fused-xla", "jacobi"):
+        impl = "plain"
+    else:
+        impl = "torch"
+    return {"spec": spec, "base": base, "n": n, "impl": impl}
+
+
+def r1_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0) -> torch.Tensor:
+    """Rank-1 SDW-MWF (the 'r1-mwf' branch of internal_formulas.py:45-54):
+    project Rxx onto its dominant eigenpair, then ``W = P[:, 0] / (mu + tr
+    P)`` with ``P = Rnn^-1 Rxx_1``."""
+    lam, V = torch.linalg.eigh(0.5 * (Rxx + _herm(Rxx)))
+    vmax = V[..., :, -1]
+    lmax = lam[..., -1].abs()
+    Rxx1 = lmax[..., None, None].to(Rxx.dtype) * (vmax[..., :, None] * vmax[..., None, :].conj())
+    P = torch.linalg.solve(_load_diag(Rnn), Rxx1)
+    tr = torch.diagonal(P, dim1=-2, dim2=-1).sum(-1)
+    return P[..., :, 0] / (mu + tr[..., None])
+
+
+def mwf(Rxx: torch.Tensor, Rnn: torch.Tensor) -> torch.Tensor:
+    """Plain MWF (the 'mwf' branch of internal_formulas.py:74-76):
+    ``W = (Rxx + Rnn)^-1 Rxx e1``."""
+    return torch.linalg.solve(_load_diag(Rxx + Rnn), Rxx)[..., :, 0]
+
+
+def intern_filter(Rxx, Rnn, mu: float = 1.0, ftype: str = "r1-mwf", rank="full"):
+    """The reference's ``intern_filter`` surface (internal_formulas.py:31-81)
+    with its defaults (type 'r1-mwf', rank 'full').  Returns (W, t1); t1 is
+    the e1 selector for the non-GEVD types, as in the reference."""
+    if ftype == "gevd":
+        return gevd_mwf(Rxx, Rnn, mu=mu, rank=rank)
+    if ftype == "gevd-power":
+        if rank != 1:
+            raise ValueError("the 'gevd-power' solver is rank-1 only; pass rank=1")
+        return rank1_gevd(Rxx, Rnn, mu=mu, solver="power")
+    t1 = torch.zeros(Rxx.shape[:-1], dtype=Rxx.dtype, device=Rxx.device)
+    t1[..., 0] = 1.0
+    if ftype == "r1-mwf":
+        return r1_mwf(Rxx, Rnn, mu=mu), t1
+    if ftype == "mwf":
+        return mwf(Rxx, Rnn), t1
+    raise AttributeError("Unknown filter reference")

@@ -112,3 +112,13 @@ def ola_finish(y: torch.Tensor, wss: torch.Tensor, pad: int, length: int) -> tor
     if y.shape[-1] < length:
         y = F.pad(y, (0, length - y.shape[-1]))
     return y
+
+
+def bucket_length(length: int, bucket: int = 8192) -> int:
+    """A clip length rounded up to a multiple of ``bucket``: the corpus
+    driver's length buckets (``disco_tpu/core/dsp.py::bucket_length``).
+    Zero-padded frames add zero outer products to both covariances, which
+    leaves the GEVD filter unchanged, and ``istft(length=true_length)``
+    trims the padded samples; only the last 2-3 analysis frames see zeros
+    instead of the reflected tail."""
+    return -(-length // bucket) * bucket

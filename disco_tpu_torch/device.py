@@ -35,3 +35,14 @@ def is_hopper() -> bool:
     for."""
     return torch.cuda.is_available() and torch.cuda.get_device_capability() == (9, 0)
 
+
+
+def check_module_device(module: torch.nn.Module, dev: torch.device) -> None:
+    """Raise ValueError unless every parameter and buffer of ``module`` lies
+    on ``dev`` — a model is never moved to the caller's device silently."""
+    for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+        if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
+            raise ValueError(
+                f"the model's {name} lies on {t.device}, the call runs on {dev}; move the model "
+                f"with model.to({str(dev)!r}) first"
+            )

@@ -67,31 +67,33 @@ def _outer(x: torch.Tensor) -> torch.Tensor:
     return x[..., :, None] * x[..., None, :].conj()
 
 
-def _seed_filter_state(lead: tuple, n_freq: int, D: int, ref: int):
+def _seed_filter_state(lead: tuple, n_freq: int, D: int, ref: int, dtype=np.complex64):
     """(Rss, Rnn, w) numpy warm start with leading shape ``lead``:
     ``1e-6 I`` covariances and the ref-channel one-hot filter."""
-    R = np.broadcast_to(_WARM_EPS * np.eye(D, dtype=np.complex64), lead + (n_freq, D, D)).copy()
-    w = np.zeros(lead + (n_freq, D), np.complex64)
+    R = np.broadcast_to(_WARM_EPS * np.eye(D, dtype=dtype), lead + (n_freq, D, D)).copy()
+    w = np.zeros(lead + (n_freq, D), dtype)
     w[..., ref] = 1.0
     return R, R.copy(), w
 
 
 def initial_stream_state(n_nodes: int, n_mics: int, n_freq: int,
-                         update_every: int = DEFAULT_UPDATE_EVERY, ref_mic: int = 0):
+                         update_every: int = DEFAULT_UPDATE_EVERY, ref_mic: int = 0, dtype=None):
     """The warm-start continuation state of :func:`streaming_tango` as host
     (numpy) arrays — the pytree of the JAX function of the same name:
     ``step1``/``step2`` ``(Rss, Rnn, w)`` triples with a leading node axis
     (D = C and C + K - 1) and the ``hold`` carries of the exchanged
-    ``z_y``/``zn`` streams.  ``state=None`` in the entry points means this
-    state."""
+    ``z_y``/``zn`` streams, in ``dtype`` (complex64 when None, the dtype
+    the entry points cast the spectra to).  ``state=None`` in the entry
+    points means this state."""
+    dtype = np.complex64 if dtype is None else np.dtype(dtype)
     K, C, F, u = int(n_nodes), int(n_mics), int(n_freq), int(update_every)
 
     def hold_carry():
-        return np.zeros((K, F, u), np.complex64), np.zeros((K,), bool)
+        return np.zeros((K, F, u), dtype), np.zeros((K,), bool)
 
     return {
-        "step1": _seed_filter_state((K,), F, C, ref_mic),
-        "step2": _seed_filter_state((K,), F, C + K - 1, ref_mic),
+        "step1": _seed_filter_state((K,), F, C, ref_mic, dtype),
+        "step2": _seed_filter_state((K,), F, C + K - 1, ref_mic, dtype),
         "hold": {"z_y": hold_carry(), "zn": hold_carry()},
     }
 

@@ -94,17 +94,40 @@ def masked_covariances_folded(y: torch.Tensor, mask: torch.Tensor, precision: st
             weighted_cov_folded(y, 1.0 - mask, precision))
 
 
-def _masked_cov_sliced(y: torch.Tensor, mask: torch.Tensor):
-    """The bf16 instance's sums in the kernel's own order, so that the two
-    agree bit for bit: per upper-triangle pair (c, d), row by row, the
-    float32 weights ``(m m) / T`` of the kernel, the pair products
-    (exact: the planes are bf16), and one running float32 sum per frame
-    slice, frame after frame (a rounded product, then a rounded sum), the
-    slices then added in order; the lower triangle mirrored, the
-    diagonal's imaginary part 0."""
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` of float32 tensors, correctly rounded: the product
+    is exact in float64; the float64 sum ``s`` and its error ``e`` (two-sum,
+    exact) give the sum rounded to odd (``s`` one step towards ``e`` where
+    ``e != 0`` and ``s`` is even), which rounds to float32 as the exact sum
+    does, since 53 >= 24 + 2."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    even = (s.view(torch.int64) & 1) == 0
+    towards = torch.where(e > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where((e != 0) & even, torch.nextafter(s, towards), s).float()
+
+
+def _masked_cov_sliced(y: torch.Tensor, mask: torch.Tensor, precision: str = "bf16"):
+    """The kernel's sums in its own order and arithmetic: per
+    upper-triangle pair (c, d), row by row, the float32 weights
+    ``(m m) / T`` of the kernel, the pair products, and one running float32
+    sum per frame slice, frame after frame, the slices then added in order;
+    the lower triangle mirrored, the diagonal's imaginary part 0.
+
+    In the bf16 lane the planes are rounded to bf16 first, so the pair
+    products are exact; a weighted term is a rounded product, then a
+    rounded sum, as the ``BF16`` instance's ``__fmul_rn``/``__fadd_rn``.
+    In the f32 lane the planes are used as they are, and the f32
+    instance's multiply-adds, which ``nvcc`` fuses, are modelled by
+    :func:`_fma`: ``prr = fma(rc, rd, ic id)``, ``pii = fma(ic, rd,
+    -(rc id))``, ``acc = fma(w, p, acc)``.  Either lane gives the kernel's
+    bits."""
     *lead, C, F, T = y.shape
     c, d = torch.triu_indices(C, C, device=y.device)
-    yr, yi = bf16_round(y.real), bf16_round(y.imag)
+    bf16 = resolve_precision(precision) == "bf16"
+    yr, yi = (bf16_round(y.real), bf16_round(y.imag)) if bf16 else (y.real, y.imag)
     chan = mask.ndim == y.ndim
     m = mask.to(torch.float32)
     inv_t = torch.ones((), dtype=torch.float32, device=y.device) / T
@@ -113,8 +136,10 @@ def _masked_cov_sliced(y: torch.Tensor, mask: torch.Tensor):
     for t0 in range(0, T, S):
         sl = slice(t0, min(t0 + S, T))
         rc, ic, rd, id_ = yr[..., c, :, sl], yi[..., c, :, sl], yr[..., d, :, sl], yi[..., d, :, sl]
-        prr = rc * rd + ic * id_
-        pii = ic * rd - rc * id_
+        if bf16:
+            prr, pii = rc * rd + ic * id_, ic * rd - rc * id_
+        else:
+            prr, pii = _fma(rc, rd, ic * id_), _fma(ic, rd, -(rc * id_))
         if chan:
             mc, md = m[..., c, :, sl], m[..., d, :, sl]
             ws, wn = (mc * md) * inv_t, ((1.0 - mc) * (1.0 - md)) * inv_t
@@ -122,9 +147,14 @@ def _masked_cov_sliced(y: torch.Tensor, mask: torch.Tensor):
             mm = m[..., None, :, sl]
             om = 1.0 - mm
             ws, wn = (mm * mm) * inv_t, (om * om) * inv_t
-        terms = torch.stack([ws * prr, ws * pii, wn * prr, wn * pii], dim=-4)
-        n = terms.shape[-1]
-        acc[..., :n] = acc[..., :n] + terms
+        n = prr.shape[-1]
+        if bf16:
+            terms = torch.stack([ws * prr, ws * pii, wn * prr, wn * pii], dim=-4)
+            acc[..., :n] = acc[..., :n] + terms
+        else:
+            ws, wn = ws.expand_as(prr), wn.expand_as(prr)
+            acc[..., :n] = _fma(torch.stack([ws, ws, wn, wn], dim=-4),
+                                torch.stack([prr, pii, prr, pii], dim=-4), acc[..., :n])
     tot = acc[..., 0]
     for j in range(1, S):
         tot = tot + acc[..., j]                                   # (..., 4, P, F)

@@ -128,7 +128,8 @@ def model_cov(y: torch.Tensor, mask: torch.Tensor, bf16: bool = False):
 @pytest.mark.parametrize("C,T", [(1, 1), (4, 37), (3, 64), (11, 5), (5, 33)])
 def test_model_of_the_kernel_matches_the_folded_einsum(C, T, chan):
     """Ragged T below one tile, one whole tile, T = 1, the path's C = 4 and
-    D = 11 and the lane-group edge C = 5, with both mask kinds."""
+    D = 11 and the lane-group edge C = 5, with both mask kinds; and
+    ``_masked_cov_sliced(..., 'f32')`` within 1e-6 of the model."""
     rng = np.random.default_rng(C * 100 + T)
     y = torch.from_numpy(complex_normal(rng, (1, C, 257, T)))
     m = torch.from_numpy(rng.random((1,) + ((C,) if chan else ()) + (257, T)).astype(np.float32))
@@ -137,6 +138,11 @@ def test_model_of_the_kernel_matches_the_folded_einsum(C, T, chan):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert max_rel(a, b) <= TOL, max_rel(a, b)
+    # the f32 plain version in the kernel's order, its multiply-adds fused
+    # (held to the kernel bit for bit on the card): the same order as the
+    # model, apart only by the fused roundings
+    for a, b in zip(cov_ops._masked_cov_sliced(y, m, "f32"), got):
+        assert max_rel(a, b) <= 1e-6, max_rel(a, b)
 
 
 @pytest.mark.parametrize("chan", [False, True])
@@ -150,6 +156,21 @@ def test_model_of_the_bf16_instance_is_its_plain_version_bit_for_bit(C, T, chan)
     m = torch.from_numpy(rng.random((1,) + ((C,) if chan else ()) + (257, T)).astype(np.float32))
     for a, b in zip(model_cov(y, m, bf16=True), cov_ops.masked_covariances_plain(y, m, "bf16")):
         assert torch.equal(a, b)
+
+
+def test_fma_model_rounds_the_exact_sum_once():
+    """``cov_ops._fma`` is ``fmaf``: where the unfused product and sum lose
+    the result (``(1 + 2^-23)(1 - 2^-23) - 1``), and where the float64 sum
+    lands on a float32 tie that the exact sum is not on (a double rounding
+    would give 1, the exact sum rounds to 1 + 2^-23)."""
+    f32 = torch.float32
+    a, b, c = (torch.tensor([x], dtype=f32) for x in (1 + 2.0**-23, 1 - 2.0**-23, -1.0))
+    assert float(a * b + c) == 0.0 and float(cov_ops._fma(a, b, c)) == -(2.0**-46)
+    a, b = (torch.tensor([2.0**-12 * (1 + k * 2.0**-23)], dtype=f32) for k in (2896, -2895))
+    one = torch.ones(1, dtype=f32)
+    assert float((a.double() * b.double() + 1.0).float()) == 1.0
+    assert float(cov_ops._fma(a, b, one)) == 1 + 2.0**-23
+    assert float(cov_ops._fma(-a, b, -one)) == -(1 + 2.0**-23)
 
 
 def _bf16_values(rng, n: int, lo: float, hi: float) -> np.ndarray:

@@ -82,7 +82,9 @@ def test_stft_kernel_edges(cuda, rng, shape):
 def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
     """Every channel count, with T = 1, an odd T below the kernel's 128-frame
     tile, one whole tile, two tiles and a ragged third, and the clip's 626
-    frames; bit-stable from run to run."""
+    frames; bit-stable from run to run, and bit for bit the plain version
+    in its order and arithmetic (``_masked_cov_sliced(..., 'f32')``, the
+    fused multiply-adds modelled exactly)."""
     from disco_tpu_torch.ops import cov_ops
 
     y = torch.from_numpy(complex_normal(rng, (2, C, 257, T))).to(cuda)
@@ -91,10 +93,12 @@ def test_masked_cov_kernel(cuda, rng, C, T, per_channel):
     got = cov_ops.masked_cov_kernel(y, m)
     again = cov_ops.masked_cov_kernel(y, m)
     want = cov_ops.masked_covariances_folded(y, m)
+    sliced = cov_ops._masked_cov_sliced(y, m, "f32")
     torch.cuda.synchronize()
-    for a, a2, b in zip(got, again, want):
+    for a, a2, b, c in zip(got, again, want, sliced):
         assert max_rel(a, b) <= TOL
         assert torch.equal(a, a2)  # fixed reduction order: bit-stable
+        assert torch.equal(a, c), max_rel(a, c)
 
 
 @pytest.mark.parametrize("shape", [(3, 257), (5, 12345), (2, 3, 2, 8500), (2, 16128),
@@ -382,3 +386,98 @@ def test_streaming_window_on_card_matches_plain_window_on_host(cuda):
         assert launches == (2 * 2 * 4 if dev == "cuda" else 0), (dev, launches)
     skip = 2 * 4 * 256
     assert max_rel(outs["cuda"][:, skip:], outs["cpu"][:, skip:]) <= 1e-4
+
+
+# ------------------------------------------------------------ CRNN masks
+def _small_crnn(n_ch, seed):
+    """A CRNN of the canonical structure at narrow widths, its torch
+    initialization and every bias and BatchNorm statistic redrawn from a
+    seeded generator."""
+    from disco_tpu_torch.nn.crnn import CRNN
+
+    torch.manual_seed(seed)
+    model = CRNN(input_shape=(n_ch, 21, 257), cnn_filters=(4, 8),
+                 pool_kernels=((1, 4), (1, 4)), conv_padding=((0, 1), (0, 1)), rnn_units=(16,))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith(("bias", "running_mean")):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g))
+            elif name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+    return model.eval()
+
+
+@pytest.fixture
+def crnn_inputs():
+    """(Ys (10, 257, 40), zs (10, 2, 257, 40)): ten streams, so the mask
+    path runs a group of 8 and a group filled by repeating the last one."""
+    from disco_tpu_torch.core.dsp import stft
+
+    y, _, n = scene(5, 2, 10000, seed=6, noise_scale=0.5)
+    Y = stft(torch.from_numpy(y)).reshape(10, 257, -1)
+    Z = stft(torch.from_numpy(n)).reshape(10, 257, -1)
+    return Y, torch.stack([Z, Z.roll(1, 0)], 1)
+
+
+def test_crnn_masks_on_card_match_host(cuda, crnn_inputs):
+    """The card's convs, BatchNorm, GRU and dense layers (cuDNN/cuBLAS,
+    TF32 off) against the host's, on the same streams and weights, within
+    1e-4 max-abs; the stream route within 1e-5 of the per-window route on
+    the card; a second card run the same within 1e-6."""
+    from unittest import mock
+
+    from disco_tpu_torch.enhance import inference
+
+    Ys, zs = crnn_inputs
+    host = _small_crnn(3, 1)
+    card = _small_crnn(3, 1).to(cuda)
+    got = inference.crnn_masks_batched(Ys.to(cuda), card, zs=zs.to(cuda))
+    want = inference.crnn_masks_batched(Ys, host, zs=zs, device="cpu")
+    assert got.shape == (10, 257, Ys.shape[-1]) and got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    with mock.patch.object(inference, "_conv_stream_safe", lambda model: False):
+        window = inference.crnn_masks_batched(Ys.to(cuda), card, zs=zs.to(cuda))
+    assert float((got - window).abs().max()) <= 1e-5
+    again = inference.crnn_masks_batched(Ys.to(cuda), card, zs=zs.to(cuda))
+    assert float((got - again).abs().max()) <= 1e-6
+
+
+def test_estimate_masks_on_card_matches_host(cuda, crnn_inputs):
+    """The mask stage of one clip (K = 5 nodes of 2 mics) with two CRNNs:
+    step 1 through the covariance kernel, masks on the card within 1e-4 of
+    the host's."""
+    from disco_tpu_torch.core.dsp import stft
+    from disco_tpu_torch.enhance.driver import estimate_masks
+    from disco_tpu_torch.ops import cov_ops
+
+    y, s, n = scene(5, 2, 10000, seed=7, noise_scale=0.5)
+    Y, S, N = (stft(torch.from_numpy(a)) for a in (y, s, n))
+    models = {"cpu": [_small_crnn(1, 2), _small_crnn(5, 3)]}
+    models["cuda"] = [m.to(cuda) for m in (_small_crnn(1, 2), _small_crnn(5, 3))]
+    before = cov_ops.masked_cov_kernel.launches
+    got = estimate_masks(Y, S, N, models["cuda"], "irm1", 5)
+    assert cov_ops.masked_cov_kernel.launches == before + 1
+    want = estimate_masks(Y, S, N, models["cpu"], "irm1", 5, device="cpu")
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+def test_mask_entry_points_raise_on_a_model_on_another_device(cuda, crnn_inputs):
+    from disco_tpu_torch.enhance import driver, inference
+
+    Ys, zs = crnn_inputs
+    host = _small_crnn(3, 1)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        inference.crnn_masks_batched(Ys, host, zs=zs)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        inference.crnn_mask(Ys[0], host, z=list(zs[0]))
+    card = _small_crnn(1, 1).to(cuda)
+    with pytest.raises(ValueError, match="lies on cuda"):
+        inference.crnn_masks_batched(Ys, card, device="cpu")
+    Y = Ys.reshape(5, 2, 257, -1)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        driver.estimate_masks(Y, None, None, [_small_crnn(1, 1), None], "irm1", 5)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        driver._batched_masks(Y[None], Y[None], Y[None], [_small_crnn(1, 1), None], "irm1", 1.0,
+                              5, "zs_hat")
