@@ -69,6 +69,24 @@ pass):
    stream route within 1e-5 of the per-window route; a second run of the
    masks within 1e-6 (bit-identity reported); ``_batched_masks`` on the
    16 distinct clips within 1e-5 of each clip's ``estimate_masks``.
+3e. The corpus driver at the same width: an 8-clip corpus (the port's
+   ``runs.check._mini_corpus``: a white source through random 8-tap
+   filters per mic plus white noise, K=8 x C=4 x 10 s, 0.5 GB of WAV under
+   ``build/``, deleted at the end of the phase; 8 clips, not 16, keep the
+   script near half its time limit, host scoring being ~30-40 s a clip)
+   through ``enhance_rirs_batched`` with ``max_batch=4`` (two chunks), 4
+   scoring workers and a run ledger, in the staged lane (``solver='power'``: 2 STFT and 4
+   covariance launches) and the chained lane (2 STFT, 4 covariance and 4
+   fused-solve launches): every clip done in the ledger, every artifact
+   valid (``probe_artifact``), the JAX package's result schema in float64,
+   every clip's mean sdr_cnv more than 3 dB over its mean sdr_in_cnv;
+   one clip through ``enhance_rir(bucket=8192)`` within 1e-5 of the output
+   scale and 1e-3 dB of its batched run, and through the plain versions on
+   the host (``device='cpu'``) within 1e-4 and 0.01 dB; the sequential
+   engine with inline scoring and the pipelined one with 4 scoring workers
+   byte-identical on two clips; the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2
+   eigensolver launches) finite and above its input; ``export_z`` of one
+   clip finite.  Each driver run's parts are timed on the host clock.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -100,7 +118,11 @@ pass):
    device time; the bf16 one beside its plain version and the GEMM).  The
    CRNN-masked path on the 16 distinct clips, by part (step-1 masks,
    step-1 z, step-2 masks, ``tango``), each the median of 5, the CRNNs'
-   rates by the operations of their shapes.
+   rates by the operations of their shapes.  The corpus driver: phase
+   3e's corpus clips per wall-second in each lane, and its split — load a
+   clip, the launches of one loaded 8-clip chunk already on the card and
+   with its host-to-card copy (CUDA events, median of 5), the wait and
+   the readback of each chunk, scoring a clip.
 6. Where one 16-clip offline call (in both lanes), the 16-clip CRNN mask
    stage and one streaming window spend their device time, by kernel
    (``torch.profiler``), and the device's busy share of their wall time.
@@ -133,6 +155,12 @@ TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "
        "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2,
        "bf16_lane": 1e-2, "crnn_host": 1e-4, "crnn_route": 1e-5, "crnn_batch": 1e-5,
        "crnn_rerun": 1e-6}
+#: phase 3e's corpus: clips (north-star width), clips a chunk, scoring workers
+CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 8, 4, 4
+#: phase 3e's bounds: each clip's mean sdr_cnv over its mean sdr_in_cnv (dB); one
+#: clip through enhance_rir against its batched run (out_mix, output scale; every
+#: metric, dB) and against the host's plain versions (output scale; dB)
+CORPUS_TOL = {"gain_db": 3.0, "single": 1e-5, "single_db": 1e-3, "host": 1e-4, "host_db": 0.01}
 #: the seeds of the two canonical CRNNs' random weights (phase 3d)
 CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
@@ -160,12 +188,14 @@ def scene(n_nodes, n_mics, length, seed=0, noise_scale=0.8):
 
 
 def si_sdr(reference, estimation) -> float:
-    """Scale-invariant SDR in dB, float64."""
-    reference = np.asarray(reference, np.float64)
-    estimation = np.asarray(estimation, np.float64)
-    alpha = np.dot(reference, estimation) / np.dot(reference, reference)
-    proj = alpha * reference
-    return float(10 * np.log10(np.sum(proj ** 2) / np.sum((estimation - proj) ** 2)))
+    """Scale-invariant SDR in dB of two 1-D signals, in float64, by the
+    port's ``core.metrics.si_sdr_torch``."""
+    import torch
+
+    from disco_tpu_torch.core.metrics import si_sdr_torch
+
+    return float(si_sdr_torch(*(torch.as_tensor(np.asarray(a), dtype=torch.float64)
+                                for a in (reference, estimation))))
 
 
 def rel_l2(a, b) -> float:
@@ -975,6 +1005,269 @@ def phase3d_crnn_masked_clip(d: SimpleNamespace) -> None:
     require(batch_err <= TOL["crnn_batch"], ("crnn batch vs clips", batch_err))
 
 
+@contextmanager
+def corpus_timers(out: dict):
+    """Time the corpus driver's parts on the host clock, in the run itself:
+    ``load_s`` each clip's ``load_input_signals`` (on the prefetch thread),
+    ``wait_s`` each chunk's wait for its queued launches and ``readback_s``
+    its fetch (the six ISTFTs and the one copy; the chained lane's ISTFTs
+    ran in its launches), ``score_s`` each clip's ``_persist_and_score`` (on
+    the scoring workers); ``overlap`` the engine's own record of each
+    chunk's prefetch stall (``enhance.pipeline.OVERLAP``)."""
+    import torch
+
+    from disco_tpu_torch.enhance import driver
+
+    from disco_tpu_torch.enhance import pipeline
+
+    real = {name: getattr(driver, name) for name in
+            ("load_input_signals", "fetch_chunk_host", "fetch_chained_host", "_persist_and_score")}
+    pipeline.OVERLAP.clear()
+    for key in ("load_s", "wait_s", "readback_s", "score_s"):
+        out[key] = []
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            out[key].append(time.perf_counter() - t0)
+            return r
+        return wrapper
+
+    def fetch(fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            out["wait_s"].append(time.perf_counter() - t0)
+            return timed("readback_s", fn)(*args, **kw)
+        return wrapper
+
+    driver.load_input_signals = timed("load_s", real["load_input_signals"])
+    driver.fetch_chunk_host = fetch(real["fetch_chunk_host"])
+    driver.fetch_chained_host = fetch(real["fetch_chained_host"])
+    driver._persist_and_score = timed("score_s", real["_persist_and_score"])
+    try:
+        yield out
+    finally:
+        for name, fn in real.items():
+            setattr(driver, name, fn)
+        out["overlap"] = list(pipeline.OVERLAP)
+
+
+def check_corpus_run(label: str, res: dict, out, ledger, rirs) -> None:
+    """One corpus run's results: every clip done in the ledger, every
+    artifact valid, the JAX package's result schema in float64, each clip's
+    mean sdr_cnv more than CORPUS_TOL["gain_db"] over its mean sdr_in_cnv."""
+    from disco_tpu_torch.enhance import driver
+    from disco_tpu_torch.io.atomic import probe_artifact
+    from disco_tpu_torch.runs.check import NOISE, SNR_RANGE
+    from disco_tpu_torch.runs.ledger import RunLedger, unit_rir
+
+    done, requeued = RunLedger(ledger).verified_done()
+    require(set(res) == set(rirs) and not requeued
+            and done == {unit_rir(r, NOISE) for r in rirs}, (label, "ledger", sorted(res)))
+    paths = [p for r in rirs for p in driver.clip_artifacts(out, r, NOISE, SNR_RANGE, K)]
+    bad = [str(p) for p in paths if not probe_artifact(p)]
+    require(not bad, (label, "invalid artifacts", bad[:5]))
+    keys = {"snr_in_raw", *driver._NODE_METRIC_KEYS}
+    require(all(set(v) == keys and all(isinstance(a, np.ndarray) and a.dtype == np.float64
+                                       and a.shape == (K,) for a in v.values())
+                for v in res.values()), (label, "result schema"))
+    gains = [float(np.mean(v["sdr_cnv"]) - np.mean(v["sdr_in_cnv"])) for v in res.values()]
+    print(f"phase 3e: {label}: {len(rirs)} clips done in the ledger, {len(paths)} artifacts "
+          f"valid; mean sdr_cnv over mean sdr_in_cnv per clip min {min(gains):.2f}, max "
+          f"{max(gains):.2f} dB", flush=True)
+    require(min(gains) > CORPUS_TOL["gain_db"], (label, "gain", min(gains)))
+
+
+def _tree(root) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def _metric_diff(a: dict, b: dict) -> float:
+    """Largest |a[k] - b[k]| over every key and node (dB), NaN-safe."""
+    return max(float(np.nanmax(np.abs(a[k] - b[k]))) for k in b)
+
+
+def phase3e_corpus(d: SimpleNamespace) -> None:
+    """The corpus driver at the north-star width: an 8-clip corpus through
+    ``enhance_rirs_batched`` in the staged and the chained lane, one clip
+    through ``enhance_rir`` against its batched run and the host, the
+    engines against each other, the streaming lane and the z export."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.enhance import driver
+    from disco_tpu_torch.enhance.zexport import export_z
+    from disco_tpu_torch.io.audio import read_wav
+    from disco_tpu_torch.runs.check import NOISE, SNR_RANGE, _mini_corpus
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    rirs = tuple(range(11001, 11001 + CORPUS_CLIPS))
+    common = {"snr_range": SNR_RANGE, "n_nodes": K, "mics_per_node": C}
+    d.corpus = {}
+    with tempfile.TemporaryDirectory(prefix="corpus-", dir=build) as tmp:
+        tmp = Path(tmp)
+        corpus = tmp / "corpus"
+        t0 = time.perf_counter()
+        _mini_corpus(corpus, rirs=rirs, n_nodes=K, mics_per_node=C, seconds=DUR_S)
+        print(f"phase 3e: corpus of {len(rirs)} clips ({K} nodes x {C} mics x {DUR_S} s) written "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def batched(out, clips, **kw):
+            return driver.enhance_rirs_batched(str(corpus), "living", list(clips), NOISE,
+                                               out_root=str(out), **common, **kw)
+
+        # (1), (2): the two offline lanes, two chunks each, timed by part
+        lanes = {"staged": ({}, {"stft": 1, "masked_cov": 2}),
+                 "chained": ({"chained": True}, {"stft": 1, "masked_cov": 2, "fused_mwf": 2})}
+        n_chunks = -(-len(rirs) // CORPUS_BATCH)
+        results = {}
+        for lane, (kw, per_chunk) in lanes.items():
+            times = {}
+            with corpus_timers(times), counted(f"corpus {lane}", {
+                    k: v * n_chunks for k, v in per_chunk.items()}, d.launches):
+                t0 = time.perf_counter()
+                results[lane] = batched(tmp / lane, rirs, max_batch=CORPUS_BATCH,
+                                        score_workers=CORPUS_WORKERS,
+                                        ledger=tmp / f"{lane}.jsonl", **kw)
+                torch.cuda.synchronize()
+                times["wall_s"] = time.perf_counter() - t0
+            check_corpus_run(f"{lane} lane ({times['wall_s']:.1f} s)", results[lane], tmp / lane,
+                             tmp / f"{lane}.jsonl", rirs)
+            d.corpus[lane] = times
+
+        # (3): one clip through enhance_rir on the card and on the host
+        rir0 = rirs[0]
+        t0 = time.perf_counter()
+        with counted("corpus one clip", {"stft": 1, "masked_cov": 2}, d.launches):
+            single = driver.enhance_rir(str(corpus), "living", rir0, NOISE,
+                                        out_root=str(tmp / "single"), bucket=8192, **common)
+        t1 = time.perf_counter()
+        host = driver.enhance_rir(str(corpus), "living", rir0, NOISE, out_root=str(tmp / "host"),
+                                  bucket=8192, device="cpu", **common)
+        t2 = time.perf_counter()
+
+        def wav_err(tree):
+            errs = []
+            for k in range(K):
+                rel = Path("WAV") / str(rir0) / f"out_mix-{NOISE}_Node-{k + 1}.wav"
+                a, b = read_wav(tree / rel)[0], read_wav(tmp / "staged" / rel)[0]
+                errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+            return max(errs)
+
+        e_single, e_host = wav_err(tmp / "single"), wav_err(tmp / "host")
+        m_single = _metric_diff(single, results["staged"][rir0])
+        m_host = _metric_diff(host, results["staged"][rir0])
+        print(f"phase 3e: clip {rir0} through enhance_rir on the card vs its batched run: out_mix "
+              f"{e_single:.3e} of output scale, metrics within {m_single:.3e} dB; through the "
+              f"plain versions on the host: {e_host:.3e}, {m_host:.3e} dB ({t1 - t0:.1f} s on the "
+              f"card, {t2 - t1:.1f} s on the host)", flush=True)
+        require(e_single <= CORPUS_TOL["single"] and m_single <= CORPUS_TOL["single_db"],
+                ("enhance_rir vs batched", e_single, m_single))
+        require(e_host <= CORPUS_TOL["host"] and m_host <= CORPUS_TOL["host_db"],
+                ("enhance_rir on the host", e_host, m_host))
+
+        # (4): the engines on two clips write byte-identical trees; one pair of
+        # runs differs in both switches (the CPU tests hold each one alone)
+        engines = {"sequential, inline scoring": {"pipeline": False, "score_workers": 1},
+                   f"pipelined, {CORPUS_WORKERS} scoring workers":
+                       {"pipeline": True, "score_workers": CORPUS_WORKERS}}
+        trees = []
+        t0 = time.perf_counter()
+        for i, kw in enumerate(engines.values()):
+            batched(tmp / f"engine{i}", rirs[:2], max_batch=2, **kw)
+            trees.append(_tree(tmp / f"engine{i}"))
+        same = all(tr == trees[0] for tr in trees[1:])
+        print(f"phase 3e: {' / '.join(engines)} on 2 clips: {len(trees[0])} files, trees "
+              f"byte-identical {same} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        require(same and len(trees[0]) == 2 * (2 + 10 * K), "engine trees differ")
+
+        # (5): the streaming lane with the eigensolver kernel
+        t0 = time.perf_counter()
+        with counted("corpus streaming clip", {"stft": 1, "eigh_jacobi": 2}, d.launches):
+            stream = driver.enhance_rir(str(corpus), "living", rir0, NOISE,
+                                        out_root=str(tmp / "stream"), streaming=True,
+                                        solver="jacobi-pallas", **common)
+        outs = [read_wav(p)[0] for p in (tmp / "stream" / "WAV" / str(rir0)).glob("out_*.wav")]
+        finite = len(outs) == 3 * K and all(np.isfinite(o).all() for o in outs) and all(
+            np.isfinite(v).all() for v in stream.values())
+        s_out, s_in = float(np.mean(stream["sdr_cnv"])), float(np.mean(stream["sdr_in_cnv"]))
+        print(f"phase 3e: streaming clip {rir0} (jacobi-pallas): finite {finite}; mean sdr_cnv "
+              f"{s_out:.2f} dB over mean sdr_in_cnv {s_in:.2f} dB ({time.perf_counter() - t0:.1f} "
+              f"s)", flush=True)
+        require(finite and s_out > s_in, ("streaming clip", finite, s_out, s_in))
+
+        # (6): the z export of one clip
+        with counted("corpus export_z", {"stft": 3, "masked_cov": 1}, d.launches):
+            require(export_z(str(corpus), "living", rir0, NOISE, **common), "export_z did nothing")
+        zfiles = sorted((corpus / "living" / "test" / "stft_z").rglob("*.npy"))
+        zfinite = len(zfiles) == 4 * K and all(np.isfinite(np.load(p)).all() for p in zfiles)
+        print(f"phase 3e: export_z wrote {len(zfiles)} files, all finite {zfinite}", flush=True)
+        require(zfinite, "export_z files")
+
+        # one loaded chunk of the staged lane, kept for phase 5's device times
+        sigs = [driver.load_input_signals(driver.DatasetLayout(str(corpus), "living", "test"),
+                                          r, NOISE, SNR_RANGE, K, C)
+                for r in rirs[:CORPUS_BATCH]]
+        d.corpus_chunk = tuple(np.stack([s[i] for s in sigs]) for i in range(3))
+    print(f"phase 3e took {time.perf_counter() - t_phase:.1f} s (corpus deleted)", flush=True)
+
+
+def phase5_corpus(d: SimpleNamespace) -> None:
+    """Corpus clips per wall-second of phase 3e's two lane runs, and their
+    split: load a clip; the launches of one loaded chunk already on the
+    card and with its host-to-card copy (CUDA events, median of 5); each
+    chunk's prefetch stall, wait and readback; scoring a clip."""
+    import torch
+
+    from disco_tpu_torch.enhance.driver import make_batch_runners
+    from disco_tpu_torch.ops.stft_ops import stft_fused
+
+    host_chunk = d.corpus_chunk
+    card_chunk = [torch.as_tensor(a, device=d.dev) for a in host_chunk]
+    for lane, times in d.corpus.items():
+        chained = lane == "chained"
+        runner = make_batch_runners(chained=chained, solver="fused" if chained else "power")[0]
+
+        def launches(chunk):
+            x = torch.stack([torch.as_tensor(a, device=d.dev) for a in chunk])
+            if chained:
+                return runner(x[0], x[1], x[2])
+            spec = stft_fused(x)
+            del x
+            return runner(spec[0], spec[1], spec[2])
+
+        runs = {}
+        for label, chunk in (("device", card_chunk), ("dispatch", host_chunk)):
+            launches(chunk)  # warm-up
+            runs[label] = sorted(time_ms(lambda: launches(chunk), reps=1, warmup=0)
+                                 for _ in range(5))
+        n = CORPUS_CLIPS
+        split = {
+            "clips": n, "wall_s": times["wall_s"], "clips_per_s": n / times["wall_s"],
+            "load_s_per_clip": sum(times["load_s"]) / len(times["load_s"]),
+            "chunk_clips": CORPUS_BATCH,
+            "device_ms_per_chunk": runs["device"][2], "device_ms_runs": runs["device"],
+            "dispatch_ms_per_chunk": runs["dispatch"][2], "dispatch_ms_runs": runs["dispatch"],
+            "prefetch_stall_ms_per_chunk": [o["stall_ms"] for o in times["overlap"]],
+            "wait_s_per_chunk": times["wait_s"],
+            "readback_s_per_chunk": times["readback_s"],
+            "score_s_per_clip": sum(times["score_s"]) / len(times["score_s"]),
+            "score_s_max": max(times["score_s"]), "score_s_total": sum(times["score_s"]),
+            "score_workers": CORPUS_WORKERS,
+        }
+        print(f"phase 5: corpus, {lane} lane: {n} clips in {times['wall_s']:.2f} s = "
+              f"{split['clips_per_s']} corpus clips per wall-second; split " + json.dumps(split),
+              flush=True)
+    del d.corpus_chunk, card_chunk
+
+
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
@@ -1180,6 +1473,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
               f"{runs}) = {audio_s / (path_ms / 1e3)} enhanced audio-s per s", flush=True)
     del yb, sb, nb
     phase5_crnn_mask_stage(d)
+    phase5_corpus(d)
 
     # streaming: windows 2..9 again from the state after window 1, each
     # timed on the host clock to its synchronize (the latency a caller sees)
@@ -1553,6 +1847,7 @@ def main() -> int:
     d.launches = {}
     phase3_offline_path(d)
     phase3d_crnn_masked_clip(d)
+    phase3e_corpus(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

@@ -12,7 +12,9 @@ Device rule.  Entry points (``enhance.tango.tango``,
 ``enhance.streaming.streaming_tango``, ``streaming_tango_scan`` and
 ``streaming_step1``, the mask stage ``enhance.inference.crnn_mask`` and
 ``crnn_masks_batched``, ``enhance.zexport.compute_z_signals``,
-``enhance.driver.estimate_masks`` and ``_batched_masks``, and
+``enhance.driver.estimate_masks`` and ``_batched_masks``, the corpus
+driver ``enhance.driver.enhance_rir``, ``enhance_rirs_batched`` and
+``make_batch_runners``, ``enhance.zexport.export_z``, and
 ``enhance.separation``) run on ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they
 raise ``RuntimeError`` — they never move to the CPU silently.  Below the

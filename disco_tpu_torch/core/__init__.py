@@ -1,1 +1,2 @@
-"""Signal-processing core of the port: math helpers, STFT/ISTFT, masks."""
+"""Signal-processing core of the port: math helpers, STFT/ISTFT, masks, and
+the host float64 evaluation metrics (``metrics``, ``bss``, ``sigproc``)."""

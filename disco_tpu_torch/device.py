@@ -6,6 +6,7 @@ tensors it is given, and its entry points resolve that device here.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,6 +36,26 @@ def is_hopper() -> bool:
     for."""
     return torch.cuda.is_available() and torch.cuda.get_device_capability() == (9, 0)
 
+
+def to_host(tensors) -> list:
+    """Copy float32 and complex64 tensors of one device to host numpy
+    arrays in ONE transfer (counterpart of the JAX package's batched
+    ``device_get_tree``): each is flattened into one float32 payload
+    (complex64 as its (re, im) pairs), the payload crosses with one
+    ``.cpu()``, and the host arrays are views of it in the tensors'
+    shapes and dtypes."""
+    tensors = list(tensors)
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.complex64):
+            raise TypeError(f"to_host: float32 or complex64 tensors only, got {t.dtype}")
+    flat = [(torch.view_as_real(t) if t.is_complex() else t).reshape(-1) for t in tensors]
+    payload = torch.cat(flat).cpu().numpy()
+    out, start = [], 0
+    for t, f in zip(tensors, flat):
+        a = payload[start:start + f.numel()]
+        start += f.numel()
+        out.append((a.view(np.complex64) if t.is_complex() else a).reshape(tuple(t.shape)))
+    return out
 
 
 def check_module_device(module: torch.nn.Module, dev: torch.device) -> None:

@@ -1,1 +1,2 @@
-"""Enhancement pipelines: two-step TANGO and the whole-clip chain."""
+"""Enhancement pipelines: two-step TANGO, the whole-clip chain, streaming,
+the CRNN mask stage and the corpus driver."""

@@ -1,23 +1,212 @@
-"""The corpus driver's mask stage (counterpart of the mask functions of
-``disco_tpu/enhance/driver.py``): step-1 and step-2 masks, oracle or from
-CRNNs, for one clip (:func:`estimate_masks`) or a batch of clips
-(:func:`_batched_masks`).
+"""The corpus driver: load a dataset sample, run the two-step TANGO pipeline
+on the card, evaluate, save (counterpart of ``disco_tpu/enhance/driver.py``;
+reference ``speech_enhancement/tango.py:460-641``).
 
-A CRNN model is the port's module with its weights loaded (for weights of
-the JAX package: :func:`disco_tpu_torch.nn.convert.state_dict_from_flax`),
-on the device the call runs on.  The rest of the driver (``enhance_rir``,
-``enhance_rirs_batched``, the batch runners and the files) comes with the
-corpus-driver port.
+Same idempotency guard, same results-directory layout
+(``results/{scenario}/{dset}/{save_dir}/{WAV,MASK,OIM,STFT/z}``) and the same
+pickled ``results_tango_* / results_mwf_*`` dicts of float64 numpy arrays
+under the same keys as the JAX package, so each package's aggregation reads
+the other's outputs.  The ``sdr_*`` / ``sir_*`` / ``sar_*`` keys carry the
+512-tap filtered-projection values of ``core.bss`` (mir_eval's
+``bss_eval_sources`` metric, which the reference calls), the ``si_*`` keys
+the scale-invariant decomposition (``core.metrics.si_bss``); STOI is
+``core.metrics.stoi``.  Scoring is host float64 numpy, the JAX package's
+code.
+
+Entry points: :func:`enhance_rir` (one clip: the staged, chained or
+streaming lane) and :func:`enhance_rirs_batched` (a corpus, many clips per
+launch, through the overlapped engine of ``enhance/pipeline.py``); the mask
+stage :func:`estimate_masks` / :func:`_batched_masks`.  Each runs on
+``"cuda"`` unless ``device="cpu"`` is passed, and raises without a CUDA
+device.  Threads: the main thread is the only CUDA user; the prefetch
+thread loads numpy and the scoring workers get numpy arrays only.
+
+Left for later slices: the FIG plot (``save_fig=True`` raises), the
+telemetry of the JAX driver (stage events, finiteness sentinels, counters),
+``mesh`` (multi-card) and ``compile_cache`` (the port compiles nothing at
+run time; its kernels build once into ``build/kernels/<sha256>/``).
 """
 from __future__ import annotations
 
+import math
+import pickle
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from pathlib import Path
+
+import numpy as np
 import torch
 
+from disco_tpu_torch.core.bss import BssEval
+from disco_tpu_torch.core.dsp import bucket_length, n_stft_frames
 from disco_tpu_torch.core.masks import tf_mask_mag
-from disco_tpu_torch.device import resolve_device
+from disco_tpu_torch.core.metrics import fw_sd, fw_snr, si_bss, stoi
+from disco_tpu_torch.device import resolve_device, to_host
+from disco_tpu_torch.enhance.fused import tango_clip_fused
 from disco_tpu_torch.enhance.inference import crnn_masks_batched
-from disco_tpu_torch.enhance.tango import oracle_masks, others_index
-from disco_tpu_torch.enhance.zexport import compute_z_signals
+from disco_tpu_torch.enhance.pipeline import (
+    MAX_PENDING_CHUNKS,
+    ChunkPrefetcher,
+    LoadedChunk,
+    clip_slice,
+    clip_time_domain,
+    fetch_chained_host,
+    fetch_chunk_host,
+    note_chunk_overlap,
+)
+from disco_tpu_torch.enhance.streaming import DEFAULT_UPDATE_EVERY, streaming_tango
+from disco_tpu_torch.enhance.tango import TangoResult, oracle_masks, others_index, tango
+from disco_tpu_torch.enhance.zexport import compute_z_signals, load_node_signals
+from disco_tpu_torch.fault import plan_faults
+from disco_tpu_torch.io.atomic import (
+    dump_pickle_atomic,
+    probe_pickle,
+    remove_tmp_litter,
+    save_npy_atomic,
+    write_wav_atomic,
+)
+from disco_tpu_torch.io.audio import read_wav
+from disco_tpu_torch.io.layout import DatasetLayout, case_of_rir, snr_dirname
+from disco_tpu_torch.ops.stft_ops import stft_fused, stft_with_mag
+from disco_tpu_torch.runs import chaos as run_chaos
+from disco_tpu_torch.runs import interrupt as run_interrupt
+from disco_tpu_torch.runs.ledger import RunLedger, unit_rir
+
+
+def _check_save_fig(save_fig: bool) -> None:
+    if save_fig:
+        raise NotImplementedError(
+            "save_fig=True draws the room with plot_conf, which comes with the tools slice of "
+            "the port; pass save_fig=False"
+        )
+
+
+def load_input_signals(layout: DatasetLayout, rir: int, noise: str, snr_range, n_nodes=4,
+                       mics_per_node=4):
+    """Processed node signals + dry references + logged SNRs (reference
+    tango.py:55-111).  A missing SNR sidecar reads as zeros, as in the JAX
+    package (which also records a warning event)."""
+    y, s, n = load_node_signals(layout, rir, noise, snr_range, n_nodes, mics_per_node)
+    s_dry, fs = read_wav(layout.dry_source("target", rir, 1))
+    n_dry, _ = read_wav(layout.dry_source("noise", rir, 2, noise=noise))
+    snr_path = layout.snr_log(snr_range, rir, noise)
+    rnd_snrs = np.load(snr_path) if snr_path.exists() else np.zeros(n_nodes)
+    return y, s, n, s_dry, n_dry, fs, rnd_snrs
+
+
+def dset_of_rir(rir: int) -> str:
+    """Results-tree split: train for rir <= 11000, test above
+    (reference tango.py:41-45)."""
+    return "train" if rir <= 11000 else "test"
+
+
+def results_root(scenario: str, dset: str, save_dir: str) -> Path:
+    """Results tree root for one (scenario, dset, save_dir) run."""
+    return Path("results") / scenario / dset / save_dir
+
+
+def _clip_done(out: Path, rir, noise: str) -> bool:
+    """Validated idempotency probe for one enhanced RIR: both OIM pickles
+    (the last artifacts :func:`_persist_and_score` writes) must exist AND
+    unpickle to completion; a truncated one reads as not-done and the clip
+    is redone."""
+    return all(probe_pickle(out / "OIM" / f"results_{kind}_{rir}_{noise}.p")
+               for kind in ("mwf", "tango"))
+
+
+def clip_artifacts(out: Path, rir, noise: str, snr_range, n_nodes: int) -> list:
+    """The canonical artifact paths of one enhanced RIR — what the run
+    ledger digests into a ``done`` record and re-verifies on resume."""
+    paths = [
+        out / "OIM" / f"results_tango_{rir}_{noise}.p",
+        out / "OIM" / f"results_mwf_{rir}_{noise}.p",
+    ]
+    zdir = out / "STFT" / "z" / "raw" / snr_dirname(snr_range)
+    for k in range(n_nodes):
+        tag = f"{noise}_Node-{k + 1}"
+        paths += [
+            out / "WAV" / str(rir) / f"{stem}-{tag}.wav"
+            for stem in ("in_mix", "out_mix", "mid_z", "in_noi", "out_noi", "in_tar", "out_tar")
+        ]
+        paths += [
+            out / "MASK" / str(rir) / f"step1_{tag}.npy",
+            out / "MASK" / str(rir) / f"step2_{tag}.npy",
+            zdir / f"{rir}_{tag}.npy",
+        ]
+    return paths
+
+
+#: Keys of the per-node metric dicts below — the degraded-mode NaN fill
+#: must produce exactly this set so the nodes stack together.
+_NODE_METRIC_KEYS = (
+    "sdr_cnv", "sir_cnv", "sar_cnv", "sdr_dry", "sir_dry", "sar_dry",
+    "sdr_in_cnv", "sir_in_cnv", "sdr_in_dry", "sir_in_dry", "sar_in_dry",
+    "si_sdr_cnv", "si_sir_cnv", "si_sar_cnv",
+    "si_sdr_dry", "si_sir_dry", "si_sar_dry",
+    "si_sdr_in_cnv", "si_sir_in_cnv",
+    "si_sdr_in_dry", "si_sir_in_dry", "si_sar_in_dry",
+    "delta_stoi_cnv", "delta_stoi_dry",
+    "snr_out", "snr_in_cnv", "snr_in_dry", "fw_sd_cnv", "fw_sd_dry",
+)
+
+
+def _node_metrics_pair(y0, s0, n0, sh_t, szh_t, s_dry, n_dry, sf_t, nf_t,
+                       szf_t, nzf_t, fs, sl, proj_dry, bss_filt_len=512):
+    """All metric variants for one node's two enhanced outputs — ``sh_t``
+    (full TANGO) and ``szh_t`` (step-1/MWF) — against the dry and convolved
+    references (tango.py:545-593).  Returns (tango_dict, mwf_dict).
+
+    The 512-tap BSS projectors are reused for every estimate — the dry one
+    (``proj_dry``, node-independent) is built once per RIR by the caller,
+    the convolved one once per node here — and the input-side metrics are
+    computed once for both outputs."""
+    refs_dry = np.stack((s_dry[sl], n_dry[sl]), axis=1)
+    refs_cnv = np.stack((s0[sl], n0[sl]), axis=1)
+    proj_cnv = BssEval(refs_cnv.T, bss_filt_len)
+
+    # input-side metrics: identical for both outputs
+    sdr_in_dry, sir_in_dry, sar_in_dry = proj_dry.score(y0[sl])
+    sdr_in_cnv, sir_in_cnv, _ = proj_cnv.score(y0[sl])
+    si_sdr_in_dry, si_sir_in_dry, si_sar_in_dry = si_bss(y0[sl], refs_dry, 0)
+    si_sdr_in_cnv, si_sir_in_cnv, _ = si_bss(y0[sl], refs_cnv, 0)
+    stoi_in = stoi(s0[sl], y0[sl], fs)
+    stoi_in_dry = stoi(s_dry[sl], y0[sl], fs)
+    _, fw_snr_in_cnv, _ = fw_snr(s0[sl], n0[sl], fs)
+    _, fw_snr_in_dry, _ = fw_snr(s_dry[sl], n_dry[sl], fs)
+
+    def one_output(est, s_filt, n_filt):
+        if not np.isfinite(est[sl]).all():
+            # degraded mode (fault injection): a NaN stream — e.g. the saved
+            # MWF output of a NaN-z node — scores as NaN metrics, never a
+            # crash (the BSS projector's cho_solve rejects non-finite input)
+            return dict.fromkeys(_NODE_METRIC_KEYS, float("nan"))
+        sdr_dry, sir_dry, sar_dry = proj_dry.score(est[sl])
+        sdr_cnv, sir_cnv, sar_cnv = proj_cnv.score(est[sl])
+        si_sdr_dry, si_sir_dry, si_sar_dry = si_bss(est[sl], refs_dry, 0)
+        si_sdr_cnv, si_sir_cnv, si_sar_cnv = si_bss(est[sl], refs_cnv, 0)
+        stoi_out = stoi(s0[sl], est[sl], fs)
+        stoi_out_dry = stoi(s_dry[sl], est[sl], fs)
+        _, fw_snr_out, _ = fw_snr(s_filt[sl], n_filt[sl], fs)
+        _, fsd_cnv, _ = fw_sd(s_filt[sl], s0[sl], fs)
+        _, fsd_dry, _ = fw_sd(s_filt[sl], s_dry[sl], fs)
+        return {
+            "sdr_cnv": sdr_cnv, "sir_cnv": sir_cnv, "sar_cnv": sar_cnv,
+            "sdr_dry": sdr_dry, "sir_dry": sir_dry, "sar_dry": sar_dry,
+            "sdr_in_cnv": sdr_in_cnv, "sir_in_cnv": sir_in_cnv,
+            "sdr_in_dry": sdr_in_dry, "sir_in_dry": sir_in_dry, "sar_in_dry": sar_in_dry,
+            "si_sdr_cnv": si_sdr_cnv, "si_sir_cnv": si_sir_cnv, "si_sar_cnv": si_sar_cnv,
+            "si_sdr_dry": si_sdr_dry, "si_sir_dry": si_sir_dry, "si_sar_dry": si_sar_dry,
+            "si_sdr_in_cnv": si_sdr_in_cnv, "si_sir_in_cnv": si_sir_in_cnv,
+            "si_sdr_in_dry": si_sdr_in_dry, "si_sir_in_dry": si_sir_in_dry,
+            "si_sar_in_dry": si_sar_in_dry,
+            "delta_stoi_cnv": stoi_out - stoi_in, "delta_stoi_dry": stoi_out_dry - stoi_in_dry,
+            "snr_out": fw_snr_out, "snr_in_cnv": fw_snr_in_cnv, "snr_in_dry": fw_snr_in_dry,
+            "fw_sd_cnv": fsd_cnv, "fw_sd_dry": fsd_dry,
+        }
+
+    return one_output(sh_t, sf_t, nf_t), one_output(szh_t, szf_t, nzf_t)
 
 
 def _spectra(dev, *arrays):
@@ -70,6 +259,271 @@ def _z_for_mask_device(z_y, zn, n_nodes: int, z_sigs: str):
     return inter[..., keep, :, :]
 
 
+def _clip_host(res, length: int) -> dict:
+    """One clip's scoring payload on the host, in ONE copy: the six ISTFTs
+    at the clip's length (:func:`~disco_tpu_torch.enhance.pipeline.
+    clip_time_domain`), both masks and the complex z export."""
+    td, masks_z, mask_w, z_y = to_host([clip_time_domain(res, length), res.masks_z,
+                                        res.mask_w, res.z_y])
+    return {"td": tuple(td), "masks_z": masks_z, "mask_w": mask_w, "z_y": z_y}
+
+
+def _persist_and_score(out: Path, rir: int, noise: str, snr_range, y, s, n, s_dry, n_dry, fs,
+                       rnd_snrs, host: dict, T_true: int, n_nodes: int,
+                       bss_filt_len: int = 512):
+    """Per-RIR second half of the reference main (tango.py:528-639): every
+    metric variant and the WAV/MASK/OIM/STFT-z results tree.  Shared by the
+    single-RIR and batched drivers; host numpy only, so it runs on scoring
+    worker threads.
+
+    ``host``: the clip's payload on the host (:func:`_clip_host`,
+    ``pipeline.fetch_chunk_host`` or ``fetch_chained_host``) — ``td``, the
+    six (K, L) time-domain streams ``(sh_t, szh_t, sf_t, nf_t, szf_t,
+    nzf_t)``, and ``masks_z`` / ``mask_w`` / ``z_y`` (K, F, T)."""
+    sh_t, szh_t, sf_t, nf_t, szf_t, nzf_t = host["td"]
+    masks_z_h, mask_w_h, z_y_h = host["masks_z"], host["mask_w"], host["z_y"]
+    for sub in ("WAV", "MASK", "OIM", "FIG"):
+        (out / sub).mkdir(parents=True, exist_ok=True)
+    (out / "WAV" / str(rir)).mkdir(exist_ok=True)
+    (out / "MASK" / str(rir)).mkdir(exist_ok=True)
+    zdir = out / "STFT" / "z" / "raw" / snr_dirname(snr_range)
+    zdir.mkdir(parents=True, exist_ok=True)
+
+    # first second (lead silence) skipped; lengths are node-independent,
+    # so the slice and the dry-reference projector are per-RIR
+    min_len = min(len(y[0, 0]), sh_t.shape[-1], len(s_dry), len(n_dry))
+    sl = slice(fs, min_len)
+    proj_dry = BssEval(np.stack((s_dry[sl], n_dry[sl])), bss_filt_len)
+
+    per_node_tango, per_node_mwf = [], []
+    for k in range(n_nodes):
+        y0, s0, n0 = y[k, 0], s[k, 0], n[k, 0]
+        tango_d, mwf_d = _node_metrics_pair(
+            y0, s0, n0, sh_t[k], szh_t[k], s_dry, n_dry,
+            sf_t[k], nf_t[k], szf_t[k], nzf_t[k], fs, sl, proj_dry,
+            bss_filt_len=bss_filt_len,
+        )
+        per_node_tango.append(tango_d)
+        per_node_mwf.append(mwf_d)
+
+        tag = f"{noise}_Node-{k + 1}"
+        # atomic writes: a crash mid-persist leaves the final paths either
+        # complete or absent, the invariant the verified resume relies on
+        wav = out / "WAV" / str(rir)
+        write_wav_atomic(wav / f"in_mix-{tag}.wav", y0, fs)
+        write_wav_atomic(wav / f"out_mix-{tag}.wav", sh_t[k], fs)
+        write_wav_atomic(wav / f"mid_z-{tag}.wav", szh_t[k], fs)
+        write_wav_atomic(wav / f"in_noi-{tag}.wav", n0, fs)
+        write_wav_atomic(wav / f"out_noi-{tag}.wav", nf_t[k], fs)
+        write_wav_atomic(wav / f"in_tar-{tag}.wav", s0, fs)
+        write_wav_atomic(wav / f"out_tar-{tag}.wav", sf_t[k], fs)
+        save_npy_atomic(out / "MASK" / str(rir) / f"step1_{tag}", masks_z_h[k, :, :T_true])
+        save_npy_atomic(out / "MASK" / str(rir) / f"step2_{tag}", mask_w_h[k, :, :T_true])
+        save_npy_atomic(zdir / f"{rir}_{tag}", z_y_h[k, :, :T_true])
+
+    def stack_keys(dicts):
+        return {k: np.array([d[k] for d in dicts]) for k in dicts[0]}
+
+    results = {"snr_in_raw": rnd_snrs, **stack_keys(per_node_tango)}
+    resultsz = {"snr_in_raw": rnd_snrs, **stack_keys(per_node_mwf)}
+    dump_pickle_atomic(out / "OIM" / f"results_tango_{rir}_{noise}.p", results)
+    dump_pickle_atomic(out / "OIM" / f"results_mwf_{rir}_{noise}.p", resultsz)
+    run_chaos.tick("between_clips")
+    return results
+
+
+def _check_chained(streaming: bool, models, fault_spec) -> None:
+    """The chained lane's refusals, with the JAX package's messages."""
+    if streaming:
+        raise ValueError(
+            "chained=True is the offline whole-clip lane; the streaming "
+            "chained twin (enhance.fused.streaming_clip_fused) lives "
+            "behind the serve scheduler's time-domain sessions"
+        )
+    if models != (None, None):
+        raise ValueError(
+            "chained=True computes oracle masks in-program; the CRNN "
+            "mask lane needs host STFTs and stays on the staged path"
+        )
+    if fault_spec is not None:
+        raise ValueError(
+            "chained=True has no z-exchange host seam to inject faults "
+            "at; run fault scenarios on the staged path"
+        )
+
+
+def enhance_rir(
+    root: str,
+    scenario: str,
+    rir: int,
+    noise: str,
+    save_dir: str = "tango",
+    snr_range=(0, 6),
+    mask_type: str = "irm1",
+    policy: str = "local",
+    models=(None, None),
+    mu: float = 1.0,
+    n_nodes: int = 4,
+    mics_per_node: int = 4,
+    out_root: str | None = None,
+    force: bool = False,
+    save_fig: bool = False,
+    streaming: bool = False,
+    bucket: int = 0,
+    z_sigs: str = "zs_hat",
+    solver: str | None = None,
+    cov_impl: str = "auto",
+    stft_impl: str = "auto",
+    precision: str = "f32",
+    chained: bool = False,
+    fault_spec=None,
+    ledger=None,
+    device=None,
+):
+    """Enhance one RIR end to end and persist everything (reference
+    tango.py:460-641).
+
+    Lanes:
+      * staged (default): ``stft_with_mag`` of the stacked y/s/n streams
+        (one STFT launch), the masks (:func:`estimate_masks`: oracle of
+        ``mask_type``, or CRNNs from ``models``), ``tango``;
+      * ``streaming=True``: the frame-recursive online pipeline
+        (``streaming_tango``; policies 'local'/'distant'/'none');
+      * ``chained=True``: the whole clip through ``tango_clip_fused(...,
+        export=True)``; offline oracle lane only — ``streaming``, CRNN
+        ``models`` and ``fault_spec`` are rejected.
+      Each lane's six ISTFTs, masks and z come to the host in one copy.
+
+    ``solver=None`` resolves per lane: ``'power'`` offline, ``'eigh'``
+    streaming (its warm-up covariances have weak eigengaps), ``'fused'``
+    chained.
+
+    ``bucket``: pad the clip to a multiple of ``bucket`` samples before the
+    STFT, as :func:`enhance_rirs_batched` does (default 0: no padding);
+    saved masks and z are trimmed to the clip's own frames.
+
+    ``fault_spec``: optional ``FaultSpec`` (or dict/path accepted by
+    ``fault.load_fault_spec``) injected at the z-exchange seam; offline,
+    unavailable or corrupted streams leave the step-2 MWF, streaming, lost
+    blocks are bridged by the last-good-z hold.
+
+    ``ledger``: optional :class:`~disco_tpu_torch.runs.RunLedger` (or path)
+    recording the clip's in_flight/done transitions with artifact digests.
+    All writes are atomic, and the idempotency skip validates the existing
+    OIM pickles.
+
+    ``save_fig=True`` raises NotImplementedError (the figure comes with the
+    tools slice).  ``device``: ``"cuda"`` when None (RuntimeError without a
+    CUDA device), ``"cpu"`` for the plain versions on the host.
+
+    Returns the tango results dict, or None when the RIR was already
+    processed.
+    """
+    _check_save_fig(save_fig)
+    if chained:
+        _check_chained(streaming, models, fault_spec)
+    if solver is None:
+        solver = "fused" if chained else ("eigh" if streaming else "power")
+    dev = resolve_device(device)
+
+    out = Path(out_root) if out_root is not None else results_root(scenario, dset_of_rir(rir),
+                                                                  save_dir)
+    if not force and _clip_done(out, rir, noise):
+        return None
+    if ledger is not None and not isinstance(ledger, RunLedger):
+        ledger = RunLedger(ledger)
+    if ledger is not None:
+        ledger.mark_in_flight(unit_rir(rir, noise))
+
+    layout = DatasetLayout(root, scenario, case_of_rir(rir))
+    y, s, n, s_dry, n_dry, fs, rnd_snrs = load_input_signals(layout, rir, noise, snr_range,
+                                                             n_nodes, mics_per_node)
+    L = y.shape[-1]
+    if bucket:
+        pad = ((0, 0), (0, 0), (0, bucket_length(L, bucket) - L))
+        y_in, s_in, n_in = np.pad(y, pad), np.pad(s, pad), np.pad(n, pad)
+    else:
+        y_in, s_in, n_in = y, s, n
+    T_true = n_stft_frames(L)  # saved masks/z trimmed to the true frames
+
+    if chained:
+        exp = tango_clip_fused(y_in, s_in, n_in, mu=mu, policy=policy, mask_type=mask_type,
+                               solver=solver, cov_impl=cov_impl, stft_impl=stft_impl,
+                               precision=precision, export=True, device=dev)
+        host = fetch_chained_host({"td": tuple(a[None] for a in exp["td"]),
+                                   **{k: exp[k][None] for k in ("masks_z", "mask_w", "z_y")}},
+                                  [L], 1)
+        host = {"td": host["td"][0], **{k: host[k][0] for k in ("masks_z", "mask_w", "z_y")}}
+    else:
+        spec, mag = stft_with_mag(torch.as_tensor(np.stack([y_in, s_in, n_in]), device=dev),
+                                  impl=stft_impl, precision=precision)
+        Y, S, N = spec[0], spec[1], spec[2]
+        masks_z, mask_w = estimate_masks(Y, S, N, models, mask_type, n_nodes, mu=mu,
+                                         z_sigs=z_sigs, mags=(mag[1], mag[2]), device=dev)
+        del mag
+        fault_plan = None
+        if fault_spec is not None:
+            n_blocks = math.ceil(Y.shape[-1] / DEFAULT_UPDATE_EVERY) if streaming else 1
+            fault_plan = plan_faults(fault_spec, n_nodes, n_blocks)
+            if not fault_plan.any_fault():
+                fault_plan = None  # nothing drawn: the fault-free path
+        if streaming:
+            if policy not in ("local", "distant", "none", None):
+                raise ValueError(
+                    f"streaming mode implements the 'local'/'distant'/'none' "
+                    f"mask-for-z policies; got {policy!r}"
+                )
+            if cov_impl not in ("xla", "auto"):
+                raise ValueError(
+                    f"streaming mode uses the smoothed-covariance estimator; "
+                    f"cov_impl={cov_impl!r} applies to the offline pipeline only"
+                )
+            st = streaming_tango(Y, masks_z, mask_w, mu=mu, S=S, N=N, with_diagnostics=True,
+                                 policy=policy, solver=solver, precision=precision,
+                                 z_avail=None if fault_plan is None
+                                 else fault_plan.avail_streaming, device=dev)
+            # one filter everywhere: every saved wav, mask, z and metric
+            # describes the online beamformer
+            res = TangoResult(yf=st["yf"], sf=st["sf"], nf=st["nf"], z_y=st["z_y"],
+                              z_s=st["z_s"], z_n=st["z_n"], zn=st["zn"], masks_z=masks_z,
+                              mask_w=mask_w)
+        else:
+            faults = {} if fault_plan is None else {
+                "z_mask": fault_plan.avail_offline,
+                "z_nan": fault_plan.z_nan if fault_plan.z_nan.any() else None}
+            res = tango(Y, S, N, masks_z, mask_w, mu=mu, policy=policy, mask_type=mask_type,
+                        solver=solver, cov_impl=cov_impl, precision=precision, device=dev,
+                        **faults)
+        del spec, Y, S, N
+        host = _clip_host(res, L)
+        del res
+
+    out_results = _persist_and_score(out, rir, noise, snr_range, y, s, n, s_dry, n_dry, fs,
+                                     rnd_snrs, host, T_true, n_nodes)
+    if ledger is not None:
+        ledger.mark_done(unit_rir(rir, noise), clip_artifacts(out, rir, noise, snr_range,
+                                                              n_nodes))
+    return out_results
+
+
+def aggregate_results(oim_dir, kind: str = "tango", noise: str | None = None):
+    """Collect per-RIR pickles into one dict of stacked arrays — the
+    aggregation the reference leaves to the user (SURVEY.md §5.5)."""
+    from disco_tpu_torch.core.miscx import concatenate_dicts
+
+    oim_dir = Path(oim_dir)
+    dicts = []
+    for p in sorted(oim_dir.glob(f"results_{kind}_*")):
+        if noise is not None and not p.stem.endswith(f"_{noise}"):
+            continue
+        with open(p, "rb") as fh:
+            d = pickle.load(fh)
+        dicts.append({k: np.atleast_1d(v) for k, v in d.items()})
+    if not dicts:
+        return {}
+    return concatenate_dicts(dicts)
+
+
 def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=None, mags=None):
     """Step-1/step-2 masks for a whole clip batch (B, K, C, F, T): the
     (B K) node forwards of each CRNN step run as one
@@ -99,3 +553,306 @@ def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=No
     zs = _z_for_mask_device(out["z_y"], out["zn"], n_nodes, z_sigs).reshape(B * K, -1, F, T)
     Mw = crnn_masks_batched(refs, models[1], zs=zs, device=dev).reshape(B, K, F, T)
     return Mz, Mw
+
+
+def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str = "local",
+                       solver: str = "power", cov_impl: str = "auto", precision: str = "f32",
+                       z_mask_arr=None, z_nan_arr=None, chained: bool = False,
+                       stft_impl: str = "auto", device=None):
+    """The per-chunk batch runners of :func:`enhance_rirs_batched`:
+    ``(run_batch, run_batch_with_masks)`` over (B, K, C, F, T) STFT stacks
+    (oracle masks of ``mask_type`` computed from S and N vs masks passed
+    in), each one batched ``tango`` call.
+
+    ``chained=True`` instead returns ``(run_batch_chained, None)``: one
+    ``tango_clip_fused(..., export=True)`` call over (B, K, C, L)
+    time-domain stacks — STFT, oracle masks, both MWF steps and the six
+    scoring ISTFTs; the fault masks are rejected there.
+
+    The JAX package donates the STFT stacks to its jitted runners; here the
+    driver drops its references to them once a runner returns.
+    """
+    dev = resolve_device(device)
+    if chained:
+        if z_mask_arr is not None or z_nan_arr is not None:
+            raise ValueError(
+                "chained batch runners have no z-exchange host seam; run "
+                "fault scenarios on the staged path"
+            )
+
+        def run_batch_chained(yb, sb, nb):
+            return tango_clip_fused(yb, sb, nb, mu=mu, policy=policy, mask_type=mask_type,
+                                    solver=solver, cov_impl=cov_impl, stft_impl=stft_impl,
+                                    precision=precision, export=True, device=dev)
+
+        return run_batch_chained, None
+
+    def run_batch_with_masks(Yb, Sb, Nb, Mz, Mw):
+        return tango(Yb, Sb, Nb, Mz, Mw, mu=mu, policy=policy, mask_type=mask_type,
+                     solver=solver, cov_impl=cov_impl, precision=precision,
+                     z_mask=z_mask_arr, z_nan=z_nan_arr, device=dev)
+
+    def run_batch(Yb, Sb, Nb):
+        m = oracle_masks(Sb, Nb, mask_type)
+        return run_batch_with_masks(Yb, Sb, Nb, m, m)
+
+    return run_batch, run_batch_with_masks
+
+
+def enhance_rirs_batched(
+    root: str,
+    scenario: str,
+    rirs,
+    noise: str,
+    save_dir: str = "tango",
+    snr_range=(0, 6),
+    mask_type: str = "irm1",
+    policy: str = "local",
+    mu: float = 1.0,
+    n_nodes: int = 4,
+    mics_per_node: int = 4,
+    out_root: str | None = None,
+    force: bool = False,
+    save_fig: bool = False,
+    bucket: int = 8192,
+    max_batch: int = 16,
+    models=(None, None),
+    z_sigs: str = "zs_hat",
+    solver: str | None = None,
+    cov_impl: str = "auto",
+    stft_impl: str = "auto",
+    precision: str = "f32",
+    score_workers: int = 4,
+    chained: bool = False,
+    fault_spec=None,
+    ledger=None,
+    resume: bool = False,
+    pipeline: bool = True,
+    device=None,
+):
+    """Corpus-scale enhancement: many RIRs per launch.
+
+    RIRs are grouped by bucketed length (``core.dsp.bucket_length``),
+    enhanced ``max_batch`` clips a chunk — oracle masks of ``mask_type``, or
+    CRNN masks from ``models`` with each step's (clip, node) forwards in one
+    call — then scored and persisted per RIR exactly like
+    :func:`enhance_rir`.  A remainder chunk pads to the next power of two
+    (not to ``max_batch``) by repeating its first clip.
+
+    ``score_workers``: per-RIR scoring (the 512-tap BSS Gram factors, STOI
+    and the fw metrics, host float64) runs in a thread pool so chunk N's
+    scoring overlaps chunk N+1's load and dispatch; pending scoring is
+    bounded at ``pipeline.MAX_PENDING_CHUNKS`` chunks; 1 scores inline.
+    Workers get numpy arrays only.
+
+    ``fault_spec``: the same seeded plan (offline semantics) applies to
+    every clip in the run.
+
+    ``ledger`` / ``resume``: with ``resume=True`` the ledger's done entries
+    are verified against their artifact digests before being skipped and
+    corrupt or missing units are requeued (abandoned ``*.tmp.<pid>`` files
+    of a crashed writer are swept first); with a ledger but
+    ``resume=False`` its done records are trusted.  Without a ledger the
+    skip probe validates the existing OIM pickles.  A graceful stop
+    (``runs.interrupt``) finishes the in-flight chunk, drains scoring and
+    returns the partial results.
+
+    ``pipeline``: the overlapped engine (default) — a background thread
+    loads and pads chunk N+1 while the card runs chunk N, and each chunk's
+    results come back in ONE copy (``pipeline.fetch_chunk_host``).
+    ``pipeline=False`` loads inline and copies each clip back on its own;
+    the artifacts are byte-identical either way.
+
+    ``chained``: each chunk rides one ``tango_clip_fused`` call over the
+    time-domain stacks; offline oracle lane only (CRNN ``models`` and
+    ``fault_spec`` are rejected); ``solver=None`` then resolves to
+    ``'fused'``, else to ``'power'``.
+
+    ``save_fig=True`` raises NotImplementedError.  ``device``: ``"cuda"``
+    when None (RuntimeError without a CUDA device), ``"cpu"`` for the plain
+    versions on the host.
+
+    Returns {rir: results dict} for the RIRs actually processed.
+    """
+    _check_save_fig(save_fig)
+    if chained:
+        _check_chained(False, models, fault_spec)
+    if solver is None:
+        solver = "fused" if chained else "power"
+    dev = resolve_device(device)
+
+    z_mask_arr = z_nan_arr = None
+    if fault_spec is not None:
+        fault_plan = plan_faults(fault_spec, n_nodes, 1)
+        if fault_plan.any_fault():
+            z_mask_arr = fault_plan.avail_offline
+            z_nan_arr = fault_plan.z_nan if fault_plan.z_nan.any() else None
+
+    def out_of(rir):
+        return Path(out_root) if out_root is not None else results_root(
+            scenario, dset_of_rir(rir), save_dir)
+
+    if ledger is not None and not isinstance(ledger, RunLedger):
+        ledger = RunLedger(ledger)
+    if resume:
+        # a real crash (process death) can leave abandoned *.tmp.<pid>
+        # partial writes; sweep them before probing
+        for root_ in sorted({str(out_of(r)) for r in rirs}):
+            remove_tmp_litter(root_)
+    ledger_done: set = set()
+    requeued_units: set = set()
+    if ledger is not None and resume:
+        ledger_done, requeued = ledger.verified_done()
+        requeued_units = set(requeued)
+    elif ledger is not None:
+        ledger_done = {u for u, rec in ledger.replay().items() if rec["state"] == "done"}
+
+    # index pass: group pending RIRs by bucketed length, reading one channel
+    # per clip to learn its length
+    groups: dict[int, list] = {}
+    for rir in rirs:
+        out = out_of(rir)
+        if not force:
+            if unit_rir(rir, noise) in ledger_done:
+                continue
+            # a unit the verified resume requeued is redone even when its
+            # pickles probe fine (its damage may be a deleted WAV)
+            if unit_rir(rir, noise) not in requeued_units and _clip_done(out, rir, noise):
+                if ledger is not None:
+                    # complete on disk without a done record (a crash between
+                    # the last rename and the append): catch the ledger up
+                    ledger.mark_done(unit_rir(rir, noise),
+                                     clip_artifacts(out, rir, noise, snr_range, n_nodes),
+                                     recovered="complete artifacts found without a done record")
+                continue
+        layout = DatasetLayout(root, scenario, case_of_rir(rir))
+        probe = layout.wav_processed(snr_range, "mixture", rir, 1, noise=noise)
+        if not probe.exists():
+            continue
+        L = len(read_wav(probe)[0])
+        groups.setdefault(bucket_length(L, bucket) if bucket else L, []).append(
+            (rir, out, layout))
+
+    run_batch, run_batch_with_masks = make_batch_runners(
+        mask_type=mask_type, mu=mu, policy=policy, solver=solver, cov_impl=cov_impl,
+        precision=precision, z_mask_arr=z_mask_arr, z_nan_arr=z_nan_arr, chained=chained,
+        stft_impl=stft_impl, device=dev)
+
+    # one entry per (bucket, chunk) launch, bucket then offset order
+    work_items = [(Lp, items[start:start + max_batch]) for Lp, items in groups.items()
+                  for start in range(0, len(items), max_batch)]
+
+    all_results = {}
+    pending_chunks: deque = deque()
+
+    def drain_chunks(bound: int = 0):
+        while len(pending_chunks) > bound:
+            for rir_, fut in pending_chunks.popleft():
+                all_results[rir_] = fut.result()
+
+    def score_unit(score_fn, rir_, out_):
+        """One clip's scoring + ledger completion (runs on a worker)."""
+        r = score_fn()
+        if ledger is not None:
+            ledger.mark_done(unit_rir(rir_, noise),
+                             clip_artifacts(out_, rir_, noise, snr_range, n_nodes))
+        return r
+
+    def load_chunk(Lp, chunk):
+        """Load + pad one chunk — host numpy only (wav decode, padding,
+        ledger marks, chaos seam).  Runs on the prefetch thread in
+        pipelined mode, inline otherwise."""
+        if ledger is not None:
+            for rir, _out, _layout in chunk:
+                ledger.mark_in_flight(unit_rir(rir, noise), bucket=Lp)
+        run_chaos.tick("chunk_load")
+        sigs = [load_input_signals(layout, rir, noise, snr_range, n_nodes, mics_per_node)
+                for rir, _, layout in chunk]
+        ys, ss, ns = [], [], []
+        for (y, s, n, *_rest) in sigs:
+            pad = ((0, 0), (0, 0), (0, Lp - y.shape[-1]))
+            ys.append(np.pad(y, pad))
+            ss.append(np.pad(s, pad))
+            ns.append(np.pad(n, pad))
+        # a remainder chunk pads to the next power of two by repeating its
+        # first clip
+        n_real = len(ys)
+        tail = min(max_batch, 1 << max(n_real - 1, 0).bit_length())
+        while len(ys) < tail:
+            ys.append(ys[0])
+            ss.append(ss[0])
+            ns.append(ns[0])
+        return LoadedChunk(Lp, chunk, sigs, np.stack(ys), np.stack(ss), np.stack(ns), n_real)
+
+    def dispatch_chunk(lc):
+        """The chunk's launches (main thread, the only CUDA user); the STFT
+        stacks are dropped as soon as the runner returns."""
+        run_chaos.tick("pre_dispatch")
+        x = torch.stack([torch.as_tensor(a, device=dev) for a in (lc.ys, lc.ss, lc.ns)])
+        if chained:
+            return run_batch(x[0], x[1], x[2])
+        spec = stft_fused(x, impl=stft_impl, precision=precision)
+        del x
+        if models == (None, None):
+            return run_batch(spec[0], spec[1], spec[2])
+        Mz, Mw = _batched_masks(spec[0], spec[1], spec[2], models, mask_type, mu, n_nodes,
+                                z_sigs, device=dev)
+        return run_batch_with_masks(spec[0], spec[1], spec[2], Mz, Mw)
+
+    def submit_scoring(lc, host_of):
+        """Queue (or run inline) one chunk's per-clip scoring; ``host_of(i)``
+        gives clip i's host payload."""
+        futs = []
+        for i in range(lc.n_real):
+            rir, out, _layout = lc.chunk[i]
+            y, s, n, s_dry, n_dry, fs, rnd_snrs = lc.sigs[i]
+            L = y.shape[-1]
+            score = partial(_persist_and_score, out, rir, noise, snr_range, y, s, n, s_dry,
+                            n_dry, fs, rnd_snrs, host_of(i), n_stft_frames(L), n_nodes)
+            if score_workers <= 1:
+                all_results[rir] = score_unit(score, rir, out)
+            else:
+                futs.append((rir, ex.submit(score_unit, score, rir, out)))
+        if futs:
+            pending_chunks.append(futs)
+            drain_chunks(MAX_PENDING_CHUNKS)
+
+    def host_payload(res_b, lc, fetch):
+        host = fetch(res_b, lc.clip_lengths, lc.n_real)
+        return lambda i: {"td": host["td"][i], "masks_z": host["masks_z"][i],
+                          "mask_w": host["mask_w"][i], "z_y": host["z_y"][i]}
+
+    with ThreadPoolExecutor(max_workers=max(score_workers, 1)) as ex:
+        if pipeline:
+            prefetcher = ChunkPrefetcher(work_items, load_chunk,
+                                         stop_requested=run_interrupt.stop_requested)
+            try:
+                for lc, stall_s in prefetcher:
+                    if run_interrupt.stop_requested():
+                        break  # graceful stop: in-flight scoring drains below
+                    t0 = time.perf_counter()
+                    res_b = dispatch_chunk(lc)
+                    host_of = host_payload(res_b, lc,
+                                           fetch_chained_host if chained else fetch_chunk_host)
+                    del res_b
+                    submit_scoring(lc, host_of)
+                    note_chunk_overlap(stall_s, time.perf_counter() - t0)
+            finally:
+                prefetcher.close()
+        else:
+            for Lp, chunk in work_items:
+                if run_interrupt.stop_requested():
+                    break
+                lc = load_chunk(Lp, chunk)
+                res_b = dispatch_chunk(lc)
+                if chained:
+                    host_of = host_payload(res_b, lc, fetch_chained_host)
+                else:
+                    # one copy per clip, from the clip's slice of the batch
+                    hosts = [_clip_host(clip_slice(res_b, i), L)
+                             for i, L in enumerate(lc.clip_lengths)]
+                    host_of = hosts.__getitem__
+                del res_b
+                submit_scoring(lc, host_of)
+        drain_chunks()
+    return all_results

@@ -30,8 +30,9 @@ host, so that all its paths scale by the same float32 numbers.  Under
 weights to bf16 and contracts in float32 (``ops.cov_ops.outer_acc_bf16``,
 as the JAX package's lane); the refresh frame's outer product stays
 float32, and the solve takes the lane only under the ``'fused*'``
-solvers.  The ``between_blocks`` chaos seam is not ported
-(``ROADMAP.md``).
+solvers.  The ``between_blocks`` chaos seam (``runs.chaos``) fires at
+the start of every chunk-continuation call of :func:`streaming_tango` and
+:func:`streaming_tango_scan`, a call that carries a state.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from disco_tpu_torch.device import resolve_device
 from disco_tpu_torch.enhance.tango import others_index
 from disco_tpu_torch.ops.cov_ops import outer_acc_bf16
 from disco_tpu_torch.ops.resolve import resolve_precision
+from disco_tpu_torch.runs import chaos
 
 #: Default filter-refresh block length (frames).
 DEFAULT_UPDATE_EVERY = 4
@@ -425,6 +427,13 @@ def _streaming_tango_body(Y, masks_z, mask_w, lam, u, mu, ref_mic, S, N, with_di
     return out
 
 
+def _chaos_between_blocks(state) -> None:
+    """The ``between_blocks`` chaos seam (``runs.chaos``), fired on every
+    chunk-continuation call: a call that carries a state."""
+    if state is not None:
+        chaos.tick("between_blocks")
+
+
 def _stream_inputs(Y, masks_z, mask_w, S, N, with_diagnostics, policy, state, update_every,
                    ref_mic, precision, device):
     """Validate and place the inputs of the streaming entry points; a None
@@ -471,6 +480,7 @@ def streaming_tango(Y, masks_z, mask_w, lambda_cor: float = DEFAULT_LAMBDA_COR,
       dict with yf, z_y, zn (K, F, T), ``state`` and, with diagnostics,
       sf, nf, z_s, z_n.
     """
+    _chaos_between_blocks(state)
     Y, masks_z, mask_w, S, N, state, precision, dev = _stream_inputs(
         Y, masks_z, mask_w, S, N, with_diagnostics, policy, state, update_every, ref_mic,
         precision, device)
@@ -514,6 +524,7 @@ def streaming_tango_scan(Y, masks_z, mask_w, lambda_cor: float = DEFAULT_LAMBDA_
             "the per-block path)"
         )
     Tc = T // n
+    _chaos_between_blocks(state)
     if Tc % u:
         raise ValueError(
             f"streaming_tango_scan: per-dispatch block length {Tc} must be a "

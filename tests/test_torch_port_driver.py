@@ -1,0 +1,144 @@
+"""The port's corpus driver (``disco_tpu_torch.enhance.driver``) against the
+JAX package's on the JAX package's miniature corpus (``runs.check.
+_mini_corpus``: 4 nodes x 2 mics, 2-s clips, two RIRs), the port with
+``device="cpu"``: the staged and the chained lane of
+``enhance_rirs_batched``, ``aggregate_results`` across packages and
+``export_z``.
+
+Bounds: the same set of relative artifact paths; every metric key within
+``rtol=2e-4, atol=1e-3`` dB (the bound of tests/test_driver.py:342) and the
+STOI deltas within 1e-4; every WAV, mask and z file within 1e-4 of its
+output scale.  Each JAX driver run is a module-scoped fixture.
+"""
+import pickle
+
+import numpy as np
+import pytest
+
+from disco_tpu.enhance import driver as jdriver
+from disco_tpu.enhance import zexport as jzexport
+from disco_tpu.runs import check as jcheck
+from disco_tpu_torch.enhance import driver as tdriver
+from disco_tpu_torch.enhance import zexport as tzexport
+from tests.torch_port_helpers import (  # noqa: F401 (one_host_thread: a fixture)
+    artifact_errors, artifact_paths, assert_results_close, one_host_thread)
+
+TOL = 1e-4
+RIRS, NOISE, SNR, K, C = jcheck.RIRS, jcheck.NOISE, jcheck.SNR_RANGE, jcheck.K, jcheck.C
+LANES = {"staged": {}, "chained": {"chained": True}}
+pytestmark = pytest.mark.usefixtures("one_host_thread")
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    return jcheck._mini_corpus(tmp_path_factory.mktemp("corpus"))
+
+
+def _run(driver, corpus, out, **kw):
+    if driver is jdriver:
+        kw["save_fig"] = False
+    else:
+        kw["device"] = "cpu"
+    return driver.enhance_rirs_batched(str(corpus), "living", list(RIRS), NOISE, snr_range=SNR,
+                                       out_root=str(out), n_nodes=K, mics_per_node=C,
+                                       max_batch=2, score_workers=2, **kw)
+
+
+@pytest.fixture(scope="module")
+def runs(corpus, tmp_path_factory):
+    """{lane: (port results, JAX results, port tree, JAX tree)}."""
+    out = {}
+    for lane, kw in LANES.items():
+        trees = tmp_path_factory.mktemp(lane)
+        out[lane] = (_run(tdriver, corpus, trees / "port", **kw),
+                     _run(jdriver, corpus, trees / "jax", **kw), trees / "port", trees / "jax")
+    return out
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_same_artifact_paths(runs, lane):
+    _, _, ours, theirs = runs[lane]
+    paths = artifact_paths(theirs)
+    assert len(paths) == len(RIRS) * (2 + 10 * K)
+    assert artifact_paths(ours) == paths
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_metrics_match_jax(runs, lane):
+    ours, theirs, _, _ = runs[lane]
+    assert set(theirs) == set(RIRS)
+    assert_results_close(ours, theirs)
+    for rir in RIRS:  # the returned dict is what was pickled
+        with open(runs[lane][2] / "OIM" / f"results_tango_{rir}_{NOISE}.p", "rb") as fh:
+            saved = pickle.load(fh)
+        assert set(saved) == set(ours[rir])
+        for k in saved:
+            np.testing.assert_array_equal(saved[k], ours[rir][k])
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+@pytest.mark.parametrize("kind", ["WAV/", "MASK/", "STFT/z/"])
+def test_artifacts_match_jax(runs, lane, kind):
+    _, _, ours, theirs = runs[lane]
+    errs = {p: e for p, e in artifact_errors(ours, theirs).items() if p.startswith(kind)}
+    assert errs and max(errs.values()) <= TOL, max(errs.items(), key=lambda pe: pe[1])
+    for p, e in errs.items():  # the inputs are written back untouched
+        if "/in_" in p:
+            assert e == 0.0, p
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+@pytest.mark.parametrize("kind", ["tango", "mwf"])
+def test_aggregate_results_across_packages(runs, lane, kind):
+    """The JAX package's ``aggregate_results`` reads the port's pickles, and
+    the port's aggregates the JAX package's the same way."""
+    _, _, ours, theirs = runs[lane]
+    jax_of_port = jdriver.aggregate_results(ours / "OIM", kind, noise=NOISE)
+    port_of_port = tdriver.aggregate_results(ours / "OIM", kind, noise=NOISE)
+    port_of_jax = tdriver.aggregate_results(theirs / "OIM", kind, noise=NOISE)
+    jax_of_jax = jdriver.aggregate_results(theirs / "OIM", kind, noise=NOISE)
+    assert set(jax_of_port) == set(jax_of_jax) == set(port_of_port) == set(port_of_jax)
+    for k in jax_of_jax:
+        assert jax_of_port[k].shape == (len(RIRS) * K,)
+        np.testing.assert_array_equal(port_of_port[k], jax_of_port[k])
+        np.testing.assert_array_equal(port_of_jax[k], jax_of_jax[k])
+    assert tdriver.aggregate_results(ours / "OIM", kind, noise="other") == {}
+
+
+def test_export_z_matches_jax(corpus, tmp_path):
+    """``export_z`` writes the same files (raw complex64 and |.| float32)
+    within 1e-4 of scale, and a second call is a no-op."""
+    import shutil
+
+    trees = {}
+    for name, mod, kw in (("port", tzexport, {"device": "cpu"}), ("jax", jzexport, {})):
+        root = tmp_path / name
+        shutil.copytree(corpus, root)
+        assert mod.export_z(str(root), "living", RIRS[0], NOISE, snr_range=SNR, n_nodes=K,
+                            mics_per_node=C, **kw)
+        assert not mod.export_z(str(root), "living", RIRS[0], NOISE, snr_range=SNR, n_nodes=K,
+                                mics_per_node=C, **kw)
+        trees[name] = root / "living" / "test" / "stft_z"
+    paths = artifact_paths(trees["jax"])
+    assert len(paths) == 2 * 2 * K and artifact_paths(trees["port"]) == paths
+    errs = artifact_errors(trees["port"], trees["jax"])
+    assert max(errs.values()) <= TOL, errs
+    for p in paths:
+        a = np.load(trees["port"] / p)
+        assert a.dtype == (np.float32 if "normed" in p else np.complex64)
+        assert np.isfinite(a).all()
+
+
+def test_node_signals_equal_jax(corpus):
+    from disco_tpu.io import layout as jlayout
+    from disco_tpu_torch.io import layout as tlayout
+
+    args = (RIRS[1], NOISE, SNR, K, C)
+    ours = tzexport.load_node_signals(tlayout.DatasetLayout(str(corpus), "living", "test"), *args)
+    theirs = jzexport.load_node_signals(jlayout.DatasetLayout(str(corpus), "living", "test"), *args)
+    for a, b in zip(ours, theirs):
+        assert a.shape == (K, C, 32000)
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        tzexport.load_mixture_signals(tlayout.DatasetLayout(str(corpus), "living", "test"), *args),
+        theirs[0])

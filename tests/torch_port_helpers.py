@@ -7,6 +7,7 @@ the two implementations and nothing else.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -60,3 +61,98 @@ def scene(K, C, L, seed=0, noise_scale=0.8):
     ]).astype(np.float32)
     n = noise_scale * rng.standard_normal((K, C, L)).astype(np.float32)
     return s + n, s, n
+
+
+# ----------------------------------------------------------- corpus driver
+#: the bound of tests/test_driver.py:342 on every metric key (dB), and the
+#: bound on the STOI deltas
+METRIC_RTOL, METRIC_ATOL, STOI_ATOL = 2e-4, 1e-3, 1e-4
+
+
+def assert_results_close(ours: dict, theirs: dict) -> None:
+    """{rir: results dict} of the two drivers: the same RIRs and keys, float64
+    numpy values within the metric bounds (NaN where the other has NaN)."""
+    assert set(ours) == set(theirs)
+    for rir in theirs:
+        a, b = ours[rir], theirs[rir]
+        assert set(a) == set(b), rir
+        for k in b:
+            assert isinstance(a[k], np.ndarray) and a[k].dtype == b[k].dtype == np.float64, k
+            atol, rtol = (STOI_ATOL, 0) if k.startswith("delta_stoi") else (METRIC_ATOL,
+                                                                          METRIC_RTOL)
+            np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=atol, equal_nan=True,
+                                       err_msg=f"rir {rir} key {k}")
+
+
+def artifact_paths(root) -> list:
+    """Sorted relative paths of every file under ``root``."""
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+
+def artifact_errors(ours, theirs, skip_frames: int = 0) -> dict:
+    """{relative path: max |a - b| / max |b|} over the WAV and .npy artifacts
+    of two result trees (NaNs required at the same places); the first
+    ``skip_frames`` STFT frames (256 samples each in the WAVs) are left
+    out."""
+    from disco_tpu_torch.io.audio import read_wav
+
+    errs = {}
+    for rel in artifact_paths(theirs):
+        if rel.endswith(".wav"):
+            a, b = read_wav(ours / rel)[0], read_wav(theirs / rel)[0]
+            a, b = a[256 * skip_frames:], b[256 * skip_frames:]
+        elif rel.endswith(".npy"):
+            a, b = np.load(ours / rel), np.load(theirs / rel)
+            assert a.dtype == b.dtype, rel
+            a, b = a[..., skip_frames:], b[..., skip_frames:]
+        else:
+            continue
+        assert a.shape == b.shape, rel
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=rel)
+        errs[rel] = 0.0 if np.isnan(b).all() else float(np.nanmax(np.abs(a - b))
+                                                         / np.nanmax(np.abs(b)))
+    return errs
+
+
+def _openblas_thread_setters() -> list:
+    """(get, set) thread-count functions of the OpenBLAS builds bundled
+    with numpy and scipy, where their libraries export them."""
+    import ctypes
+    import glob
+    import os
+
+    import scipy
+
+    found = []
+    for pkg in (np, scipy):
+        libs = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)),
+                            f"{pkg.__name__}.libs", "*openblas*.so*")
+        for path in glob.glob(libs):
+            lib = ctypes.CDLL(path)
+            for suffix in ("64_", ""):
+                get = getattr(lib, f"scipy_openblas_get_num_threads{suffix}", None)
+                put = getattr(lib, f"scipy_openblas_set_num_threads{suffix}", None)
+                if get is not None and put is not None:
+                    found.append((get, put))
+    return found
+
+
+@pytest.fixture(scope="module")
+def one_host_thread():
+    """Run a module's port calls on one torch thread and one BLAS thread,
+    and restore the counts after it.  The corpus-driver tests make
+    thousands of small torch and BLAS calls beside scoring threads; under
+    the test runner's parallel workers the default pools (one thread per
+    core each) oversubscribe the host and spin: the engine tests took
+    ~20x their time alone.  The tests compare results within bounds far
+    above a change of summation order inside BLAS, or between runs made
+    under the same settings."""
+    n = torch.get_num_threads()
+    blas = [(get, put, get()) for get, put in _openblas_thread_setters()]
+    torch.set_num_threads(1)
+    for _, put, _ in blas:
+        put(1)
+    yield
+    torch.set_num_threads(n)
+    for _, put, old in blas:
+        put(old)
