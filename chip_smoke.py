@@ -69,12 +69,14 @@ pass):
    stream route within 1e-5 of the per-window route; a second run of the
    masks within 1e-6 (bit-identity reported); ``_batched_masks`` on the
    16 distinct clips within 1e-5 of each clip's ``estimate_masks``.
-3e. The corpus driver at the same width: an 8-clip corpus (the port's
+3e. The corpus driver at the same width: a 4-clip corpus (the port's
    ``runs.check._mini_corpus``: a white source through random 8-tap
-   filters per mic plus white noise, K=8 x C=4 x 10 s, 0.5 GB of WAV under
-   ``build/``, deleted at the end of the phase; 8 clips, not 16, keep the
-   script near half its time limit, host scoring being ~30-40 s a clip)
-   through ``enhance_rirs_batched`` with ``max_batch=4`` (two chunks), 4
+   filters per mic plus white noise, K=8 x C=4 x 10 s, 0.25 GB of WAV
+   under ``build/``, deleted at the end of the phase; cut from 16 clips to
+   8, then to 4 to make room for phase 3f: host scoring takes ~30-40 s a
+   clip, and the script stays near half its time limit)
+   through ``enhance_rirs_batched`` with ``max_batch=2`` (two chunks, so
+   the pipelined engine still overlaps a load with a dispatch), 4
    scoring workers and a run ledger, in the staged lane (``solver='power'``: 2 STFT and 4
    covariance launches) and the chained lane (2 STFT, 4 covariance and 4
    fused-solve launches): every clip done in the ledger, every artifact
@@ -87,6 +89,39 @@ pass):
    byte-identical on two clips; the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2
    eigensolver launches) finite and above its input; ``export_z`` of one
    clip finite.  Each driver run's parts are timed on the host clock.
+3f. The training path at full width, on a training corpus under ``build/``
+   (deleted at the end of the phase) in the DISCO training geometry that
+   ``PostGenerator`` and ``DiscoDataset`` hard-code: 4 nodes x 4 mics,
+   11-s clips, RIRs 1-8 (the train split), convolved images of a white
+   source through random 8-tap filters per mic and white ``ssn`` noise
+   (~180 MB of WAV, ~1 GB once the features are written).
+   ``PostGenerator`` on the card with the counters set to 0 before and
+   read after (24 STFT launches: 3 an RIR), RIR 1's STFT files within
+   1e-5 of the STFT's scale of the host's plain STFT of the written WAVs
+   and its masks within 1e-6 of the host's mask of the same spectra;
+   ``export_z`` of the 8 RIRs (24 STFT and 8 covariance launches);
+   ``get_input_lists`` → ``DiscoDataset(stack_axis=2)`` (the reference
+   mic and 3 z's, 608 windows of 21 frames) → ``fit`` of the canonical
+   CRNN (conv 32/64/64, GRU 256, FF 257, ``n_ch`` 4, seeded weights) at
+   batch 500 for 3 epochs with a run ledger: losses finite, the last
+   epoch's train loss below the first's, 3 ``done`` epochs in the
+   ledger, the checkpoint decoded by ``nn.serialization`` with the JAX
+   package's tree; a 2-epoch run resumed from its checkpoint to the same
+   last epoch bit-identical to the 3-epoch run (losses, parameters,
+   statistics, ``nu``); four timed fits of 2 epochs, each epoch 8 passes
+   over the 608 windows (10 steps), so that an epoch's fixed costs (a
+   pass's first-batch stall, validation, the checkpoint, the loss files)
+   are a small part of the timed wall; one train step on the card against
+   the same step on the host (loss within 1e-5 relative, parameters and
+   ``nu`` within 1e-4 absolute, and on each device ``nu`` element by
+   element within 1e-6 of the 0.01 g^2 of the step's own gradient g, so a
+   ``nu`` of 0 or of another decay fails; BatchNorm statistics element by
+   element within 1e-5 of themselves plus 1e-5 of their conditioning: the
+   magnitude of the terms their update sums, 0.9 of the old value and 0.1
+   of the batch's mean |x| for a mean or mean x^2 for a variance, x the
+   conv output of that channel); the bf16 lane's first loss within 2e-2
+   of the f32 lane's, and one epoch of it leaving masters, statistics and
+   ``nu`` float32.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -122,10 +157,20 @@ pass):
    3e's corpus clips per wall-second in each lane, and its split — load a
    clip, the launches of one loaded 8-clip chunk already on the card and
    with its host-to-card copy (CUDA events, median of 5), the wait and
-   the readback of each chunk, scoring a clip.
+   the readback of each chunk, scoring a clip.  Training: one train step
+   and one eval step of the canonical CRNN at batch 500 (``n_ch`` 4 and 1,
+   each lane; CUDA events, median of 5), its TFLOP/s by the CRNN's shapes
+   (forward x 3), the same step with cuDNN free to choose and autotune
+   (the cost of the deterministic algorithms the step pins), and phase
+   3f's timed fits in training windows per second (each run, the median
+   and the spread), beside the host's batch assembly alone, the steps'
+   share of the wall by their event times, and the prefetch stalls.
+   The f32 STFT kernel's batch row also times ``torch.stft`` on the same
+   1,536 rows.
 6. Where one 16-clip offline call (in both lanes), the 16-clip CRNN mask
-   stage and one streaming window spend their device time, by kernel
-   (``torch.profiler``), and the device's busy share of their wall time.
+   stage, one streaming window and three train steps spend their device
+   time, by kernel (``torch.profiler``), and the device's busy share of
+   their wall time.
 
 The last two lines of standard output are one ``{"kernels": [...]}``
 object and ``{"ok": true, "device": {...}}``.
@@ -156,7 +201,7 @@ TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "
        "bf16_lane": 1e-2, "crnn_host": 1e-4, "crnn_route": 1e-5, "crnn_batch": 1e-5,
        "crnn_rerun": 1e-6}
 #: phase 3e's corpus: clips (north-star width), clips a chunk, scoring workers
-CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 8, 4, 4
+CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 4, 2, 4
 #: phase 3e's bounds: each clip's mean sdr_cnv over its mean sdr_in_cnv (dB); one
 #: clip through enhance_rir against its batched run (out_mix, output scale; every
 #: metric, dB) and against the host's plain versions (output scale; dB)
@@ -1268,6 +1313,489 @@ def phase5_corpus(d: SimpleNamespace) -> None:
     del d.corpus_chunk, card_chunk
 
 
+#: phase 3f: the training corpus's RIRs (ids 1-8 are the train split), the
+#: epochs of the full run, the windows of a batch (TrainConfig.batch_size)
+TRAIN_RIRS, TRAIN_EPOCHS, TRAIN_BATCH = tuple(range(1, 9)), 3, 500
+#: phase 3f's bounds: the card's STFT files against the host's plain STFT
+#: (max-abs over the STFT's scale) and its masks against the host's mask of
+#: the same spectra (max-abs); one train step on the card against the host
+#: (loss relative, parameters and nu absolute, BatchNorm statistics element
+#: by element relative to themselves plus their conditioning), and on each
+#: device nu element by element against (1 - decay) g^2 of its own gradient
+#: (relative); the bf16 lane's first loss against the f32 lane's (relative)
+TRAIN_TOL = {"stft": 1e-5, "mask": 1e-6, "loss": 1e-5, "params": 1e-4, "nu": 1e-6,
+             "stats": 1e-5, "bf16": 2e-2}
+#: phase 3f's timed fits: runs, epochs a run, passes over the windows an epoch
+FIT_RUNS, FIT_EPOCHS, FIT_PASSES = 4, 2, 8
+#: the seed of the canonical CRNN's initial weights (phase 3f)
+TRAIN_SEED = 3
+
+
+class Passes:
+    """``passes`` copies of a dataset's windows as one dataset: an epoch of
+    several passes, shuffled together, for fits long enough to time."""
+
+    def __init__(self, dataset, passes: int):
+        self.dataset, self.passes = dataset, passes
+
+    def __len__(self) -> int:
+        return self.passes * len(self.dataset)
+
+    def __getitem__(self, item):
+        return self.dataset[item % len(self.dataset)]
+
+
+class EpochBatches:
+    """The batches of one dataset for ``fit``: epoch e shuffles and draws
+    its windows (``passes`` times each) from generators seeded by (seed, e),
+    so a resumed run gets the batches of the epochs it runs
+    (``set_start_epoch``)."""
+
+    def __init__(self, dataset, seed: int, passes: int = 1):
+        self.dataset, self.seed, self.epoch, self.passes = dataset, seed, 0, passes
+
+    def set_start_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __call__(self):
+        from disco_tpu_torch.nn.data import batch_iterator
+
+        e, self.epoch = self.epoch, self.epoch + 1
+        self.dataset.rng = np.random.default_rng([self.seed, e, 1])
+        windows = self.dataset if self.passes == 1 else Passes(self.dataset, self.passes)
+        return batch_iterator(windows, TRAIN_BATCH, rng=np.random.default_rng([self.seed, e, 2]))
+
+
+def training_corpus(root) -> None:
+    """The DISCO training geometry that ``PostGenerator`` and
+    ``DiscoDataset`` hard-code: 4 nodes x 4 mics, 11-s clips at 16 kHz,
+    RIRs 1-8, as the convolved images ``wav_original/cnv/{target,noise}/
+    {rir}_S-*_Ch-*.wav``.  Each mic gets a white source through its own
+    random 8-tap filter, plus white ``ssn`` noise (seeded as
+    ``runs.check._mini_corpus``)."""
+    from disco_tpu_torch.io.atomic import write_wav_atomic
+
+    rng = np.random.default_rng(7)
+    base = root / "random" / "train" / "wav_original" / "cnv"
+    n = 11 * FS
+    for rir in TRAIN_RIRS:
+        src = 0.2 * rng.standard_normal(n)
+        for ch in range(1, 17):
+            write_wav_atomic(base / "target" / f"{rir}_S-1_Ch-{ch}.wav",
+                             np.convolve(src, rng.standard_normal(8) * 0.5, mode="same"), FS)
+            write_wav_atomic(base / "noise" / f"{rir}_S-2_ssn_Ch-{ch}.wav",
+                             0.1 * rng.standard_normal(n), FS)
+
+
+def canonical_train_state(n_ch: int, seed: int = TRAIN_SEED, device="cuda"):
+    """The canonical CRNN (conv 32/64/64, GRU 256, FF 257) for ``n_ch``
+    input channels, initialized from ``seed``, with its RMSprop."""
+    import torch
+
+    from disco_tpu_torch.nn.crnn import build_crnn
+    from disco_tpu_torch.nn.optim import build_optimizer
+    from disco_tpu_torch.nn.training import create_train_state
+
+    torch.manual_seed(seed)
+    model = build_crnn(n_ch=n_ch).to(device)
+    return model, create_train_state(model, build_optimizer(model))
+
+
+def phase3f_training(d: SimpleNamespace) -> None:
+    """The training path at full width: convolved WAVs → ``PostGenerator``
+    → ``export_z`` → ``get_input_lists`` → ``DiscoDataset`` → ``fit`` of
+    the canonical n_ch = 4 CRNN at batch 500, resume, the card's step
+    against the host's, the bf16 lane."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.core.masks import tf_mask
+    from disco_tpu_torch.datagen.postgen import PostGenerator
+    from disco_tpu_torch.enhance import pipeline
+    from disco_tpu_torch.enhance.zexport import export_z
+    from disco_tpu_torch.io.audio import read_wav
+    from disco_tpu_torch.io.layout import DatasetLayout
+    from disco_tpu_torch.nn import serialization
+    from disco_tpu_torch.nn.data import DiscoDataset, get_input_lists
+    from disco_tpu_torch.nn.optim import build_optimizer
+    from disco_tpu_torch.nn.training import create_train_state, fit, make_step_fns
+    from disco_tpu_torch.ops.stft_ops import stft_matmul
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    snr = [0, 6]
+    with tempfile.TemporaryDirectory(prefix="train-", dir=build) as tmp:
+        tmp = Path(tmp)
+        root = tmp / "corpus"
+        t0 = time.perf_counter()
+        training_corpus(root)
+        t_corpus = time.perf_counter() - t0
+
+        # (2) the mixing pass on the card: 3 STFT launches an RIR
+        t0 = time.perf_counter()
+        with counted("train postgen", {"stft": 3 * len(TRAIN_RIRS)}, d.launches):
+            pg = PostGenerator(TRAIN_RIRS[0], len(TRAIN_RIRS), "random", "ssn", snr, str(root),
+                               rng=np.random.default_rng(0))
+            require(pg.post_process() == list(TRAIN_RIRS), "PostGenerator skipped RIRs")
+        t_postgen = time.perf_counter() - t0
+        lay = DatasetLayout(str(root), "random", "train")
+        rir = TRAIN_RIRS[0]
+        e_stft, e_mask = 0.0, 0.0
+        host = {}
+        for kind, noise in (("target", None), ("noise", "ssn"), ("mixture", "ssn")):
+            x = torch.from_numpy(np.stack([read_wav(lay.wav_processed(snr, kind, rir, ch,
+                                                                      noise=noise))[0]
+                                           for ch in range(1, 17)]))
+            host[kind] = stft_matmul(x)
+            card = torch.from_numpy(np.stack([np.load(lay.stft_processed(snr, kind, rir, ch,
+                                                                         noise=noise))
+                                              for ch in range(1, 17)]))
+            e_stft = max(e_stft, max_abs(card, host[kind]) / float(host[kind].abs().max()))
+            host[f"card_{kind}"] = card
+        masks = torch.from_numpy(np.stack([np.load(lay.mask_processed(snr, rir, ch, "ssn"))
+                                           for ch in range(1, 17)]))
+        e_mask = max_abs(masks, tf_mask(host["card_target"], host["card_noise"]))
+        e_mask_host = max_abs(masks, tf_mask(host["target"], host["noise"]))
+        print(f"phase 3f: PostGenerator on {len(TRAIN_RIRS)} RIRs (4 x 4 mics x 11 s; corpus "
+              f"written in {t_corpus:.1f} s) took {t_postgen:.1f} s; RIR {rir}: STFT files vs the "
+              f"host's plain STFT {e_stft:.3e} of scale, masks vs the host's mask of the same "
+              f"spectra {e_mask:.3e} (vs the host's own spectra {e_mask_host:.3e})", flush=True)
+        require(e_stft <= TRAIN_TOL["stft"] and e_mask <= TRAIN_TOL["mask"],
+                ("PostGenerator files", e_stft, e_mask))
+
+        # (3) the z export of every RIR
+        t0 = time.perf_counter()
+        with counted("train export_z", {"stft": 3 * len(TRAIN_RIRS),
+                                        "masked_cov": len(TRAIN_RIRS)}, d.launches):
+            for r in TRAIN_RIRS:
+                require(export_z(str(root), "random", r, "ssn", snr_range=tuple(snr),
+                                 n_nodes=4, mics_per_node=4), ("export_z did nothing", r))
+        t_export = time.perf_counter() - t0
+
+        # (4) lists → dataset → fit: the canonical CRNN, n_ch = 4 (the
+        # reference mic and 3 z's), batch 500, 3 epochs, a run ledger
+        t0 = time.perf_counter()
+        lists = get_input_lists(str(root), list(TRAIN_RIRS), scenes="random", z_sigs=["zs_hat"],
+                                rng=np.random.default_rng(0))
+        train_ds = DiscoDataset(lists, stack_axis=2, rng=np.random.default_rng(0))
+        val_ds = copy.copy(train_ds)  # the same windows, drawn apart
+        t_load = time.perf_counter() - t0
+        n_windows = len(train_ds)
+        x0, y0 = next(EpochBatches(train_ds, 99)())
+        require(x0.shape == (TRAIN_BATCH, 4, 21, 257) and y0.shape == (TRAIN_BATCH, 21, 257),
+                ("batch shapes", x0.shape, y0.shape))
+        print(f"phase 3f: export_z of {len(TRAIN_RIRS)} RIRs {t_export:.1f} s; lists and "
+              f"DiscoDataset {t_load:.1f} s: {n_windows} windows of {x0.shape[1:]}", flush=True)
+
+        def run(name, n_epochs, passes=1, **kw):
+            """``fit`` of a fresh canonical CRNN, its wall seconds (the
+            model's construction not included) and its prefetch stalls."""
+            model, state = canonical_train_state(4)
+            pipeline.OVERLAP.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fit(model, state, EpochBatches(train_ds, 1, passes), EpochBatches(val_ds, 2),
+                      n_epochs, save_path=tmp / "models", run_name=name, verbose=False, **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, [o["stall_ms"] for o in pipeline.OVERLAP]
+
+        def epochs_by_ledger(path):
+            ledger = [json.loads(line) for line in path.read_text().splitlines()]
+            return ([r["unit"] for r in ledger if r["state"] == "done"],
+                    [b["t"] - a["t"] for a, b in zip(ledger[::2], ledger[1::2])])
+
+        (state, tr, va, _), t_fit, _ = run("full", TRAIN_EPOCHS, ledger=tmp / "full.jsonl")
+        done, epoch_s = epochs_by_ledger(tmp / "full.jsonl")
+        ck = serialization.unpackb((tmp / "models" / "full_model.msgpack").read_bytes())
+        finite = bool(np.isfinite(tr).all() and np.isfinite(va).all())
+        d.train = {"windows_per_epoch": n_windows, "batch": (x0, y0)}
+        print(f"phase 3f: fit, {TRAIN_EPOCHS} epochs of {n_windows} windows at batch "
+              f"{TRAIN_BATCH}: train loss {tr.tolist()}, val loss {va.tolist()}, finite {finite}; "
+              f"{t_fit:.2f} s, the first fit of the process (epochs {epoch_s} s by the ledger); "
+              f"ledger done {done}; checkpoint epochs_done {int(ck['epochs_done'])}, step "
+              f"{int(ck['step'])}, opt_state keys {sorted(ck['opt_state'])}", flush=True)
+        require(finite and tr[-1] < tr[0], ("fit losses", tr.tolist()))
+        require(done == [f"epoch:{e}" for e in range(TRAIN_EPOCHS)], ("ledger", done))
+        require(set(ck) == {"params", "batch_stats", "opt_state", "step", "train_loss",
+                            "val_loss", "epochs_done"} and set(ck["opt_state"]) == {"0", "1", "2"},
+                ("checkpoint tree", sorted(ck)))
+
+        # (5) resume: the 2-epoch run's checkpoint, resumed to the same end
+        run("half", 2)
+        k = int(serialization.unpackb((tmp / "models" / "half_model.msgpack").read_bytes())
+                ["epochs_done"])
+        model, st = canonical_train_state(4)
+        st, tr2, va2, _ = fit(model, st, EpochBatches(train_ds, 1), EpochBatches(val_ds, 2),
+                              TRAIN_EPOCHS - k, save_path=tmp / "models", run_name="half",
+                              verbose=False, resume_from=tmp / "models" / "half_model.msgpack")
+        same = np.array_equal(tr2, tr) and np.array_equal(va2, va) and all(
+            torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                              st.model.state_dict().values())) and all(
+            torch.equal(state.optimizer.state[p]["nu"], st.optimizer.state[q]["nu"])
+            for p, q in zip(state.model.parameters(), st.model.parameters()))
+        print(f"phase 3f: a 2-epoch run (checkpoint after epoch {k}) resumed for "
+              f"{TRAIN_EPOCHS - k} epochs vs the {TRAIN_EPOCHS}-epoch run: losses, parameters, "
+              f"statistics and nu bit-identical {same}", flush=True)
+        require(same, ("resume", tr2.tolist(), tr.tolist()))
+
+        # (5b) the end-to-end rate: fits whose epochs hold FIT_PASSES passes
+        # over the windows, so that an epoch's fixed costs (a pass's
+        # first-batch stall, validation, the checkpoint, the loss files) are
+        # a small part of the wall; beside them the host's batch assembly
+        # alone over one such epoch
+        timed = []
+        for i in range(FIT_RUNS):
+            (_, tr_t, _, _), t_run, stalls = run(f"timed{i}", FIT_EPOCHS, FIT_PASSES,
+                                                 ledger=tmp / f"timed{i}.jsonl")
+            done_t, epoch_t = epochs_by_ledger(tmp / f"timed{i}.jsonl")
+            require(len(done_t) == FIT_EPOCHS and np.isfinite(tr_t).all(),
+                    ("timed fit", done_t, tr_t.tolist()))
+            timed.append({"fit_s": t_run, "epoch_s": epoch_t, "stall_ms": stalls,
+                          "windows_per_s": n_windows * FIT_PASSES * FIT_EPOCHS / t_run})
+        t0 = time.perf_counter()
+        n_prep = sum(len(b[0]) for b in EpochBatches(train_ds, 5, FIT_PASSES)())
+        t_prep = time.perf_counter() - t0
+        rates = sorted(t["windows_per_s"] for t in timed)
+        d.train.update(timed=timed, host_windows_per_s=n_prep / t_prep,
+                       steps_per_epoch=-(-n_windows * FIT_PASSES // TRAIN_BATCH),
+                       val_steps_per_epoch=-(-n_windows // TRAIN_BATCH))
+        print(f"phase 3f: {FIT_RUNS} timed fits of {FIT_EPOCHS} epochs x {FIT_PASSES} passes "
+              f"over the {n_windows} windows ({d.train['steps_per_epoch']} train steps an "
+              f"epoch): training windows per s {[t['windows_per_s'] for t in timed]} (median "
+              f"{rates[len(rates) // 2]}, spread {rates[-1] / rates[0] - 1:.4f}); wall s "
+              f"{[t['fit_s'] for t in timed]}; epochs by the ledger "
+              f"{[t['epoch_s'] for t in timed]} s; the host's batch assembly alone "
+              f"{n_prep} windows in {t_prep} s = {d.train['host_windows_per_s']} windows per s",
+              flush=True)
+    del state, st, model
+
+    # (6) one train step on the card against the same step on the host
+    x, y = d.train["batch"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, state = canonical_train_state(4, device=dev)
+        before = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        conv_out = bn_inputs(model) if dev == "cpu" else None
+        train_step, _ = make_step_fns(model, "all")
+        state, loss = train_step(state, x, y)
+        out[dev] = (float(loss), {k: v.cpu() for k, v in model.state_dict().items()},
+                    [state.optimizer.state[p]["nu"].cpu() for p in model.parameters()],
+                    [p.grad.cpu() for p in model.parameters()])
+    e = compare_steps(out["cuda"], out["cpu"], before, conv_out,
+                      1.0 - state.optimizer.param_groups[0]["decay"])
+    e["nu_worst"]["tensor"] = [n for n, _ in model.named_parameters()][e["nu_worst"]["tensor"]]
+    print(f"phase 3f: one train step at batch {TRAIN_BATCH}, card vs host: loss {e['loss']:.3e} "
+          f"relative, parameters {e['params']:.3e} and nu {e['nu']:.3e} max-abs (nu's worst "
+          f"tensor: {json.dumps(e['nu_worst'])}); each device's nu against 0.01 g^2 of its own "
+          f"gradient {e['nu_self']:.3e} of itself; BatchNorm statistics {e['stats']:.3e} of "
+          f"themselves plus their conditioning (worst: {json.dumps(e['stats_worst'])}; against "
+          f"the host's value alone the worst: {json.dumps(e['stats_worst_rel'])})", flush=True)
+    require(e["loss"] <= TRAIN_TOL["loss"] and e["params"] <= TRAIN_TOL["params"]
+            and e["nu"] <= TRAIN_TOL["params"] and e["nu_self"] <= TRAIN_TOL["nu"]
+            and e["stats"] <= TRAIN_TOL["stats"], ("card step vs host", e))
+
+    # (7) the bf16 lane: its first loss against the f32 lane's, one epoch
+    losses = {}
+    for precision in ("f32", "bf16"):
+        model, state = canonical_train_state(4)
+        train_step, _ = make_step_fns(model, "all", precision=precision)
+        losses[precision] = float(train_step(state, x, y)[1])
+    e_bf16 = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+    model, state = canonical_train_state(4)
+    xs = [x[i:i + 100] for i in range(0, len(x), 100)]
+    ys = [y[i:i + 100] for i in range(0, len(y), 100)]
+    with tempfile.TemporaryDirectory(prefix="train-bf16-", dir=build) as tmp:
+        state, tr, va, _ = fit(model, state, lambda: zip(xs, ys), lambda: zip(xs[:1], ys[:1]), 1,
+                               save_path=tmp, run_name="bf16", verbose=False, precision="bf16")
+    f32 = all(p.dtype == torch.float32 for p in model.parameters()) and all(
+        b.dtype == torch.float32 for k, b in model.named_buffers() if "running" in k) and all(
+        s["nu"].dtype == torch.float32 for s in state.optimizer.state.values())
+    print(f"phase 3f: bf16 lane: first-step loss {losses['bf16']} vs the f32 lane's "
+          f"{losses['f32']} ({e_bf16:.3e} relative); one epoch of {len(xs)} steps: train loss "
+          f"{tr[0]}, val loss {va[0]}; masters, statistics and nu float32 {f32}", flush=True)
+    require(e_bf16 <= TRAIN_TOL["bf16"] and f32 and np.isfinite(tr[0]),
+            ("bf16 lane", e_bf16, f32, tr[0]))
+    print(f"phase 3f took {time.perf_counter() - t_phase:.1f} s (corpus deleted)", flush=True)
+
+
+def bn_inputs(model) -> dict:
+    """Per channel mean |x| and mean x^2 of every CNN2d conv's output on the
+    model's next forward (the batch its BatchNorm's statistics are taken
+    over), keyed by that BatchNorm's state_dict prefix; filled in place."""
+    from disco_tpu_torch.nn.bricks import CNN2d
+
+    seen = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, CNN2d):
+            continue
+        for i, conv in enumerate(mod.convs):
+            def hook(_m, _inp, x, key=f"{name}.bns.{i}"):
+                if key not in seen:
+                    xf = x.detach().float()
+                    seen[key] = {"abs": xf.abs().mean((0, 2, 3)).cpu(),
+                                 "sq": (xf * xf).mean((0, 2, 3)).cpu()}
+            conv.register_forward_hook(hook)
+    return seen
+
+
+def compare_steps(card, host, before: dict, conv_out: dict, rate: float) -> dict:
+    """One first train step's results on the card against the host's, each
+    (loss, state_dict, nu list, gradient list): the loss's relative error,
+    the parameters' and nu's max-abs; nu element by element against the
+    ``rate * g^2`` of each device's own gradient (the RMSprop update from
+    nu = 0, ``rate`` = 1 - decay); nu's worst tensor card against host; the
+    BatchNorm statistics' error against themselves plus their conditioning
+    (the statistics before the step in ``before``, the conv outputs'
+    moments from :func:`bn_inputs`), its worst element, and the worst
+    element against the host's value alone."""
+    import torch
+
+    (l_c, sd_c, nu_c, g_c), (l_h, sd_h, nu_h, g_h) = card, host
+    r = {"loss": abs(l_c - l_h) / abs(l_h),
+         "params": max(max_abs(sd_c[k], v) for k, v in sd_h.items()
+                       if v.is_floating_point() and "running" not in k)}
+    # nu holds (1 - decay) g^2 of the gradient the step took, element by
+    # element relative to itself (a nu of 0, or of another decay, fails)
+    r["nu_self"] = 0.0
+    for nus, grads in ((nu_c, g_c), (nu_h, g_h)):
+        for n, g in zip(nus, grads):
+            want = rate * g * g
+            err = (n - want).abs()
+            ratio = torch.where(want > 0, err / want.clamp_min(1e-38),
+                                torch.where(err > 0, math.inf, 0.0))
+            r["nu_self"] = max(r["nu_self"], float(ratio.max()))
+    # card against host: the gradients differ by the convolution
+    # algorithms' rounding, and the gradient of a conv bias in front of a
+    # BatchNorm is 0 but for roundoff, so nu is also read against the
+    # model's largest nu, and each gradient against its tensor's largest
+    r["nu"] = max(max_abs(a, b) for a, b in zip(nu_c, nu_h))
+    top = max(float(b.abs().max()) for b in nu_h)
+    nu_rel = [float(((a - b).abs() / (b.abs() + top)).max()) for a, b in zip(nu_c, nu_h)]
+    grad_rel = [max_abs(a, b) / max(float(b.abs().max()), 1e-38) for a, b in zip(g_c, g_h)]
+    i = int(np.argmax(nu_rel))
+    r["nu_worst"] = {"tensor": i, "of_itself_plus_largest": nu_rel[i],
+                     "its_gradient_err_of_its_largest": grad_rel[i],
+                     "largest_nu": float(nu_h[i].abs().max()), "model_largest_nu": top}
+    # a statistic's update 0.9 * old + 0.1 * batch sums terms of magnitude
+    # 0.9 |old| and 0.1 mean|x| (a mean) or 0.1 mean x^2 (a variance, flax's
+    # E[x^2] - E[x]^2), x that channel's conv output: its conditioning
+    stats = []
+    for k, v in sd_h.items():
+        if "running" not in k:
+            continue
+        layer, kind = k.rsplit(".", 1)
+        cond = 0.9 * before[k].abs() + 0.1 * conv_out[layer]["abs" if kind == "running_mean"
+                                                             else "sq"]
+        err = (sd_c[k] - v).abs()
+        ratio = err / (v.abs() + cond)
+        c = int(ratio.argmax())
+        rel = err / v.abs().clamp_min(1e-30)
+        j = int(rel.argmax())
+        stats.append({"key": k, "channel": c, "ratio": float(ratio[c]), "err": float(err[c]),
+                      "host": float(v[c]), "cond": float(cond[c]),
+                      "worst_rel": {"key": k, "channel": j, "rel": float(rel[j]),
+                                    "err": float(err[j]), "host": float(v[j]),
+                                    "cond": float(cond[j])}})
+    worst = max(stats, key=lambda e: e["ratio"])
+    r["stats"] = worst["ratio"]
+    r["stats_worst"] = {k: v for k, v in worst.items() if k != "worst_rel"}
+    r["stats_worst_rel"] = max((e["worst_rel"] for e in stats), key=lambda e: e["rel"])
+    return r
+
+
+def crnn_train_cost(batch: int, n_ch: int, win: int = 21, win_out: int = 15) -> float:
+    """Operations of one train step of the canonical CRNN on ``batch``
+    windows: the forward (three 3x3 convs over the window, the GRU's 15
+    steps, the FF on each of its 15 frames) times 3, for the backward's
+    products with respect to the inputs and to the weights."""
+    flops, t, f, c_in = 0.0, win, 257, n_ch
+    for c_out in (32, 64, 64):
+        t -= 2
+        flops += 2 * batch * c_out * t * f * c_in * 9
+        f, c_in = f // 4, c_out
+    steps = batch * win_out
+    return 3 * (flops + steps * (2 * 3 * 256 * (f * c_in + 256) + 2 * 256 * 257))
+
+
+def phase5_training(d: SimpleNamespace) -> None:
+    """CUDA-event times (median of 5) of one train step and one eval step
+    of the canonical CRNN at batch 500, for n_ch 4 and 1 in both lanes, the
+    rate by the CRNN's shapes, the cost of cuDNN's deterministic
+    algorithms, and phase 3f's fit rate and prefetch stalls."""
+    import torch
+
+    from disco_tpu_torch.nn import training
+
+    x, y = d.train["batch"]
+    rows = {}
+    for n_ch in (4, 1):
+        xb = torch.as_tensor(np.ascontiguousarray(x[:, :n_ch]), device=d.dev)
+        yb = torch.as_tensor(y, device=d.dev)
+        for precision in ("f32", "bf16"):
+            model, state = canonical_train_state(n_ch)
+            train_step, eval_step = training.make_step_fns(model, "all", precision=precision)
+            row = {}
+            for label, fn in (("train_step", lambda: train_step(state, xb, yb)),
+                              ("eval_step", lambda: eval_step(state, xb, yb))):
+                fn()
+                row[f"{label}_ms_runs"] = sorted(time_ms(fn, reps=1, warmup=0) for _ in range(5))
+                row[f"{label}_ms"] = row[f"{label}_ms_runs"][2]
+            fl = crnn_train_cost(TRAIN_BATCH, n_ch)
+            row["train_tflop"] = fl / 1e12
+            row["train_tflop_per_s"] = fl / (row["train_step_ms"] / 1e3) / 1e12
+            row["windows_per_s_by_step"] = TRAIN_BATCH / (row["train_step_ms"] / 1e3)
+            rows[f"n_ch {n_ch}, {precision}"] = row
+            print(f"phase 5: training, n_ch {n_ch}, {precision} lane, batch {TRAIN_BATCH}: "
+                  + json.dumps(row), flush=True)
+            if n_ch == 4 and precision == "f32":
+                # the same step with cuDNN free to pick any algorithm and autotune
+                saved = training.deterministic_cudnn
+
+                @contextmanager
+                def free():
+                    before = torch.backends.cudnn.benchmark
+                    torch.backends.cudnn.benchmark = True
+                    try:
+                        yield
+                    finally:
+                        torch.backends.cudnn.benchmark = before
+                training.deterministic_cudnn = free
+                try:
+                    fast_step, _ = training.make_step_fns(model, "all")
+                    fn = lambda: fast_step(state, xb, yb)  # noqa: E731
+                    for _ in range(3):
+                        fn()
+                    free_runs = sorted(time_ms(fn, reps=1, warmup=0) for _ in range(5))
+                finally:
+                    training.deterministic_cudnn = saved
+                print(f"phase 5: training, the cost of cuDNN determinism (n_ch 4, f32): train "
+                      f"step {row['train_step_ms']} ms deterministic vs {free_runs[2]} ms with "
+                      f"cuDNN's free choice and autotuning (median of {free_runs})", flush=True)
+            del model, state
+    t = d.train
+    rates = sorted(r["windows_per_s"] for r in t["timed"])
+    f32 = rows["n_ch 4, f32"]
+    # the steps' card time an epoch by their event medians, against its wall
+    card_s = (t["steps_per_epoch"] * f32["train_step_ms"]
+              + t["val_steps_per_epoch"] * f32["eval_step_ms"]) / 1e3
+    epochs = [e for r in t["timed"] for e in r["epoch_s"]]
+    stalls = [s for r in t["timed"] for s in r["stall_ms"]]
+    print(f"phase 5: training end to end (phase 3f's {len(rates)} timed fits of {FIT_EPOCHS} "
+          f"epochs x {FIT_PASSES} passes over {t['windows_per_epoch']} windows, with "
+          f"validation, checkpoints and host batch assembly): {rates[len(rates) // 2]} training "
+          f"windows per s (median; runs {rates}, spread {rates[-1] / rates[0] - 1:.4f}); the "
+          f"host's batch assembly alone {t['host_windows_per_s']} windows per s; an epoch "
+          f"{float(np.median(epochs))} s (median of {len(epochs)}) of which the steps' card "
+          f"time by their events {card_s} s (share {card_s / float(np.median(epochs)):.4f}); "
+          f"prefetch stall ms per batch: median {float(np.median(stalls))}, total "
+          f"{sum(stalls)} over {len(stalls)} batches", flush=True)
+    d.train_rows = rows
+
+
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
@@ -1474,6 +2002,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     del yb, sb, nb
     phase5_crnn_mask_stage(d)
     phase5_corpus(d)
+    phase5_training(d)
 
     # streaming: windows 2..9 again from the state after window 1, each
     # timed on the host clock to its synchronize (the latency a caller sees)
@@ -1542,6 +2071,8 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "device_ms": device_ms(lambda: stft_ops.stft_kernel(xb, with_mag=True),
                                "stft_rfft_kernel", reps=5),
         "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes,
+        "library_ms": time_ms(lambda: torch.stft(rows_b, 512, 256, window=win, center=True,
+                                                 pad_mode="reflect", return_complex=True), reps=5),
     }]
     fl, nbytes = stft_bf16_cost(rows_b.shape[0], d.L)
     frames16 = (torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256)
@@ -1799,7 +2330,7 @@ def profiled(label: str, fn) -> None:
 
 def phase6_breakdown(d: SimpleNamespace) -> None:
     """Where the time of one 16-clip offline call, of the 16-clip CRNN mask
-    stage and of one streaming window goes."""
+    stage, of one streaming window and of three train steps goes."""
     from disco_tpu_torch.enhance.driver import _batched_masks
     from disco_tpu_torch.enhance.fused import tango_clip_fused
 
@@ -1812,6 +2343,15 @@ def phase6_breakdown(d: SimpleNamespace) -> None:
     profiled(f"the {BATCH}-clip CRNN mask stage (_batched_masks)",
              lambda: _batched_masks(*d.crnn_batch, d.crnn, "irm1", 1.0, K, "zs_hat"))
     profiled("one streaming window (window 2)", lambda: stream_windows(d, 1, 2, d.stream_state_1))
+    import torch
+
+    from disco_tpu_torch.nn.training import make_step_fns
+
+    model, state = canonical_train_state(4)
+    train_step, _ = make_step_fns(model, "all")
+    xb, yb = (torch.as_tensor(a, device=d.dev) for a in d.train["batch"])
+    profiled(f"three train steps of the canonical CRNN, n_ch 4, batch {TRAIN_BATCH}",
+             lambda: [train_step(state, xb, yb) for _ in range(3)])
 
 
 def _launches(d: SimpleNamespace, name: str) -> dict:
@@ -1848,6 +2388,7 @@ def main() -> int:
     phase3_offline_path(d)
     phase3d_crnn_masked_clip(d)
     phase3e_corpus(d)
+    phase3f_training(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

@@ -15,7 +15,9 @@ Device rule.  Entry points (``enhance.tango.tango``,
 ``enhance.driver.estimate_masks`` and ``_batched_masks``, the corpus
 driver ``enhance.driver.enhance_rir``, ``enhance_rirs_batched`` and
 ``make_batch_runners``, ``enhance.zexport.export_z``, and
-``enhance.separation``) run on ``"cuda"`` unless the caller passes
+``enhance.separation``, the training-data pass
+``datagen.postgen.PostGenerator`` and the training loop
+``nn.training.fit``) run on ``"cuda"`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they
 raise ``RuntimeError`` — they never move to the CPU silently.  Below the
 entry points every kernel wrapper routes by the device of the tensor it is
@@ -35,8 +37,11 @@ the points ``ops/resolve.py`` lists and accumulates in float32.
 Weights and state.  The two-step TANGO paths have no learned
 parameters (the DFT/IDFT/Hann tables are computed); the CRNN mask
 estimators of ``nn`` do, and weights of the JAX package's flax modules
-cross through ``nn.convert.state_dict_from_flax``.  A model is never moved
-to the call's device: one on another device raises ValueError.  The
+cross through ``nn.convert.state_dict_from_flax`` (and back through
+``flax_from_state_dict``); training checkpoints are the JAX package's
+msgpack files, written and read by ``nn.serialization``.  A model is
+never moved to the call's device: one on another device raises
+ValueError.  The
 streaming continuation state crosses through
 ``enhance.streaming.state_from_numpy`` (and back through
 ``state_to_numpy``).

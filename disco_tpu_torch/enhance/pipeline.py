@@ -97,7 +97,11 @@ class ChunkPrefetcher:
     def __init__(self, work, load_chunk, depth: int = 2, stop_requested=None):
         if depth < 2:
             raise ValueError(f"ChunkPrefetcher needs depth >= 2 (double buffering), got {depth}")
-        self._work = list(work)  # a snapshot, safe from caller mutation
+        # a generator stays lazy and is drained ON the loader thread (the
+        # training batch feed, nn.training._prefetch_host_batches, does its
+        # numpy prep inside next()); finite lists are snapshotted against
+        # caller mutation
+        self._work = work if hasattr(work, "__next__") else list(work)
         self._load = load_chunk
         self._stop = threading.Event()
         self._stop_requested = stop_requested or (lambda: False)

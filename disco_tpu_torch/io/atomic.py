@@ -15,9 +15,10 @@ verified-resume checks (``disco_tpu_torch.runs.ledger``) and by the
 validate-before-skip idempotency guards.  :func:`file_digest` provides the
 sidecar digest the run ledger records per artifact.
 
-The JAX package also probes flax ``.msgpack`` checkpoints; that probe needs
-flax, which the port does not import, so ``.msgpack`` files fall to the
-non-empty check of :func:`probe_artifact` until model promotion is ported.
+``.msgpack`` files (flax checkpoints of either package) are probed by a
+full decode with the port's own msgpack reader
+(:mod:`disco_tpu_torch.nn.serialization`), as the JAX package probes them
+with flax's.
 
 No reference counterpart: the reference writes everything in place and its
 restart story is "delete the partial output by hand" (SURVEY.md §5.3).
@@ -244,6 +245,19 @@ def probe_pickle(path) -> bool:
         return False
 
 
+def probe_msgpack(path) -> bool:
+    """True iff ``path`` decodes as one complete flax-serialization msgpack
+    value (structure only — whether it fits a model is the loader's job,
+    ``nn.training.load_checkpoint``)."""
+    from disco_tpu_torch.nn.serialization import unpackb
+
+    try:
+        unpackb(Path(path).read_bytes())
+        return True
+    except Exception:
+        return False
+
+
 #: Probe dispatch by suffix (:func:`probe_artifact`).
 _PROBES = {
     ".wav": probe_wav,
@@ -252,6 +266,7 @@ _PROBES = {
     ".p": probe_pickle,
     ".pkl": probe_pickle,
     ".pickle": probe_pickle,
+    ".msgpack": probe_msgpack,
 }
 
 

@@ -127,7 +127,11 @@ class RNN(nn.Module):
     ``nn.RNN``/``nn.LSTM``/``nn.GRU`` (bidirectional outputs concatenated
     [forward, backward]), with per-layer dropout forced to 0 on the last
     layer (nn_structures.py:122-126).  Every layer starts from a zero
-    state, as flax's ``nn.RNN`` does."""
+    state, as flax's ``nn.RNN`` does.  The biases that flax's cells do not
+    have (a GRU's hidden-side r and z rows, an LSTM's input-side biases, a
+    simple cell's hidden-side bias) are 0 from construction, so every
+    port module is a flax module's weights; training keeps them at 0
+    (``nn.convert.flax_absent``)."""
 
     def __init__(self, in_features: int, features, cell_type: str = "gru", dropouts=0.0,
                  bidirectional=False):
@@ -144,7 +148,16 @@ class RNN(nn.Module):
         self.dropouts = nn.ModuleList()
         width = in_features
         for units, drop, bidi in zip(features, drops, self.bidirectional):
-            self.layers.append(cell_cls(width, units, batch_first=True, bidirectional=bidi))
+            layer = cell_cls(width, units, batch_first=True, bidirectional=bidi)
+            with torch.no_grad():
+                for suffix in ("", "_reverse") if bidi else ("",):
+                    if self.cell_type == "gru":
+                        getattr(layer, f"bias_hh_l0{suffix}")[:2 * units] = 0.0
+                    elif self.cell_type == "lstm":
+                        getattr(layer, f"bias_ih_l0{suffix}").zero_()
+                    else:
+                        getattr(layer, f"bias_hh_l0{suffix}").zero_()
+            self.layers.append(layer)
             self.dropouts.append(nn.Dropout(float(drop)) if drop else nn.Identity())
             width = units * (2 if bidi else 1)
         self.out_features = width
@@ -155,13 +168,42 @@ class RNN(nn.Module):
         return x
 
 
+def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.BatchNorm(momentum=0.9)`` on (B, C, H, W) with ``bn``'s
+    parameters and running statistics: in training mode the batch's
+    statistics, computed in float32 as flax computes them (the mean and the
+    mean square, ``var = max(0, E[x^2] - E[x]^2)``, the biased variance),
+    normalize ``x`` and update the running statistics as
+    ``0.9 * running + 0.1 * batch``.  ``torch.nn.BatchNorm2d`` would update
+    ``running_var`` with the unbiased variance, n/(n-1) times flax's.  In
+    eval mode the running statistics normalize.  The arithmetic is float32
+    whatever ``x``'s dtype (flax's float32 reductions; the bf16 lane's
+    statistics stay float32), and the result takes ``x``'s dtype."""
+    xf = x.float()
+    if bn.training:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = 1.0 - bn.momentum  # flax's momentum
+            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias.float()[:, None, None]
+    return y.to(x.dtype)
+
+
 class CNN2d(nn.Module):
     """Conv2d → BatchNorm2d → pool stack over (batch, channels, time, freq)
     (nn_structures.py:162-217).  Integer paddings follow torch semantics
     (a zero-pad of (pad_t, pad_f) on both sides); pools are unpadded and
     a ``pool_strides`` entry of None means the pool kernel.  BatchNorm's
     epsilon is flax's and torch's 1e-5; its momentum 0.1 is flax's 0.9
-    written the torch way."""
+    written the torch way.  In training mode, and in eval mode on operands
+    of another dtype than the running statistics (the bf16 lane), the
+    BatchNorms run flax's arithmetic (:func:`flax_batch_norm`); float32
+    inference runs ``torch.nn.BatchNorm2d`` itself."""
 
     def __init__(self, in_channels: int, features, conv_kernels=3, conv_strides=1,
                  pool_kernels=None, pool_strides=None, conv_padding=0, pool_types="max",
@@ -195,7 +237,12 @@ class CNN2d(nn.Module):
 
     def forward(self, x):
         for conv, bn, pool in zip(self.convs, self.bns, self.pools):
-            x = pool(bn(conv(x)))
+            x = conv(x)
+            if bn.training or x.dtype != bn.running_mean.dtype:
+                x = flax_batch_norm(bn, x)
+            else:
+                x = bn(x)
+            x = pool(x)
         return x
 
 

@@ -19,8 +19,15 @@ The conventions, each pinned by a parity test against the JAX package:
 * ``SimpleCell``: ``i`` (with bias) → ``*_ih``, ``h`` (no bias) →
   ``*_hh`` with a zero ``bias_hh``.
 
-Weights saved as msgpack by the JAX package's generation store are not
-read here yet (the card has neither ``msgpack`` nor ``flax``).
+:func:`flax_from_state_dict` is the way back: a module's ``state_dict``
+(or any name → tensor map over its parameters, such as the optimizer's
+``nu``) as the flax variable tree, for checkpoints the JAX package reads.
+Rows that flax does not have — a GRU's hidden-side r/z biases, an LSTM's
+input-side biases, a simple cell's hidden-side bias — are left out; they
+are held at 0 in training (:func:`flax_absent`).  The msgpack files of the
+JAX package (``nn/training.py`` checkpoints, ``promote/store.py``
+generations) decode with :mod:`.serialization`, which needs neither
+``msgpack`` nor ``flax``.
 """
 from __future__ import annotations
 
@@ -125,3 +132,122 @@ def state_dict_from_flax(variables, model: torch.nn.Module) -> dict:
             raise ValueError(f"{key}: flax gives {tuple(v.shape)}, the model holds "
                              f"{tuple(want[key].shape)}")
     return out
+
+
+# ---------------------------------------------------------------- way back
+def flax_absent(model: torch.nn.Module) -> list:
+    """``(parameter name, row slice)`` of every block of the port's
+    parameters that the flax module does not have: the r and z rows of a
+    GRU's ``bias_hh``, an LSTM's ``bias_ih`` and a simple cell's
+    ``bias_hh``.  They are 0 in a converted model; training zeroes their
+    gradients so they stay 0 and the model stays the flax module's."""
+    out = []
+    rnn = getattr(model, "rnn", None)
+    if rnn is None:
+        return out
+    for i, bidi in enumerate(rnn.bidirectional):
+        layer = rnn.layers[i]
+        for suffix in ("", "_reverse") if bidi else ("",):
+            if rnn.cell_type == "gru":
+                out.append((f"rnn.layers.{i}.bias_hh_l0{suffix}", slice(0, 2 * layer.hidden_size)))
+            elif rnn.cell_type == "lstm":
+                out.append((f"rnn.layers.{i}.bias_ih_l0{suffix}", slice(None)))
+            else:
+                out.append((f"rnn.layers.{i}.bias_hh_l0{suffix}", slice(None)))
+    return out
+
+
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy()) if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _cnn_back(sd, cnn: CNN2d, prefix: str) -> tuple[dict, dict]:
+    params, stats = {}, {}
+    for i, conv in enumerate(cnn.convs):
+        p = {"kernel": np.ascontiguousarray(np.transpose(_np(sd[f"{prefix}convs.{i}.weight"]),
+                                                         (2, 3, 1, 0)))}
+        if conv.bias is not None:
+            p["bias"] = _np(sd[f"{prefix}convs.{i}.bias"])
+        params[f"Conv_{i}"] = p
+        params[f"BatchNorm_{i}"] = {"bias": _np(sd[f"{prefix}bns.{i}.bias"]),
+                                    "scale": _np(sd[f"{prefix}bns.{i}.weight"])}
+        key = f"{prefix}bns.{i}.running_mean"
+        if key in sd:
+            stats[f"BatchNorm_{i}"] = {"mean": _np(sd[key]),
+                                       "var": _np(sd[f"{prefix}bns.{i}.running_var"])}
+    return params, stats
+
+
+def _cell_back(w: dict, cell_type: str) -> dict:
+    """torch's (weight_ih, weight_hh, bias_ih, bias_hh) of one direction of
+    one layer as one flax cell's params."""
+    def dense(mat, bias=None):
+        d = {"kernel": np.ascontiguousarray(mat.T)}
+        if bias is not None:
+            d["bias"] = bias
+        return d
+
+    wi, wh, bi, bh = (_np(w[k]) for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    if cell_type == "gru":
+        h = wh.shape[1]
+        rows = {g: slice(j * h, (j + 1) * h) for j, g in enumerate("rzn")}
+        out = {f"i{g}": dense(wi[rows[g]], bi[rows[g]]) for g in "rzn"}
+        out.update({f"h{g}": dense(wh[rows[g]]) for g in "rz"})
+        out["hn"] = dense(wh[rows["n"]], bh[rows["n"]])
+        return out
+    if cell_type == "lstm":
+        h = wh.shape[1]
+        out = {}
+        for j, g in enumerate("ifgo"):
+            rows = slice(j * h, (j + 1) * h)
+            out[f"i{g}"] = dense(wi[rows])
+            out[f"h{g}"] = dense(wh[rows], bh[rows])
+        return out
+    return {"i": dense(wi, bi), "h": dense(wh)}
+
+
+def _rnn_back(sd, rnn: RNN, prefix: str) -> dict:
+    out, cell_no = {}, 0
+    name = _CELL_NAMES[rnn.cell_type]
+    for i, bidi in enumerate(rnn.bidirectional):
+        for suffix in ("", "_reverse") if bidi else ("",):
+            w = {k: sd[f"{prefix}layers.{i}.{k}_l0{suffix}"]
+                 for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+            out[f"{name}_{cell_no}"] = _cell_back(w, rnn.cell_type)
+            cell_no += 1
+    return out
+
+
+def _ff_back(sd, ff: FF, prefix: str) -> dict:
+    return {f"Dense_{i}": {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}layers.{i}.weight"]).T),
+                           "bias": _np(sd[f"{prefix}layers.{i}.bias"])}
+            for i in range(len(ff.layers))}
+
+
+def flax_from_state_dict(state_dict, model: torch.nn.Module) -> dict:
+    """The inverse of :func:`state_dict_from_flax`: ``{'params': …,
+    'batch_stats': …}`` as nested dicts of float32 numpy arrays, in the
+    layout of the JAX package's module of ``model``'s configuration.
+    ``state_dict`` may hold the parameters only (a map over
+    ``model.named_parameters()``, e.g. the optimizer's ``nu``): then
+    ``batch_stats`` is empty.  The rows of :func:`flax_absent` are dropped."""
+    sd = dict(state_dict)
+    params, stats = {}, {}
+    if hasattr(model, "cnn"):
+        params["CNN2d_0"], cnn_stats = _cnn_back(sd, model.cnn, "cnn.")
+        if cnn_stats:
+            stats["CNN2d_0"] = cnn_stats
+    params["RNN_0"] = _rnn_back(sd, model.rnn, "rnn.")
+    params["FF_0"] = _ff_back(sd, model.ff, "ff.")
+    return {"params": params, "batch_stats": stats}
+
+
+def params_from_flax(params, model: torch.nn.Module) -> dict:
+    """``{parameter name: tensor}`` over ``model.named_parameters()`` from
+    a flax params tree (the ``params`` of a checkpoint, or optax's ``nu``,
+    which has the same layout).  The rows of :func:`flax_absent` are 0."""
+    stats = flax_from_state_dict(model.state_dict(), model)["batch_stats"]
+    sd = state_dict_from_flax({"params": params, "batch_stats": stats}, model)
+    names = dict(model.named_parameters())
+    return {k: v for k, v in sd.items() if k in names}

@@ -1,0 +1,551 @@
+"""Training engine (counterpart of ``disco_tpu/nn/training.py``; reference
+dnn/engine/train.py, dnn/engine/callbacks.py, dnn/utils.py:155-294).
+
+The step is the reference's per-batch logic — forward, frame-aligned
+masked MSE, RMSprop step (dnn/utils.py:249-294) — over a small
+:class:`TrainState` (the module, which holds the parameters and the
+BatchNorm statistics; its optimizer, which holds ``nu``; the step count;
+a generator for dropout).  Where the JAX package returns a new state, the
+port's ``train_step`` updates the state in place and returns it.  The
+epoch loop, best-model gate (:class:`SaveAndStop`), loss histories and
+checkpoint/resume follow train.py:110-158 and callbacks.py:4-56 as the
+JAX package does.
+
+Checkpoints are the JAX package's files: the msgpack tree that
+``flax.serialization.to_bytes`` writes,
+
+    {params, batch_stats, opt_state, step, train_loss, val_loss, epochs_done}
+
+with ``params``/``batch_stats`` in the flax module's layout
+(:func:`~disco_tpu_torch.nn.convert.flax_from_state_dict`) and
+``opt_state`` optax's: ``{'0': {'nu': <params tree>}, '1': {}, '2': {}}``
+for RMSprop, nested as ``{'0': {}, '1': <that>}`` behind
+``clip_by_global_norm``.  A checkpoint written by either package resumes in
+the other (:mod:`.serialization` reads and writes them without msgpack or
+flax).
+
+Not carried over:
+
+* the JAX package memoizes its jitted step pair and offers
+  ``clear_step_fn_caches``; both exist against jit retraces, and an eager
+  step has nothing to retrace;
+* ``mesh`` (data-parallel steps) comes with multi-GPU (ROADMAP Queue 1,
+  item 8), and ``promote_dir``/``publish_checkpoint`` with serving and
+  promotion (item 6): both raise ``NotImplementedError``;
+* the obs counters, gauges and events of ``fit`` (``train_steps``,
+  ``train_loss``, ``val_loss``, ``train_empty_epochs``, the ``epoch`` and
+  ``warning`` events; item 7).
+
+Determinism.  Some cuDNN backward algorithms reduce with atomics, so two
+runs of one step could differ in their last bits, and a resumed run could
+drift from an uninterrupted one.  Every step therefore runs with
+``torch.backends.cudnn.deterministic = True`` and ``benchmark = False``,
+set around the step and restored after it (:func:`deterministic_cudnn`),
+never at import.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import string
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from disco_tpu_torch.device import check_module_device, prefetch_to_device, resolve_device
+from disco_tpu_torch.nn.convert import (
+    flax_absent,
+    flax_from_state_dict,
+    params_from_flax,
+    state_dict_from_flax,
+)
+from disco_tpu_torch.nn.losses import reconstruction_loss
+from disco_tpu_torch.nn.optim import RMSprop
+from disco_tpu_torch.nn.serialization import packb, unpackb
+from disco_tpu_torch.ops.resolve import compute_dtype, resolve_precision
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training step reads and writes: ``model`` (parameters and
+    BatchNorm running statistics), ``optimizer`` (an
+    :class:`~disco_tpu_torch.nn.optim.RMSprop` over the model's parameters,
+    holding ``nu``), ``step`` (steps taken) and ``generator`` (a CPU
+    ``torch.Generator`` that seeds each step's dropout, the counterpart of
+    the JAX state's ``dropout_rng``)."""
+
+    model: nn.Module
+    optimizer: RMSprop
+    step: int = 0
+    generator: torch.Generator | None = None
+
+
+def create_train_state(model: nn.Module, tx: RMSprop, sample_input=None,
+                       seed: int = 0) -> TrainState:
+    """The training state of ``model`` and its optimizer ``tx``
+    (:func:`~disco_tpu_torch.nn.optim.build_optimizer`).  The JAX package
+    initializes the parameters here from ``seed``; the port's modules are
+    initialized by their constructors (seed torch before building them, or
+    load weights), and ``seed`` seeds the dropout generator.
+    ``sample_input``, when given, runs once through the model in eval mode
+    without gradients, which checks its shape and changes nothing."""
+    owned = {id(p) for p in model.parameters()}
+    given = [p for group in tx.param_groups for p in group["params"]]
+    if {id(p) for p in given} != owned or len(given) != len(owned):
+        raise ValueError("the optimizer must hold exactly the model's parameters")
+    if sample_input is not None:
+        dev = next(model.parameters()).device
+        was_training = model.training
+        with torch.no_grad():
+            model.eval()(_as_tensor(sample_input, dev))
+        model.train(was_training)
+    return TrainState(model=model, optimizer=tx, step=0,
+                      generator=torch.Generator().manual_seed(int(seed)))
+
+
+def _x_for_loss(x, bounds, n_freq=257):
+    """Frame-align a tensor for the loss: first channel of 4-D inputs, frame
+    slice, freq crop; single frames squeezed (reference
+    dnn/utils.py:212-246)."""
+    ff, lf = bounds
+    if x.ndim == 4:
+        x = x[:, 0]
+    x = x[:, ff:lf, :n_freq]
+    return x[:, 0, :] if lf - ff == 1 else x
+
+
+def _as_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A batch array as a float32 tensor on ``dev``: numpy is copied there,
+    a tensor must already lie on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != dev.type:
+            raise ValueError(f"a batch on {a.device} given to a step on {dev}")
+        return a
+    return torch.as_tensor(np.asarray(a), device=dev)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms and no autotuning for the body;
+    the previous settings come back after it."""
+    cudnn = torch.backends.cudnn
+    before = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before
+
+
+@contextlib.contextmanager
+def _dropout_seeded(state: TrainState, dev: torch.device, active: bool):
+    """Seed torch's generator of ``dev`` from the state's generator for one
+    step's dropout, restoring the global generator after it.  A model
+    without active dropout draws nothing."""
+    if not active:
+        yield
+        return
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.generator))
+    devices = [dev.index if dev.index is not None else torch.cuda.current_device()] \
+        if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(seed)
+        yield
+
+
+def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
+                  precision: str = "f32"):
+    """(train_step, eval_step) over a :class:`TrainState` and (x, y)
+    batches (reference dnn/utils.py:249-294).  ``train_step(state, x, y)``
+    takes one RMSprop step, updates ``state`` in place and returns
+    ``(state, loss)``; ``eval_step(state, x, y)`` returns the loss in eval
+    mode without gradients.  Batches are numpy arrays (copied to the
+    model's device) or tensors on it; the loss is a 0-d float32 tensor on
+    the device, never read back by the step.
+
+    ``output_frames``: 'all' | 'mid' | 'last' | an int, the frames that
+    enter the loss (:meth:`~disco_tpu_torch.nn.crnn.CRNN.loss_frames`).
+
+    ``precision``: ``'f32'`` (default) or ``'bf16'``, the JAX package's
+    mixed-precision lane (training.py:189-209): the forward runs on bf16
+    copies of the float32 master parameters
+    (``torch.func.functional_call``) and on bf16 inputs, so the gradients
+    land on the float32 masters; the estimate is cast to float32 before the
+    loss; BatchNorm's running statistics and the optimizer's ``nu`` stay
+    float32.  (``autocast`` is not used: its op-by-op casting rules are not
+    the JAX lane's.)
+
+    The gradients of the rows flax does not have (:func:`~disco_tpu_torch.
+    nn.convert.flax_absent`) are zeroed before the update, so those rows
+    stay 0.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 8).
+    """
+    if mesh is not None:
+        raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
+                                  "ROADMAP Queue 1, item 8")
+    precision = resolve_precision(precision)
+    in_bounds, out_bounds = model.loss_frames(output_frames)
+    n_freq = n_freq or model.input_shape[-1]
+    cdtype = compute_dtype(precision)
+    params = dict(model.named_parameters())
+    absent = [(params[name], rows) for name, rows in flax_absent(model)]
+    dropout = any(isinstance(m, nn.Dropout) and m.p > 0 for m in model.modules())
+
+    def forward(x):
+        if precision == "bf16":
+            copies = {k: v.to(cdtype) for k, v in params.items()}
+            return functional_call(model, copies, (x.to(cdtype),)).float()
+        return model(x)
+
+    def loss_of(x, y):
+        est = forward(x)
+        return reconstruction_loss(
+            _x_for_loss(y, in_bounds, n_freq),
+            _x_for_loss(est, out_bounds, n_freq),
+            _x_for_loss(x, in_bounds, n_freq),
+        )
+
+    def train_step(state: TrainState, x, y):
+        dev = next(iter(params.values())).device
+        x, y = _as_tensor(x, dev), _as_tensor(y, dev)
+        model.train()
+        with deterministic_cudnn():
+            with _dropout_seeded(state, dev, dropout):
+                loss = loss_of(x, y)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            with torch.no_grad():
+                for p, rows in absent:
+                    if p.grad is not None:
+                        p.grad[rows] = 0.0
+            state.optimizer.step()
+        state.step += 1
+        return state, loss.detach()
+
+    def eval_step(state: TrainState, x, y):
+        dev = next(iter(params.values())).device
+        x, y = _as_tensor(x, dev), _as_tensor(y, dev)
+        model.eval()
+        with torch.no_grad(), deterministic_cudnn():
+            return loss_of(x, y)
+
+    return train_step, eval_step
+
+
+class SaveAndStop:
+    """Best-model gate + early stopping (reference callbacks.py:4-56, its
+    SyntaxError at :51 not reproduced, as in the JAX package)."""
+
+    def __init__(self, patience=np.inf, mode="min", delta=0):
+        if mode not in ("min", "max"):
+            raise ValueError('`mode` can be only "min" or "max"')
+        self.waited = 0
+        self.patience = patience
+        self.mode = mode
+        self.delta = delta
+        self.current_value = np.inf if mode == "min" else -np.inf
+
+    def save_model_query(self, value):
+        improved = (
+            value < self.current_value - self.delta
+            if self.mode == "min"
+            else value > self.current_value + self.delta
+        )
+        if improved:
+            self.current_value = value
+            self.waited = 0
+        else:
+            self.waited += 1
+        return improved
+
+    def early_stop_query(self):
+        return self.waited > self.patience
+
+
+def get_model_name(model_name=None):
+    """4-char pseudo-random run name; '_retrain' suffix on resume
+    (reference dnn/utils.py:178-186)."""
+    if model_name is None:
+        chars = string.ascii_letters + string.digits
+        seed = int(str(time.time()).replace(".", "")[-4:])
+        return "".join(chars[(seed + 7 * i) % len(chars)] for i in range(4))
+    return Path(model_name).name.split("_model")[0] + "_retrain"
+
+
+# -- checkpointing ----------------------------------------------------------
+class CheckpointError(RuntimeError):
+    """A checkpoint file could not be restored (missing, truncated, or not
+    a compatible payload).  The message names the path."""
+
+
+def _rms_state(nu: dict) -> dict:
+    return {"0": {"nu": nu}, "1": {}, "2": {}}
+
+
+def _opt_state_tree(state: TrainState) -> dict:
+    """The optimizer's state as optax's ``opt_state`` of the JAX package's
+    ``tx``, in flax's state-dict form."""
+    named = {}
+    for name, p in state.model.named_parameters():
+        nu = state.optimizer.state.get(p, {}).get("nu")
+        named[name] = nu if nu is not None else torch.zeros_like(p)
+    tree = _rms_state(flax_from_state_dict(named, state.model)["params"])
+    return {"0": {}, "1": tree} if state.optimizer.clip_norm is not None else tree
+
+
+def _nu_of(opt_state: dict, clipped: bool) -> dict:
+    """The ``nu`` tree out of an ``opt_state`` of the optimizer's shape;
+    ValueError when the chain differs (clipping in one and not the other)."""
+    rms = opt_state
+    if clipped:
+        if set(opt_state) != {"0", "1"} or opt_state["0"] != {}:
+            raise ValueError("the checkpoint's optimizer has no clip_by_global_norm; "
+                             "this one clips")
+        rms = opt_state["1"]
+    if set(rms) != {"0", "1", "2"} or set(rms["0"]) != {"nu"}:
+        raise ValueError("the checkpoint's optimizer state is not rmsprop's"
+                         + ("" if clipped else " (does it clip? this optimizer does not)"))
+    return rms["0"]["nu"]
+
+
+def save_checkpoint(path, state: TrainState, train_losses, val_losses,
+                    epochs_done: int | None = None):
+    """Write the model, optimizer state and loss histories to one msgpack
+    file, the JAX package's checkpoint (the torch.save dict of reference
+    train.py:147-156), atomically (``disco_tpu_torch.io.atomic``).
+
+    ``epochs_done`` is the number of completed epochs that the
+    zero-padded loss histories cover, stored explicitly; None records the
+    histories' length with trailing zeros trimmed."""
+    from disco_tpu_torch.io.atomic import write_bytes_atomic
+
+    if epochs_done is None:
+        epochs_done = int(np.trim_zeros(np.asarray(train_losses), "b").size)
+    variables = flax_from_state_dict(state.model.state_dict(), state.model)
+    payload = {
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "opt_state": _opt_state_tree(state),
+        "step": np.asarray(int(state.step), np.int32),
+        "train_loss": np.asarray(train_losses, np.float64),
+        "val_loss": np.asarray(val_losses, np.float64),
+        "epochs_done": np.asarray(int(epochs_done), np.int32),
+    }
+    write_bytes_atomic(path, packb(payload))
+
+
+def load_checkpoint(path, state: TrainState):
+    """Restore a checkpoint (written by either package) into ``state``;
+    returns (state, train_losses, val_losses) cut to the completed-epoch
+    count (reference dnn/utils.py:155-175).
+
+    The count is the payload's ``epochs_done`` when present; older
+    checkpoints fall back to trimming trailing zeros from the history, as
+    the JAX package does.  Raises :class:`CheckpointError` naming ``path``
+    when the file is missing, truncated or does not fit the model and
+    optimizer."""
+    try:
+        raw = Path(path).read_bytes()
+    except OSError as e:
+        raise CheckpointError(f"checkpoint {path}: cannot read: {e}") from e
+    model, opt = state.model, state.optimizer
+    try:
+        payload = unpackb(raw)
+        missing = {"params", "batch_stats", "opt_state", "step", "train_loss",
+                   "val_loss"} - set(payload)
+        if missing:
+            raise ValueError(f"missing {sorted(missing)}")
+        sd = state_dict_from_flax({"params": payload["params"],
+                                   "batch_stats": payload["batch_stats"]}, model)
+        nu = params_from_flax(_nu_of(payload["opt_state"], opt.clip_norm is not None), model)
+        step = int(payload["step"])
+    except Exception as e:
+        raise CheckpointError(
+            f"checkpoint {path}: corrupt or incompatible payload ({type(e).__name__}: {e}); the "
+            f"file may be truncated by a crashed writer: delete it or point at an intact "
+            f"checkpoint") from e
+    model.load_state_dict(sd)
+    for name, p in model.named_parameters():
+        opt.state[p]["nu"] = nu[name].to(device=p.device, dtype=p.dtype)
+    state.step = step
+    train_hist = np.asarray(payload["train_loss"])
+    val_hist = np.asarray(payload["val_loss"])
+    if "epochs_done" in payload:
+        n = max(0, min(int(payload["epochs_done"]), train_hist.size))
+        return state, train_hist[:n], val_hist[: min(n, val_hist.size)]
+    return state, np.trim_zeros(train_hist, "b"), np.trim_zeros(val_hist, "b")
+
+
+def load_params_for_inference(path, state: TrainState) -> TrainState:
+    """Weights-only restore for enhancement-time mask estimation
+    (reference tango.py:133-134)."""
+    state, _, _ = load_checkpoint(path, state)
+    return state
+
+
+def publish_checkpoint(promote_dir, ckpt_path, *, arch: dict, ledger=None, source=None):
+    """Staging a checkpoint as a weight generation comes with serving and
+    promotion (ROADMAP Queue 1, item 6)."""
+    raise NotImplementedError("publish_checkpoint comes with serving and promotion: "
+                              "ROADMAP Queue 1, item 6")
+
+
+# -- the epoch loop ---------------------------------------------------------
+def _prefetch_host_batches(make_batches):
+    """Double-buffered host batch feed: batch N+1's numpy prep runs on a
+    :class:`~disco_tpu_torch.enhance.pipeline.ChunkPrefetcher` loader
+    thread while step N runs, and each batch's stall and busy time land in
+    ``enhance.pipeline.OVERLAP`` (:func:`~disco_tpu_torch.enhance.pipeline.
+    note_chunk_overlap`), as the corpus engine's chunks do.  The loader is
+    closed on unwind."""
+    from disco_tpu_torch.enhance.pipeline import ChunkPrefetcher, note_chunk_overlap
+
+    pf = ChunkPrefetcher(((b,) for b in make_batches()), lambda b: b, depth=2)
+    try:
+        last = time.perf_counter()
+        for batch, stall_s in pf:
+            busy_s = max(time.perf_counter() - last - stall_s, 0.0)
+            note_chunk_overlap(stall_s, busy_s)
+            yield batch
+            last = time.perf_counter()
+    finally:
+        pf.close()
+
+
+def fit(
+    model,
+    state: TrainState,
+    train_batches,
+    val_batches,
+    n_epochs: int,
+    save_path: str = "models/",
+    run_name: str | None = None,
+    output_frames: str = "all",
+    resume_from: str | None = None,
+    patience: float | None = None,
+    verbose: bool = True,
+    ledger=None,
+    mesh=None,
+    precision: str = "f32",
+    promote_dir=None,
+    promote_arch: dict | None = None,
+    device=None,
+):
+    """Full training loop (reference train.py:110-158): per-epoch train +
+    no-grad validation, loss histories saved every epoch, the best model's
+    checkpoint gated by :class:`SaveAndStop`, optional early stop and
+    resume.  Returns (state, train_losses, val_losses, run_name).
+
+    ``train_batches`` / ``val_batches`` are callables returning an iterator
+    of (x, y) numpy batches (a fresh shuffle each epoch).  A callable with
+    a ``set_start_epoch(epoch)`` method is told the first epoch before the
+    loop (a resumed run's data epochs then line up with its training
+    epochs).  Each epoch's batches ride the double-buffered host feed
+    (:func:`_prefetch_host_batches`) into
+    :func:`~disco_tpu_torch.device.prefetch_to_device`, so batch prep,
+    host-to-device copies and steps overlap; the losses are summed on the
+    device and read back once an epoch.
+
+    ``device``: ``"cuda"`` when None (RuntimeError without a CUDA device),
+    or ``"cpu"``; the model must lie there already, and ``state`` must be
+    its training state.  ``precision``: see :func:`make_step_fns`.
+
+    Crash safety (``disco_tpu_torch.runs``): checkpoints and loss
+    histories are written atomically; an optional ``ledger``
+    (:class:`~disco_tpu_torch.runs.RunLedger` or path) records each
+    ``epoch:<e>`` unit in_flight, then done with its losses; the
+    ``mid_epoch`` chaos seam fires after an epoch's training pass, before
+    anything of it is written; a graceful stop (SIGTERM/SIGINT) is honoured
+    between epochs and leaves a run that ``resume_from`` continues.
+
+    ``mesh`` (ROADMAP Queue 1, item 8) and ``promote_dir``/``promote_arch``
+    (item 6) are not ported yet and raise ``NotImplementedError``.
+    """
+    from disco_tpu_torch.io.atomic import file_digest, savez_atomic
+    from disco_tpu_torch.runs import chaos as run_chaos
+    from disco_tpu_torch.runs import interrupt as run_interrupt
+    from disco_tpu_torch.runs.ledger import RunLedger, unit_epoch
+
+    if mesh is not None:
+        raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
+                                  "ROADMAP Queue 1, item 8")
+    if promote_dir is not None:
+        raise NotImplementedError("fit(promote_dir=...) comes with serving and promotion: "
+                                  "ROADMAP Queue 1, item 6")
+    dev = resolve_device(device)
+    check_module_device(model, dev)
+    if state.model is not model:
+        raise ValueError("state is not the training state of model")
+    if ledger is not None and not isinstance(ledger, RunLedger):
+        ledger = RunLedger(ledger)
+    train_step, eval_step = make_step_fns(model, output_frames, precision=precision)
+    save_dir = Path(save_path)
+    save_dir.mkdir(parents=True, exist_ok=True)
+
+    if resume_from is not None:
+        state, train_hist, val_hist = load_checkpoint(resume_from, state)
+        first_epoch = len(train_hist)
+        train_losses = np.concatenate([train_hist, np.zeros(n_epochs)])
+        val_losses = np.concatenate([val_hist, np.zeros(n_epochs)])
+        run_name = run_name or get_model_name(resume_from)
+    else:
+        first_epoch = 0
+        train_losses, val_losses = np.zeros(n_epochs), np.zeros(n_epochs)
+        run_name = run_name or get_model_name()
+
+    for cb in (train_batches, val_batches):
+        hook = getattr(cb, "set_start_epoch", None)
+        if hook is not None:
+            hook(first_epoch)
+
+    gate = SaveAndStop(patience=patience if patience is not None else n_epochs, mode="min")
+    for epoch in range(first_epoch, first_epoch + n_epochs):
+        if run_interrupt.stop_requested():
+            break  # graceful stop between epochs: all on disk, resumable
+        if ledger is not None:
+            ledger.mark_in_flight(unit_epoch(epoch))
+        # losses summed on the device, one readback an epoch
+        tr, nb = torch.zeros((), device=dev), 0
+        for x, y in prefetch_to_device(_prefetch_host_batches(train_batches), dev):
+            state, loss = train_step(state, x, y)
+            tr = tr + loss
+            nb += 1
+        # crash with the train pass done but nothing persisted: the whole
+        # epoch is redone on resume, never half of it
+        run_chaos.tick("mid_epoch")
+        va, nv = torch.zeros((), device=dev), 0
+        for x, y in prefetch_to_device(_prefetch_host_batches(val_batches), dev):
+            va = va + eval_step(state, x, y)
+            nv += 1
+        if nb == 0 and verbose:
+            print(f"epoch {epoch}\tWARNING: zero training batches "
+                  "(empty dataset or fully-consumed dataset ledger)")
+        train_losses[epoch] = float(tr) / nb if nb else 0.0
+        val_losses[epoch] = float(va) / nv if nv else 0.0
+        if verbose:
+            print(f"epoch {epoch}\tTrain\t{train_losses[epoch]:.6f}\t"
+                  f"Val\t{val_losses[epoch]:.6f}")
+        losses_path = savez_atomic(save_dir / f"{run_name}_losses.npz",
+                                   train_loss=train_losses, val_loss=val_losses)
+        ckpt_path = save_dir / f"{run_name}_model.msgpack"
+        improved = gate.save_model_query(val_losses[epoch])
+        if improved:
+            save_checkpoint(ckpt_path, state, train_losses, val_losses,
+                            epochs_done=int(epoch) + 1)
+        if ledger is not None:
+            # state-only records: the losses and the best checkpoint are
+            # shared files that later epochs overwrite
+            ledger.record(
+                unit_epoch(epoch), "done",
+                train_loss=float(train_losses[epoch]),
+                val_loss=float(val_losses[epoch]), improved=improved,
+                losses=str(losses_path),
+                ckpt=str(ckpt_path) if improved else None,
+                ckpt_digest=file_digest(ckpt_path) if improved else None,
+            )
+        if gate.early_stop_query():
+            break
+    return state, train_losses, val_losses, run_name

@@ -22,6 +22,9 @@ Seams wired through the port (each a named :func:`tick` call):
   (``enhance/pipeline.ChunkPrefetcher``).
 * ``between_blocks`` — on every chunk-continuation call of the streaming
   entry points (``enhance/streaming.py``: a call that carries a state).
+* ``mid_epoch``      — in ``nn/training.py::fit``, after an epoch's
+  training pass and before its validation, losses and checkpoint: nothing
+  of the epoch is persisted, so a resume redoes the whole epoch.
 
 Injection is armed either programmatically (:func:`configure`) or via the
 ``DISCO_TPU_CHAOS`` environment variable (``"seam"`` or ``"seam:N"`` —

@@ -49,6 +49,11 @@ def unit_rir(rir, noise: str) -> str:
     return f"rir:{rir}:{noise}"
 
 
+def unit_epoch(epoch) -> str:
+    """Work-unit id of one training epoch (``nn.training.fit``)."""
+    return f"epoch:{epoch}"
+
+
 def digest_artifacts(paths) -> dict:
     """{str(path): sha256 digest} over finished artifact files — the
     payload of a ``done`` record.

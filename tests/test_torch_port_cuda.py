@@ -481,3 +481,92 @@ def test_mask_entry_points_raise_on_a_model_on_another_device(cuda, crnn_inputs)
     with pytest.raises(ValueError, match="lies on cpu"):
         driver._batched_masks(Y[None], Y[None], Y[None], [_small_crnn(1, 1), None], "irm1", 1.0,
                               5, "zs_hat")
+
+
+def _training_crnn(seed):
+    from disco_tpu_torch.nn.crnn import CRNN
+
+    torch.manual_seed(seed)
+    return CRNN((2, 9, 33), cnn_filters=(4, 8), pool_kernels=((1, 2), (1, 2)),
+                conv_padding=((0, 1), (0, 1)), rnn_units=(16,), ff_units=(33,))
+
+
+def test_train_step_on_card_matches_host(cuda, rng):
+    """One RMSprop step of the same CRNN on the same batch, on the card and
+    on the host: loss within 1e-5 relative, parameters and ``nu`` within
+    1e-4 absolute, BatchNorm statistics within 1e-5 relative; and on each
+    device ``nu`` element by element within 1e-6 of the 0.01 g^2 of the
+    step's own gradient g, so a ``nu`` of 0 or of another decay fails."""
+    from disco_tpu_torch.nn.optim import build_optimizer
+    from disco_tpu_torch.nn.training import create_train_state, make_step_fns
+
+    x = rng.random((16, 2, 9, 33)).astype(np.float32)
+    y = rng.random((16, 9, 33)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = _training_crnn(0).to(dev)
+        state = create_train_state(model, build_optimizer(model))
+        train_step, _ = make_step_fns(model, "all")
+        state, loss = train_step(state, x, y)
+        out[str(dev)] = (float(loss), {k: v.cpu() for k, v in model.state_dict().items()},
+                         [state.optimizer.state[p]["nu"].cpu() for p in model.parameters()])
+        for p in model.parameters():
+            torch.testing.assert_close(state.optimizer.state[p]["nu"], 0.01 * p.grad * p.grad,
+                                       rtol=1e-6, atol=0)
+    (l_h, sd_h, nu_h), (l_c, sd_c, nu_c) = out["cpu"], out["cuda"]
+    assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
+    for k, v in sd_h.items():
+        if "running" in k:
+            torch.testing.assert_close(sd_c[k], v, rtol=1e-5, atol=1e-7)
+        elif v.is_floating_point():
+            torch.testing.assert_close(sd_c[k], v, rtol=0, atol=1e-4)
+    for a, b in zip(nu_c, nu_h):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_postgen_stft_launches_and_files_on_card(cuda, tmp_path, rng):
+    """``PostGenerator`` on the card launches the STFT kernel three times an
+    RIR and writes the host run's files: WAVs byte-identical, STFTs within
+    1e-5 of their scale, masks within 1e-6 of the host's mask of the card's
+    spectra."""
+    import shutil
+
+    from disco_tpu_torch.core.masks import tf_mask
+    from disco_tpu_torch.datagen.postgen import PostGenerator
+    from disco_tpu_torch.io.audio import write_wav
+    from disco_tpu_torch.ops import stft_ops
+
+    base = tmp_path / "src" / "random" / "train" / "wav_original" / "cnv"
+    for rir in (1, 2):
+        for ch in range(1, 17):
+            for kind, name in (("target", f"{rir}_S-1_Ch-{ch}"),
+                               ("noise", f"{rir}_S-2_ssn_Ch-{ch}")):
+                (base / kind).mkdir(parents=True, exist_ok=True)
+                write_wav(base / kind / f"{name}.wav", 0.1 * rng.standard_normal(8000), 16000)
+    roots = {}
+    for dev in ("cpu", None):
+        root = tmp_path / str(dev)
+        shutil.copytree(tmp_path / "src", root)
+        before = stft_ops.stft_kernel.launches
+        pg = PostGenerator(1, 2, "random", "ssn", [0, 6], str(root),
+                           rng=np.random.default_rng(7), device=dev)
+        assert pg.post_process() == [1, 2]
+        torch.cuda.synchronize()
+        assert stft_ops.stft_kernel.launches - before == (0 if dev == "cpu" else 6)
+        roots[str(dev)] = root
+    files = sorted(str(p.relative_to(roots["cpu"])) for p in roots["cpu"].rglob("*") if p.is_file())
+    assert files == sorted(str(p.relative_to(roots["None"])) for p in roots["None"].rglob("*")
+                           if p.is_file())
+    for f in files:
+        a, b = roots["None"] / f, roots["cpu"] / f
+        if f.endswith(".wav") or "/snrs/" in f:
+            assert a.read_bytes() == b.read_bytes(), f
+        elif "mask_processed" in f:
+            rir, ch = f.split("/")[-1].split("_ssn_Ch-")
+            raw = roots["None"] / "random" / "train" / "stft_processed" / "raw" / "0-6"
+            s = torch.from_numpy(np.load(raw / "target" / f"{rir}_Ch-{ch}"))
+            n = torch.from_numpy(np.load(raw / "noise" / f"{rir}_ssn_Ch-{ch}"))
+            assert np.abs(np.load(a) - tf_mask(s, n).numpy()).max() <= 1e-6, f
+        else:
+            x, y = np.load(a), np.load(b)
+            assert np.abs(x - y).max() <= 1e-5 * np.abs(y).max(), f
