@@ -122,6 +122,32 @@ pass):
    conv output of that channel); the bf16 lane's first loss within 2e-2
    of the f32 lane's, and one epoch of it leaving masters, statistics and
    ``nu`` float32.
+3g. Simulation, scenes and corpus generation at the corpus's published
+   widths (``sim.defaults``: 4 nodes x 4 mics, RT60 0.3-0.6 s, 5-10 s
+   talkers after 1 s of silence, ISM order 20): the golden fixture's
+   order-20 RIRs on the card within 5e-4 (relative L2 a RIR) of the float64
+   fixture and 1e-6 of the port's host run, a second card run bit-identical;
+   ``generate_disco_rirs_batched`` of 4 RIRs in chunks of 2 (scenario
+   ``random``, ``train``, a ledger) on synthetic talkers written as a
+   LibriSpeech-shaped tree under ``build/`` (``get_wavs_list``'s flat
+   fallback; deleted at the end of the phase), then the same run crashed at
+   ``between_scene_batches`` hit 1 and resumed, the two trees byte-identical,
+   with scenes per wall-second and the ISM's and the convolutions' card ms a
+   chunk (CUDA events) against the host's gating ms a chunk; ``SceneStream``
+   at its defaults (8 scenes a batch, order 20, 1 s, ``random``; 21-frame
+   windows for the canonical CRNN), 2 scene batches with the counters set to
+   0 before and read after each (one STFT launch a batch), the magnitudes
+   within 1e-5 of ``stft_matmul`` of the batch's own signals, scenes per
+   second and the ISM's share of a batch, then ``fit`` of the canonical
+   n_ch-1 CRNN for one epoch off ``batch_fn`` (4 STFT launches: 2 scene
+   batches each for training and validation); one MEETIT room of 4
+   sources facing 4 nodes of 4 mics (``simulate_meetit_room``, SIRs gated
+   at -10 to 10 dB: four equal-level talkers at order 20 sit near -2.5 dB,
+   under the reference's 2-14 dB classes), ``get_masks`` (one STFT launch),
+   written in ``generate_meetit_rirs``' layout and read back by
+   ``load_meetit_sample``, its mixture STFTs within 1e-5 of
+   ``stft_matmul`` of the summed images; ``dynamic_scene_mixture`` of 4
+   segments, the crossfaded boundary jumps under half the hard switch's.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -1796,6 +1822,315 @@ def phase5_training(d: SimpleNamespace) -> None:
     d.train_rows = rows
 
 
+#: phase 3g: the corpus's published widths (``sim.defaults``: 4 nodes x 4
+#: mics, RT60 0.3-0.6 s, 5-10 s talkers after 1 s of silence, ISM order 20);
+#: the batched generator's RIRs, scenes a chunk and seed; SceneStream's scene
+#: batches and the canonical n_ch-1 CRNN's batch in its fit; the talkers'
+#: lengths (s: four outlast MEETIT's longest draw, 10 s)
+SIM_ORDER = 20
+SIM_RIRS, SIM_CHUNK, SIM_SEED = 4, 2, 17
+STREAM_BATCHES, STREAM_FIT_BATCH = 2, 8
+SIM_TALKERS_S = (6.0, 7.5, 8.5, 10.5, 10.5, 10.5, 11.0)
+#: phase 3g's bounds: the card's order-20 RIRs against the float64 fixture
+#: (the JAX package's budget, relative L2 a RIR) and against the port's host
+#: run; a scene batch's magnitudes against ``stft_matmul`` of its signals
+#: and the MEETIT mixture STFTs against ``stft_matmul`` of the summed images
+#: (relative L2); the crossfaded boundary jumps against the hard switch's
+#: (``disco_tpu/scenes/check.py``'s continuity bound)
+SIM_TOL = {"golden": 5e-4, "host": 1e-6, "stft": 1e-5, "crossfade": 0.5}
+
+
+def sim_corpus(root) -> None:
+    """Synthetic talkers in the LibriSpeech layout ``{speaker}/1/{speaker}-1-0001.wav``
+    (speech-shaped gated noise, ``SIM_TALKERS_S`` long) under ``root/talkers``,
+    and two 12-s noise files under ``root/noises``."""
+    from disco_tpu_torch.io.atomic import write_wav_atomic
+
+    rng = np.random.default_rng(11)
+    for i, seconds in enumerate(SIM_TALKERS_S):
+        t = np.arange(int(seconds * FS)) / FS
+        env = (np.sin(2 * np.pi * (1.0 + 0.15 * i) * t + i) > -0.2).astype(np.float64)
+        spk = str(301 + i)
+        write_wav_atomic(root / "talkers" / spk / "1" / f"{spk}-1-0001.wav",
+                         0.3 * env * rng.standard_normal(len(t)), FS)
+    for i in range(2):
+        write_wav_atomic(root / "noises" / f"n{i}.wav", 0.2 * rng.standard_normal(12 * FS), FS)
+
+
+@contextmanager
+def timed_calls(module, card: dict, host: dict, out: dict):
+    """Time calls of ``module``'s functions in the run itself: each name of
+    ``card`` by CUDA events around the call (its launches), into
+    ``out[card[name]]`` as ms; each name of ``host`` on the host clock, into
+    ``out[host[name]]`` as s."""
+    import torch
+
+    real = {name: getattr(module, name) for name in (*card, *host)}
+    events = {key: [] for key in card.values()}
+    for key in host.values():
+        out[key] = []
+
+    def on_card(key, fn):
+        def wrapper(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = fn(*args, **kw)
+            end.record()
+            events[key].append((start, end))
+            return r
+        return wrapper
+
+    def on_host(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            out[key].append(time.perf_counter() - t0)
+            return r
+        return wrapper
+
+    for name, key in card.items():
+        setattr(module, name, on_card(key, real[name]))
+    for name, key in host.items():
+        setattr(module, name, on_host(key, real[name]))
+    try:
+        yield out
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+        torch.cuda.synchronize()
+        for key, pairs in events.items():
+            out[key] = [s.elapsed_time(e) for s, e in pairs]
+
+
+def phase3g_simulation(d: SimpleNamespace) -> None:
+    """Simulation, scenes and corpus generation on the card at the corpus's
+    published widths: the order-20 RIRs against the golden fixture, the
+    host and themselves; the batched DISCO generator, crashed and resumed;
+    SceneStream's scene batches (one STFT launch each) feeding ``fit``; one
+    MEETIT RIR; a dynamic scene's continuity."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.datagen import disco
+    from disco_tpu_torch.datagen.disco import generate_disco_rirs_batched, get_wavs_list
+    from disco_tpu_torch.datagen.meetit import (get_masks, load_meetit_sample,
+                                                save_meetit_scene, simulate_meetit_room)
+    from disco_tpu_torch.io.atomic import save_npy_atomic
+    from disco_tpu_torch.io.audio import read_wav
+    from disco_tpu_torch.io.layout import DatasetLayout
+    from disco_tpu_torch.nn.training import fit
+    from disco_tpu_torch.ops.stft_ops import hann_periodic, stft_kernel, stft_matmul
+    from disco_tpu_torch.runs import RunLedger, chaos
+    from disco_tpu_torch.scenes import (SceneStream, boundary_jumps, dynamic_scene_mixture,
+                                        piecewise_trajectory)
+    from disco_tpu_torch.sim import (InterferentSpeakersSetup, SignalDefaults, SpeechAndNoiseSetup,
+                                     make_setup, rir_bucket, shoebox_rirs)
+    from disco_tpu_torch.sim import ism
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+
+    # (1) the golden fixture's order-20 RIRs on the card, twice, and on the host
+    g = np.load(here / "tests" / "data" / "golden_rir_order20.npz")
+    args = (g["room_dim"].astype(np.float32), g["sources"].astype(np.float32),
+            g["mics"].astype(np.float32), float(g["alpha"]))
+    kw = dict(max_order=int(g["max_order"]), rir_len=int(g["rir_len"]))
+    card = [shoebox_rirs(*args, **kw) for _ in range(2)]
+    host = shoebox_rirs(*args, **kw, device="cpu")
+
+    def rel_rir(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)).max())
+
+    e_golden = rel_rir(card[0].cpu().numpy(), g["rirs"])
+    e_host = rel_rir(card[0].cpu().numpy(), host.numpy())
+    same = torch.equal(card[0], card[1])
+    ms = time_ms(lambda: shoebox_rirs(*args, **kw), reps=3, warmup=1)
+    print(f"phase 3g: order-20 RIRs of the golden room (2 sources x 4 mics x {kw['rir_len']}) "
+          f"on the card: {e_golden:.3e} from the float64 fixture, {e_host:.3e} from the host "
+          f"(rel-l2 a RIR), a second card run bit-identical {same}; {ms:.3f} ms", flush=True)
+    require(e_golden < SIM_TOL["golden"] and e_host <= SIM_TOL["host"] and same,
+            ("golden RIRs", e_golden, e_host, same))
+
+    build = here / "build"
+    build.mkdir(exist_ok=True)
+    sd = SignalDefaults()
+    with tempfile.TemporaryDirectory(prefix="sim-", dir=build) as tmp:
+        tmp = Path(tmp)
+        sim_corpus(tmp)
+        targets, talkers, noises = get_wavs_list(tmp / "talkers", tmp / "noises", dset="train",
+                                                 cache_dir=tmp / "lists")
+        require(len(targets) == len(SIM_TALKERS_S) and len(noises["fs"]) == 2, "corpus lists")
+
+        def signals():
+            return SpeechAndNoiseSetup(
+                targets, talkers, noises, duration_range=sd.duration_range,
+                var_tar=10 ** (sd.var_tar_db / 10), snr_dry_range=sd.snr_dry_range,
+                snr_cnv_range=sd.snr_cnv_range, min_delta_snr=sd.min_delta_snr,
+                rng=np.random.default_rng(3))
+
+        def generate(root, rng_seed):
+            return generate_disco_rirs_batched(
+                "random", "train", 1, SIM_RIRS, signals(),
+                DatasetLayout(str(root / "dataset"), "random", "train"),
+                rng=np.random.default_rng(rng_seed), max_order=SIM_ORDER,
+                ledger=str(root / "ledger.jsonl"), resume=True, batch=SIM_CHUNK, seed=SIM_SEED)
+
+        # (2) the batched generator, then the same run crashed after its first
+        # chunk and resumed: byte-identical trees
+        times = {}
+        t0 = time.perf_counter()
+        with counted("datagen batched", {}, d.launches), timed_calls(
+                disco, {"shoebox_rirs_batched": "ism_ms", "fft_convolve": "conv_ms"},
+                {"get_convolved_vads": "gate_s", "snr_at_mics": "gate_s"}, times):
+            done = generate(tmp / "a", 5)
+        wall = time.perf_counter() - t0
+        require(done == list(range(1, SIM_RIRS + 1)), ("generated", done))
+        chaos.configure("between_scene_batches", after=1)
+        try:
+            generate(tmp / "b", 5)
+            require(False, "the between_scene_batches crash never fired")
+        except chaos.ChaosCrash:
+            pass
+        finally:
+            chaos.disable()
+        resumed = generate(tmp / "b", 999)
+        trees = [_tree(tmp / r / "dataset") for r in ("a", "b")]
+        ledger_done, _ = RunLedger(tmp / "b" / "ledger.jsonl").verified_done()
+        require(resumed == list(range(SIM_CHUNK + 1, SIM_RIRS + 1)) and trees[0] == trees[1]
+                and ledger_done == {f"scene:{r}" for r in done},
+                ("crash and resume", resumed, sorted(set(trees[0]) ^ set(trees[1]))[:5]))
+        n_chunks = -(-SIM_RIRS // SIM_CHUNK)
+        print(f"phase 3g: generate_disco_rirs_batched, {SIM_RIRS} RIRs in chunks of {SIM_CHUNK} "
+              f"(order {SIM_ORDER}, 4 x 4 mics, train): {wall:.2f} s = {SIM_RIRS / wall:.4f} "
+              f"scenes per wall-second; {len(times['ism_ms'])} RIR engine passes "
+              f"({len(times['ism_ms']) - n_chunks} redraw rounds) ISM {times['ism_ms']} ms, "
+              f"convolutions {sum(times['conv_ms']):.2f} ms in {len(times['conv_ms'])} calls "
+              f"({sum(times['conv_ms']) / n_chunks:.2f} a chunk), ISM + convolutions "
+              f"{(sum(times['ism_ms']) + sum(times['conv_ms'])) / n_chunks:.2f} card ms a chunk "
+              f"against host gating {1e3 * sum(times['gate_s']) / n_chunks:.1f} ms a chunk "
+              f"({len(times['gate_s']) // 2} scenes gated); crashed after chunk 1 and resumed "
+              f"({resumed}): {len(trees[0])} files byte-identical", flush=True)
+
+        # (3) SceneStream at its defaults: one STFT launch a scene batch, the
+        # magnitudes against stft_matmul of the batch's own signals, then fit
+        stream = SceneStream(seed=0, batches_per_epoch=STREAM_BATCHES, win_len=21)
+        B = stream.scenes_per_batch
+        walls, errs, parts = [], [], {}
+        with timed_calls(ism, {"shoebox_rirs_batched": "ism_ms", "fft_convolve": "conv_ms"}, {},
+                         parts):
+            for i in range(STREAM_BATCHES):
+                with counted(f"scene batch {i}", {"stft": 1}, d.launches):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = stream.simulate_batch(0, i)
+                    walls.append(time.perf_counter() - t0)
+                noisy = torch.as_tensor(out["noisy"][:, 0], device="cuda")
+                errs.append(rel_l2(torch.as_tensor(out["mag_noisy"], device="cuda"),
+                                   stft_matmul(noisy, with_mag=True)[1]))
+                require(all(np.isfinite(v).all() for v in out.values())
+                        and out["mask"].min() >= 0 and out["mask"].max() <= 1, "scene batch")
+        require(max(errs) <= SIM_TOL["stft"], ("scene batch magnitudes", errs))
+        # the STFT kernel at the scene batch's (3, B, L) stack, beside its
+        # plain version, torch.stft and its bound
+        x = torch.as_tensor(np.stack([out["noisy"][:, 0], out["clean"][:, 0],
+                                      out["noisy"][:, 0] - out["clean"][:, 0]]), device="cuda")
+        fl, nbytes = stft_cost(3 * B, x.shape[-1])
+        b_ms, b_by = bound(fl, nbytes)
+        win = hann_periodic(512, device="cuda")
+        stft_ms = {"kernel": time_ms(lambda: stft_kernel(x, with_mag=True), reps=20),
+                   "plain": time_ms(lambda: stft_matmul(x, with_mag=True), reps=20),
+                   "torch.stft": time_ms(lambda: torch.stft(
+                       x.reshape(3 * B, -1), 512, 256, window=win, center=True,
+                       pad_mode="reflect", return_complex=True), reps=20)}
+        print(f"phase 3g: SceneStream ({B} scenes a batch, order {stream.max_order}, "
+              f"{stream.duration_s} s, {stream.scenario}): rirs {out['rirs'].shape}, one STFT "
+              f"launch a batch; magnitudes vs stft_matmul of the batch's signals {max(errs):.3e} "
+              f"rel-l2; batch wall {walls} s = {[B / w for w in walls]} scenes per s; ISM "
+              f"{parts['ism_ms']} ms ({[m / 1e3 / w for m, w in zip(parts['ism_ms'], walls)]} "
+              f"of a batch), convolution {parts['conv_ms']} ms; the STFT kernel at the "
+              f"(3, {B}, {x.shape[-1]}) stack {stft_ms} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        model, state = canonical_train_state(1)
+        t0 = time.perf_counter()
+        with counted("scene stream fit", {"stft": 2 * STREAM_BATCHES}, d.launches):
+            _, tr, va, _ = fit(model, state, stream.batch_fn(STREAM_FIT_BATCH),
+                               stream.batch_fn(STREAM_FIT_BATCH, shuffle=False), 1,
+                               save_path=tmp / "models", run_name="scenes", verbose=False)
+        print(f"phase 3g: fit of the canonical n_ch-1 CRNN off SceneStream.batch_fn (batch "
+              f"{STREAM_FIT_BATCH}, {STREAM_BATCHES} scene batches an epoch): train loss {tr}, "
+              f"validation loss {va}, {time.perf_counter() - t0:.1f} s", flush=True)
+        require(len(tr) == len(va) == 1 and np.isfinite(tr[0]) and np.isfinite(va[0]),
+                ("scene stream fit", tr, va))
+
+        # (4) one MEETIT RIR: 4 sources facing 4 nodes of 4 mics, one STFT
+        # launch for its masks, written in generate_meetit_rirs' layout and
+        # read back.  Four equal-level talkers at order 20 give node SIRs
+        # near -2.5 dB, below the reference gate's 2-14 dB classes, so the
+        # room is gated at -10 to 10 dB (tests/test_meetit.py's gate)
+        speakers = [t for t, s in zip(sorted(targets), sorted(SIM_TALKERS_S)) if s > 10]
+        lay = DatasetLayout(str(tmp / "meetit"), "meetit", "train")
+        sampler = make_setup("meetit", rng=np.random.default_rng(1), n_sensors_per_node=(4,) * 4,
+                             n_sources=4)
+        sig = InterferentSpeakersSetup(
+            speakers, duration_range=sd.duration_range, var_tar=10 ** (sd.var_tar_db / 10),
+            snr_dry_range=sd.snr_dry_range, snr_cnv_range=sd.snr_cnv_range,
+            min_delta_snr=sd.min_delta_snr, rng=np.random.default_rng(3))
+        rng = np.random.default_rng(2)
+        t0 = time.perf_counter()
+        for draws in range(1, 51):
+            scene = simulate_meetit_room(sampler.create_room_setup(), sig, "train", [4] * 4, [],
+                                         1, max_order=SIM_ORDER, rng=rng, sir_vmin=-10.0,
+                                         sir_vmax=10.0)
+            if scene != "redraw_room_setup":
+                break
+        require(scene != "redraw_room_setup", "no MEETIT room in 50 draws")
+        t_room = time.perf_counter() - t0
+        with counted("meetit rir", {"stft": 1}, d.launches):
+            mix, masks = get_masks(scene.images, [4] * 4)
+        for ch in range(mix.shape[0]):
+            save_npy_atomic(lay.ensure_dir(lay.base / "stft" / "mix" / f"1_Ch-{ch + 1}.npy"),
+                            mix[ch])
+            for i_s in range(masks.shape[0]):
+                save_npy_atomic(lay.ensure_dir(lay.base / "mask" / f"1_S-{i_s + 1}_Ch-{ch + 1}.npy"),
+                                masks[i_s, ch])
+        save_meetit_scene(scene, {"sirs": scene.sirs}, 1, lay)
+        Y, masks = load_meetit_sample(lay, 1, [4] * 4)
+        n = Y.shape[-1]
+        images = np.stack([np.sum([read_wav(lay.base / "wav" / "clean" / "cnv"
+                                            / f"1_S-{s}_Ch-{ch}.wav")[0] for s in range(1, 5)], 0)
+                           for ch in range(1, 17)])
+        want = stft_matmul(torch.as_tensor(images, device="cuda")).reshape(4, 4, 257, n)
+        e_meetit = rel_l2(torch.as_tensor(Y, device="cuda"), want)
+        print(f"phase 3g: simulate_meetit_room, 4 sources x 16 mics (order {SIM_ORDER}): "
+              f"{draws} room draws in {t_room:.1f} s, node SIRs {scene.sirs} dB; get_masks, "
+              f"load_meetit_sample: Y {Y.shape}, masks {masks.shape}; the mixture STFTs vs "
+              f"stft_matmul of the summed images {e_meetit:.3e} rel-l2", flush=True)
+        require(masks.shape == (4, 4, 257, n) and np.isfinite(Y).all() and masks.min() >= 0
+                and masks.max() <= 1 and e_meetit <= SIM_TOL["stft"], ("meetit", e_meetit))
+
+    # (5) a dynamic scene of 4 segments: the crossfade removes the click
+    cfg = make_setup("random", rng=np.random.default_rng(4)).create_room_setup()
+    path = piecewise_trajectory(cfg.source_positions[0], cfg.source_positions[1], 4)
+    _, rir_len = rir_bucket(cfg.beta, cfg.room_dim, max_order=SIM_ORDER)
+    dry = np.sin(2 * np.pi * 440.0 * np.arange(FS) / FS).astype(np.float32)
+    jumps = {}
+    with counted("dynamic scene", {}, d.launches):
+        for crossfade in (512, 0):
+            mix = dynamic_scene_mixture(cfg.room_dim, path, cfg.mic_positions.T, cfg.alpha, dry,
+                                        crossfade=crossfade, max_order=SIM_ORDER,
+                                        rir_len=rir_len)["mixture"]
+            require(mix.shape == (16, FS) and np.isfinite(mix).all(), "dynamic mixture")
+            jumps[crossfade] = float(boundary_jumps(mix, 4).max())
+    print(f"phase 3g: dynamic_scene_mixture, 4 segments x 16 mics (order {SIM_ORDER}, rir_len "
+          f"{rir_len}): worst boundary jump {jumps[512]:.4e} crossfaded, {jumps[0]:.4e} hard "
+          f"switched ({jumps[512] / jumps[0]:.3f}); phase 3g took "
+          f"{time.perf_counter() - t_phase:.1f} s (corpus deleted)", flush=True)
+    require(jumps[512] < SIM_TOL["crossfade"] * jumps[0], ("continuity", jumps))
+
+
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
@@ -2389,6 +2724,7 @@ def main() -> int:
     phase3d_crnn_masked_clip(d)
     phase3e_corpus(d)
     phase3f_training(d)
+    phase3g_simulation(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

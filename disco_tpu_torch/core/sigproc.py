@@ -1,7 +1,6 @@
 """Signal-level helpers: third-octave filterbanks, band-importance weights,
-SNR scaling, speech-shaped noise, windowing (the port's copy of
-``disco_tpu/core/sigproc.py``, host numpy; ``stack_talkers`` comes with the
-dataset-generation slice).
+SNR scaling, speech-shaped noise, talker stacking, windowing (the port's
+copy of ``disco_tpu/core/sigproc.py``, host numpy).
 
 Capability parity with reference ``disco_theque/sigproc_utils.py``
 (third_octave_filterbank:90, fw_snr:120 — the fw_snr itself lives in
@@ -29,6 +28,7 @@ __all__ = [
     "frame_vad",
     "increase_to_snr",
     "noise_from_signal",
+    "stack_talkers",
 ]
 
 # ANSI band-importance weights (Pavlovic 1994), as tabulated in the reference
@@ -132,3 +132,31 @@ def noise_from_signal(x, rng=None):
     X = np.fft.rfft(x, next_pow_2(n_fft))
     noise_mag = np.abs(X) * np.exp(2j * np.pi * rng.random(X.shape[-1]))
     return np.real(np.fft.irfft(noise_mag, n_fft))[:n_x]
+
+
+def stack_talkers(tlk_list, dur_min, speaker, nb_tlk=5, fs=16000, rng=None, read_fn=None):
+    """Concatenate ≥``nb_tlk`` random talkers (≠ ``speaker``) until at least
+    ``dur_min`` seconds (sigproc_utils.py:227-254).
+
+    ``read_fn(path) -> (signal, fs)`` defaults to
+    :func:`disco_tpu_torch.io.read_wav`.
+    Returns (signal, fs, newline-joined list of file stems used).
+    """
+    import os
+    import re
+
+    if read_fn is None:
+        from disco_tpu_torch.io import read_wav as read_fn
+    rng = np.random.default_rng() if rng is None else rng
+    i_tlk = 0
+    tlk_tot = np.array([])
+    str_files = ""
+    while len(tlk_tot) < int(dur_min * fs) or i_tlk < nb_tlk:
+        pick = int(rng.integers(0, len(tlk_list)))
+        spk_tmp = re.split("/", str(tlk_list[pick]))[-1].split("-")[0]
+        if spk_tmp != speaker:
+            tlk_tmp, fs = read_fn(tlk_list[pick])
+            tlk_tot = np.hstack((tlk_tot, tlk_tmp))
+            i_tlk += 1
+            str_files += os.path.basename(str(tlk_list[pick])).rsplit(".", 1)[0] + "\n"
+    return tlk_tot, fs, str_files

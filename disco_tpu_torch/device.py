@@ -34,6 +34,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def as_device_tensors(arrays, device=None) -> list:
+    """``arrays`` (tensors, numpy arrays or numbers) as float32 tensors on
+    one device: that of the first tensor among them, else
+    ``resolve_device(device)`` — the rule of the functions that take either
+    (``sim.ism``, ``scenes``)."""
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)), None)
+    dev = resolve_device(device) if dev is None else dev
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+
+
 def is_hopper() -> bool:
     """True when the current CUDA device is a Hopper card (compute
     capability 9.0), the only target the kernels in ``csrc/`` are built

@@ -25,6 +25,12 @@ Seams wired through the port (each a named :func:`tick` call):
 * ``mid_epoch``      — in ``nn/training.py::fit``, after an epoch's
   training pass and before its validation, losses and checkpoint: nothing
   of the epoch is persisted, so a resume redoes the whole epoch.
+* ``between_scenes`` — after one generated scene is saved
+  (``datagen/disco.py``, both drivers).
+* ``between_scene_batches`` — after one simulated scene batch's training
+  windows are fully yielded (``scenes/stream.py``) and after one chunk of
+  the batched datagen driver is fully saved (``datagen/disco.py``): the
+  scene factory's clean boundary.
 
 Injection is armed either programmatically (:func:`configure`) or via the
 ``DISCO_TPU_CHAOS`` environment variable (``"seam"`` or ``"seam:N"`` —

@@ -49,6 +49,12 @@ def unit_rir(rir, noise: str) -> str:
     return f"rir:{rir}:{noise}"
 
 
+def unit_scene(rir_id) -> str:
+    """Work-unit id of one generated datagen scene
+    (``datagen.disco.generate_disco_rirs(_batched)``)."""
+    return f"scene:{rir_id}"
+
+
 def unit_epoch(epoch) -> str:
     """Work-unit id of one training epoch (``nn.training.fit``)."""
     return f"epoch:{epoch}"

@@ -570,3 +570,96 @@ def test_postgen_stft_launches_and_files_on_card(cuda, tmp_path, rng):
         else:
             x, y = np.load(a), np.load(b)
             assert np.abs(x - y).max() <= 1e-5 * np.abs(y).max(), f
+
+
+def test_ism_on_card_matches_host_and_golden_fixture(cuda):
+    """The order-20 RIRs of ``tests/data/golden_rir_order20.npz``'s room on
+    the card: within the JAX package's 5e-4 of the float64 fixture, within
+    1e-6 of the host's run (relative L2 a RIR), and a second card run bit
+    for bit the first; chunked rows bit for bit the unchunked ones."""
+    from pathlib import Path
+
+    from disco_tpu_torch.sim import ism
+
+    g = np.load(Path(__file__).parent / "data" / "golden_rir_order20.npz")
+    args = (g["room_dim"].astype(np.float32), g["sources"].astype(np.float32),
+            g["mics"].astype(np.float32), float(g["alpha"]))
+    kw = dict(max_order=int(g["max_order"]), rir_len=int(g["rir_len"]))
+    first, second = (ism.shoebox_rirs(*args, **kw) for _ in range(2))
+    host = ism.shoebox_rirs(*args, **kw, device="cpu")
+    assert first.device.type == "cuda" and torch.equal(first, second)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return (np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)).max()
+
+    assert rel(first.cpu().numpy(), g["rirs"]) < 5e-4
+    assert rel(first.cpu().numpy(), host.numpy()) <= 1e-6
+    dims = torch.as_tensor(np.repeat(args[0][None], 8, 0), device=cuda)
+    srcs = torch.as_tensor(args[1][[0, 1] * 4], device=cuda)
+    mics = torch.as_tensor(args[2][[0, 1, 2, 3] * 2], device=cuda)
+    alphas = torch.full((8,), args[3], device=cuda)
+    whole = ism._rir_rows(dims, srcs, mics, alphas, 20, 12288, 16000, budget=1 << 40)
+    assert torch.equal(ism._rir_rows(dims, srcs, mics, alphas, 20, 12288, 16000, budget=1), whole)
+
+
+def test_scene_batch_launches_one_stft_on_card(cuda):
+    """One scene batch on the card: one launch of the STFT kernel, its
+    magnitudes within 1e-5 (relative L2) of ``stft_matmul`` of the batch's
+    own noisy reference-mic signals, the masks in [0, 1]."""
+    from disco_tpu_torch.ops import stft_ops
+    from disco_tpu_torch.scenes import draw_scene_batch, simulate_scene_batch
+
+    batch = draw_scene_batch(np.random.default_rng(3), 4, duration_s=0.5)
+    before = stft_ops.stft_kernel.launches
+    out = simulate_scene_batch(batch, max_order=8)
+    torch.cuda.synchronize()
+    assert stft_ops.stft_kernel.launches - before == 1
+    want = stft_ops.stft_matmul(torch.as_tensor(out["noisy"][:, 0], device=cuda), with_mag=True)[1]
+    assert rel_l2(torch.as_tensor(out["mag_noisy"], device=cuda), want) <= TOL
+    assert out["mask"].min() >= 0 and out["mask"].max() <= 1
+    host = simulate_scene_batch(batch, max_order=8, device="cpu")
+    assert max_rel(out["rirs"], host["rirs"]) <= 1e-5 and max_rel(out["noisy"], host["noisy"]) <= 1e-5
+
+
+def test_batched_generation_crash_and_resume_on_card(cuda, tmp_path):
+    """``generate_disco_rirs_batched`` of 2 RIRs in chunks of 1 on the card,
+    crashed at ``between_scene_batches`` after the first and resumed: the
+    tree byte-identical to an uninterrupted run's."""
+    from disco_tpu_torch.datagen.disco import generate_disco_rirs_batched
+    from disco_tpu_torch.io.audio import write_wav
+    from disco_tpu_torch.io.layout import DatasetLayout
+    from disco_tpu_torch.runs import chaos
+    from disco_tpu_torch.sim import SpeechAndNoiseSetup
+
+    rng = np.random.default_rng(0)
+    speech = []
+    for spk in ("7", "8"):
+        f = tmp_path / "talkers" / spk / "1" / f"{spk}-1-0001.wav"
+        f.parent.mkdir(parents=True)
+        t = np.arange(4 * 16000) / 16000
+        env = (np.sin(2 * np.pi * 1.1 * t + float(spk)) > -0.2).astype(np.float64)
+        write_wav(f, 0.3 * env * rng.standard_normal(len(t)), 16000)
+        speech.append(str(f))
+
+    def run(root, rng_seed):
+        setup = SpeechAndNoiseSetup(speech, speech, {}, duration_range=(1, 2),
+                                    var_tar=10 ** (-23 / 10), snr_dry_range=[[0, 0]],
+                                    snr_cnv_range=(-60, 60), min_delta_snr=-1,
+                                    rng=np.random.default_rng(3))
+        return generate_disco_rirs_batched(
+            "random", "test", 1, 2, setup, DatasetLayout(str(root / "dataset"), "random", "test"),
+            rng=np.random.default_rng(rng_seed), max_order=20, ledger=str(root / "l.jsonl"),
+            resume=True, batch=1, seed=17)
+
+    assert run(tmp_path / "a", 5) == [1, 2]
+    chaos.configure("between_scene_batches", after=1)
+    try:
+        with pytest.raises(chaos.ChaosCrash):
+            run(tmp_path / "b", 5)
+    finally:
+        chaos.disable()
+    assert run(tmp_path / "b", 999) == [2]
+    trees = [{str(p.relative_to(r)): p.read_bytes() for p in sorted(r.rglob("*")) if p.is_file()}
+             for r in (tmp_path / "a" / "dataset", tmp_path / "b" / "dataset")]
+    assert len(trees[0]) == 2 * (2 + 2 * 16 + 1) and trees[0] == trees[1]
