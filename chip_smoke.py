@@ -85,8 +85,10 @@ pass):
    one clip through ``enhance_rir(bucket=8192)`` within 1e-5 of the output
    scale and 1e-3 dB of its batched run, and through the plain versions on
    the host (``device='cpu'``) within 1e-4 and 0.01 dB; the sequential
-   engine with inline scoring and the pipelined one with 4 scoring workers
-   byte-identical on two clips; the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2
+   engine with inline scoring on two clips byte-identical to the staged
+   lane's first pipelined chunk of the same two clips (4 scoring workers;
+   the separate pipelined run was cut to make room for phase 3h: it
+   repeated that chunk's work); the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2
    eigensolver launches) finite and above its input; ``export_z`` of one
    clip finite.  Each driver run's parts are timed on the host clock.
 3f. The training path at full width, on a training corpus under ``build/``
@@ -148,6 +150,27 @@ pass):
    ``load_meetit_sample``, its mixture STFTs within 1e-5 of
    ``stft_matmul`` of the summed images; ``dynamic_scene_mixture`` of 4
    segments, the crossfaded boundary jumps under half the hard switch's.
+3h. Online serving (``disco_tpu_torch.serve``) on the north-star clip: an
+   in-process ``EnhanceServer`` on loopback with ``ServeClient`` clients on host
+   threads, five concurrent sessions of 64-frame blocks (``update_every``
+   4): ``jacobi-pallas``, ``jacobi-pallas`` with mu 1.2, ``fused``, ``eigh``
+   with a z_mask that drops node 2, and a ``domain="time"`` session
+   (``jacobi-pallas``, four 1.008-s windows).  Every offline reference is
+   computed on the main thread before the server starts: each STFT-domain
+   session's whole-clip ``streaming_tango``, required bit-identical to its
+   per-block calls (``serve.check.per_block_stream``), and the time
+   session's ``streaming_clip_fused`` window by window.  In per-block
+   ticks and in super-ticks of 2 (``streaming_tango_scan``, the readback
+   overlapped), every delivered stream is bit-identical to its reference,
+   ``device_get_batches`` advances once a tick with work, and the launches
+   (counters set to 0 before, read after) equal those of the offline
+   per-block calls; blocks per second and the ``serve_block_latency_ms``
+   p50/p95 with its queue-wait / dispatch split are printed.  Then a
+   ``jacobi-pallas`` session drained half-fed through ``runs.interrupt``,
+   checkpointed under ``build/`` and resumed on a fresh server, bit-identical
+   stitched; a ``serve_tick`` crash after 3 ticks with every frame received
+   before it bit-correct, and a ``mid_write`` crash in the drain checkpoint
+   leaving no checkpoint at its final path.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -1244,20 +1267,24 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
         require(e_host <= CORPUS_TOL["host"] and m_host <= CORPUS_TOL["host_db"],
                 ("enhance_rir on the host", e_host, m_host))
 
-        # (4): the engines on two clips write byte-identical trees; one pair of
-        # runs differs in both switches (the CPU tests hold each one alone)
-        engines = {"sequential, inline scoring": {"pipeline": False, "score_workers": 1},
-                   f"pipelined, {CORPUS_WORKERS} scoring workers":
-                       {"pipeline": True, "score_workers": CORPUS_WORKERS}}
-        trees = []
+        # (4): the engines on two clips write byte-identical trees; the runs
+        # differ in both switches (the CPU tests hold each one alone).  The
+        # pipelined side is the staged lane's first chunk above (the same two
+        # clips, a chunk of 2, 4 scoring workers), so only the sequential run
+        # with inline scoring is added here
         t0 = time.perf_counter()
-        for i, kw in enumerate(engines.values()):
-            batched(tmp / f"engine{i}", rirs[:2], max_batch=2, **kw)
-            trees.append(_tree(tmp / f"engine{i}"))
-        same = all(tr == trees[0] for tr in trees[1:])
-        print(f"phase 3e: {' / '.join(engines)} on 2 clips: {len(trees[0])} files, trees "
-              f"byte-identical {same} ({time.perf_counter() - t0:.1f} s)", flush=True)
-        require(same and len(trees[0]) == 2 * (2 + 10 * K), "engine trees differ")
+        batched(tmp / "sequential", rirs[:CORPUS_BATCH], max_batch=CORPUS_BATCH,
+                pipeline=False, score_workers=1)
+        seq_tree = _tree(tmp / "sequential")
+        pipe_tree = {str(p.relative_to(tmp / "staged")): p.read_bytes()
+                     for r in rirs[:CORPUS_BATCH]
+                     for p in driver.clip_artifacts(tmp / "staged", r, NOISE, SNR_RANGE, K)}
+        same = seq_tree == pipe_tree
+        print(f"phase 3e: sequential engine with inline scoring on {CORPUS_BATCH} clips vs the "
+              f"staged lane's pipelined chunk ({CORPUS_WORKERS} scoring workers): "
+              f"{len(seq_tree)} files, trees byte-identical {same} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        require(same and len(seq_tree) == CORPUS_BATCH * (2 + 10 * K), "engine trees differ")
 
         # (5): the streaming lane with the eigensolver kernel
         t0 = time.perf_counter()
@@ -2131,6 +2158,143 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
     require(jumps[512] < SIM_TOL["crossfade"] * jumps[0], ("continuity", jumps))
 
 
+#: phase 3h: serving — a block is one 1.008-s window of 64 frames (16 refreshes)
+SERVE_BLOCK, SERVE_U = 64, 4
+#: phase 3h: the time-domain session's windows (LW samples each) and the
+#: serve_tick crash's tick
+SERVE_WINDOWS, SERVE_CRASH_AFTER = 4, 3
+
+
+def serve_sessions(d: SimpleNamespace) -> tuple[list, dict]:
+    """The five sessions of phase 3h on the north-star clip, with their
+    offline references computed here on the main thread (before any server
+    runs): four STFT-domain sessions (``jacobi-pallas``; ``jacobi-pallas``
+    with mu 1.2; ``fused``; ``eigh`` with a z_mask that drops node 1), each
+    whole-clip ``streaming_tango`` held bit for bit to ``per_block_stream``
+    (the per-block offline calls a served stream makes), and one
+    ``domain="time"`` session (``jacobi-pallas``) whose reference is
+    ``streaming_clip_fused`` window by window with the state carried.
+    Returns the sessions and the launches of their offline per-block and
+    per-window calls, by kernel."""
+    import torch
+
+    from disco_tpu_torch.device import to_host
+    from disco_tpu_torch.serve import check as sc
+
+    Yh, mh = to_host([d.Y, d.m])
+    F = Yh.shape[-2]
+    z_mask = np.ones(K, np.float32)
+    z_mask[1] = 0.0
+    stft_specs = [("jacobi-pallas", {"solver": "jacobi-pallas"}, None),
+                  ("jacobi-pallas mu 1.2", {"solver": "jacobi-pallas", "mu": 1.2}, None),
+                  ("fused", {"solver": "fused"}, None),
+                  ("eigh z_mask", {"solver": "eigh"}, z_mask)]
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def count(fn, *args, **kw):  # fn's launches added into ``launches``
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        out = fn(*args, **kw)
+        for k, (f, a) in counters.items():
+            launches[k] += getattr(f, a) - before[k]
+        return out
+
+    specs = []
+    for label, kw, zm in stft_specs:
+        okw = dict(kw, **({} if zm is None else {"z_avail": zm}))
+        ref = sc.offline_stream(Yh, mh, device=d.dev, update_every=SERVE_U, **okw)
+        pb = count(sc.per_block_stream, Yh, mh, block=SERVE_BLOCK, device=d.dev,
+                   update_every=SERVE_U, **okw)
+        same = bool(np.array_equal(ref, pb))
+        print(f"phase 3h: {label}: whole-clip streaming_tango vs the per-block calls of "
+              f"{SERVE_BLOCK} frames: bit-identical {same} (max abs "
+              f"{float(np.abs(ref - pb).max()):.3e})", flush=True)
+        require(same, ("whole clip vs per block on the card", label))
+        specs.append({"label": label, "Y": Yh, "m": mh, "ref": ref, "z_mask": zm,
+                      "config": sc.session_config(F, n_nodes=K, n_mics=C,
+                                                  block_frames=SERVE_BLOCK,
+                                                  update_every=SERVE_U, **kw)})
+    wins = [d.y_np[..., w * LW:(w + 1) * LW] for w in range(SERVE_WINDOWS)]
+    masks = [mh[..., 63 * w:63 * w + SERVE_BLOCK] for w in range(SERVE_WINDOWS)]
+    refs = count(sc.chained_windows, wins, masks, device=d.dev, update_every=SERVE_U,
+                 solver="jacobi-pallas")
+    torch.cuda.synchronize()
+    specs.append({"label": "time jacobi-pallas", "windows": wins, "masks": masks,
+                  "ref": np.concatenate(refs, axis=-1),
+                  "config": sc.session_config(F, n_nodes=K, n_mics=C,
+                                              block_frames=SERVE_BLOCK, update_every=SERVE_U,
+                                              solver="jacobi-pallas", domain="time")})
+    return specs, launches
+
+
+def serve_latency() -> dict:
+    """The serve histograms' count, p50 and p95 (ms)."""
+    from disco_tpu_torch.obs import REGISTRY
+
+    snap = REGISTRY.snapshot()["histograms"]
+    return {name: {k: snap[name][k] for k in ("count", "p50", "p95")}
+            for name in ("serve_block_latency_ms", "serve_queue_wait_ms", "serve_dispatch_ms")
+            if name in snap}
+
+
+def phase3h_serving(d: SimpleNamespace) -> None:
+    """Online serving on the card: five concurrent full-width sessions
+    through an in-process ``EnhanceServer`` on loopback, clients on host
+    threads, in both tick modes; then drain and resume, and the chaos
+    legs (``disco_tpu_torch.serve.check``)."""
+    import tempfile
+    from pathlib import Path
+
+    from disco_tpu_torch.obs import REGISTRY
+    from disco_tpu_torch.serve import check as sc
+
+    t_phase = time.perf_counter()
+    specs, expected = serve_sessions(d)
+    print("phase 3h: launches of the sessions' offline per-block calls: " + json.dumps(expected),
+          flush=True)
+    failures: list = []
+    rates = {}
+    for mode, kw in (("per-block ticks", {}),
+                     ("super-ticks of 2", {"blocks_per_super_tick": 2, "max_queue_blocks": 8})):
+        for name in ("serve_block_latency_ms", "serve_queue_wait_ms", "serve_dispatch_ms"):
+            REGISTRY.histogram(name).reset()
+        with counted(f"serve, {mode}", expected, d.launches):
+            res = sc.check_parity(failures, specs, device=d.dev, server_kw=kw,
+                                  label=f"serve {mode}")
+        require(not failures, failures)
+        lat = serve_latency()
+        rates[mode] = {"ticks": res["ticks"], "batched_readbacks": res["batched_readbacks"],
+                       "blocks": res["blocks_total"], "seconds": res["seconds"],
+                       "blocks_per_s": res["blocks_total"] / res["seconds"], "latency_ms": lat}
+        print(f"phase 3h: serve, {mode}: {len(specs)} concurrent sessions (K={K} x C={C}, "
+              f"{SERVE_BLOCK}-frame blocks) bit-identical to their offline references; "
+              f"{res['ticks']} ticks with work, {res['batched_readbacks']} batched readbacks; "
+              f"{res['blocks_total']} blocks in {res['seconds']:.3f} s = "
+              f"{rates[mode]['blocks_per_s']} blocks per s; latency " + json.dumps(lat),
+              flush=True)
+    d.serve = rates
+
+    jp = specs[0]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="serve-", dir=build) as tmp:
+        tmp = Path(tmp)
+        drain = sc.check_drain_resume(failures, tmp / "state", jp["Y"], jp["m"], jp["ref"],
+                                      jp["config"], device=d.dev)
+        require(not failures, failures)
+        print(f"phase 3h: drain after {drain['blocks_before_drain']} of {drain['blocks_total']} "
+              f"blocks, checkpoint {Path(drain['state_path']).name} under build/, resumed on a "
+              "fresh server: the stitched stream bit-identical", flush=True)
+        chaos = sc.check_chaos(failures, tmp / "chaos", jp["Y"], jp["m"], jp["ref"],
+                               jp["config"], device=d.dev, crash_after=SERVE_CRASH_AFTER)
+        require(not failures, failures)
+        print(f"phase 3h: chaos: serve_tick crash at tick {SERVE_CRASH_AFTER} after "
+              f"{chaos['blocks_before_crash']} delivered blocks, each bit-correct; a mid_write "
+              f"crash in the drain checkpoint left no checkpoint at its final path "
+              f"({chaos['crashes_injected']} crashes injected)", flush=True)
+    print(f"phase 3h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
     """Windows ``first`` .. ``last - 1`` of the clip through
     ``streaming_clip_fused`` from ``state``; returns (the (K, n * LW)
@@ -2725,6 +2889,7 @@ def main() -> int:
     phase3e_corpus(d)
     phase3f_training(d)
     phase3g_simulation(d)
+    phase3h_serving(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

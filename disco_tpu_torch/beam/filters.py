@@ -31,6 +31,8 @@ EIG_CEIL = 1e6
 # Relative diagonal loading so the float32 Cholesky exists for
 # near-singular noise covariances
 DIAG_LOADING = 1e-6
+# Matrices per torch.linalg.eigh call on a CUDA tensor (_eigh_batches)
+EIGH_BATCH = 16384
 
 
 def get_filter_type(name: str):
@@ -90,12 +92,37 @@ def _whitened(Rxx: torch.Tensor, Rnn: torch.Tensor):
     return L, 0.5 * (A + _herm(A))
 
 
+def _eigh_batches(A: torch.Tensor):
+    """``torch.linalg.eigh`` of a stack of matrices; on a CUDA tensor in
+    batches of exactly :data:`EIGH_BATCH` matrices, the last padded with
+    identities.  cuSOLVER's batched eigensolver refuses the batches a
+    streaming step hands it at the north-star width (8 x 16 x 257 pencils
+    a 64-frame block, 8 x 157 x 257 a 10-s clip:
+    ``CUSOLVER_STATUS_INVALID_VALUE``), and one batch size for every call
+    keeps a matrix's eigenpairs independent of how many others came with
+    it, so a stream served block by block equals the whole-clip stream bit
+    for bit (``exp/serve_parity_probe.py``)."""
+    if A.device.type != "cuda":
+        return torch.linalg.eigh(A)
+    lead, n = A.shape[:-2], A.shape[-1]
+    flat = A.reshape(-1, n, n)
+    m = flat.shape[0]
+    pad = (-m) % EIGH_BATCH
+    if pad:
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        flat = torch.cat([flat, eye.expand(pad, n, n)])
+    parts = [torch.linalg.eigh(c) for c in flat.split(EIGH_BATCH)]
+    lam = torch.cat([p[0] for p in parts])[:m]
+    U = torch.cat([p[1] for p in parts])[:m]
+    return lam.reshape(lead + (n,)), U.reshape(lead + (n, n))
+
+
 def _eigh_xla(A: torch.Tensor):
     """``torch.linalg.eigh`` with NaN propagation: a non-finite matrix
     yields NaN pairs instead of a LAPACK/cuSOLVER error."""
     bad = ~torch.isfinite(A).flatten(-2).all(-1)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    lam, U = torch.linalg.eigh(torch.where(bad[..., None, None], eye, A))
+    lam, U = _eigh_batches(torch.where(bad[..., None, None], eye, A))
     nan = float("nan")
     return (torch.where(bad[..., None], torch.full_like(lam, nan), lam),
             torch.where(bad[..., None, None], torch.full_like(U, nan), U))

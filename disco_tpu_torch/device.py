@@ -13,6 +13,8 @@ import threading
 import numpy as np
 import torch
 
+from disco_tpu_torch.obs.accounting import device_get_tick
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` when ``device`` is
@@ -57,13 +59,16 @@ def to_host(tensors) -> list:
     ``device_get_tree``): each is flattened into one float32 payload
     (complex64 as its (re, im) pairs), the payload crosses with one
     ``.cpu()``, and the host arrays are views of it in the tensors'
-    shapes and dtypes."""
+    shapes and dtypes.  Each call counts one batched readback
+    (``obs.accounting.device_get_tick``: the ``device_get_batches``
+    counter)."""
     tensors = list(tensors)
     for t in tensors:
         if t.dtype not in (torch.float32, torch.complex64):
             raise TypeError(f"to_host: float32 or complex64 tensors only, got {t.dtype}")
     flat = [(torch.view_as_real(t) if t.is_complex() else t).reshape(-1) for t in tensors]
     payload = torch.cat(flat).cpu().numpy()
+    device_get_tick()
     out, start = [], 0
     for t, f in zip(tensors, flat):
         a = payload[start:start + f.numel()]

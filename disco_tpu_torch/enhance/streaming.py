@@ -207,9 +207,14 @@ def _stream_filter(X, XS, XN, lam: float, u: int, mu: float, ref: int, extras, i
     B = (T + pad) // u
 
     def blocks(a):  # (..., T, F, D) -> (..., B, u, F, D), zero-padded
+        # always a fresh contiguous tensor, as the padded branch's cat is:
+        # the CPU's elementwise complex products take a vectorized or a
+        # scalar loop by memory layout, and the two differ in the last bit,
+        # so a stream whose length needs no padding would otherwise compute
+        # its blocks apart from one that does
         if pad:
             a = torch.cat([a, a.new_zeros(a.shape[:-3] + (pad, F, D))], dim=-3)
-        return a.reshape(a.shape[:-3] + (B, u, F, D))
+        return a.contiguous().reshape(a.shape[:-3] + (B, u, F, D))
 
     Rss0, Rnn0, w_seed = init_state
     (Rss_e, Rnn_e), (Rss_ref, Rnn_ref) = _block_covariances(blocks(XS), blocks(XN), lam,
@@ -226,7 +231,14 @@ def _stream_filter(X, XS, XN, lam: float, u: int, mu: float, ref: int, extras, i
     wc = w.conj()
 
     def apply(E):
-        y = torch.einsum("...bfd,...bufd->...buf", wc, blocks(E))
+        # one product a refresh block, each of the same shape and layout:
+        # cuBLAS picks its kernel by the batch, so one product over all the
+        # blocks made a stream cut into 8-frame blocks differ from the whole
+        # clip in the last bit on the card (exp/serve_parity_probe.py)
+        x = blocks(E)
+        y = torch.stack([torch.einsum("...fd,...ufd->...uf", wc[..., b, :, :].contiguous(),
+                                      x[..., b, :, :, :].contiguous()) for b in range(B)],
+                        dim=-3)
         return y.reshape(y.shape[:-3] + (B * u, F))[..., :T, :]
 
     return apply(X), w[..., -1, :, :], Rss_e, Rnn_e, [apply(E) for E in extras or ()]

@@ -14,7 +14,10 @@ the covariances); the eigensolver is also held bit for bit to its plain
 version, as its design promises (``csrc/eigh.cu``).  The bf16 lane's
 kernels against their bf16 plain versions: the STFT within 1e-4 of the
 output scale (max-abs; the tensor cores' float32 accumulation order is not
-a sequential sum), the covariances and the solve bit for bit.
+a sequential sum), the covariances and the solve bit for bit.  Serving
+(``disco_tpu_torch.serve``) at the north-star width: concurrent sessions on
+a CUDA server bit-identical to their offline streams in both tick modes,
+with one batched readback a tick and the offline calls' launches.
 """
 import numpy as np
 import pytest
@@ -663,3 +666,129 @@ def test_batched_generation_crash_and_resume_on_card(cuda, tmp_path):
     trees = [{str(p.relative_to(r)): p.read_bytes() for p in sorted(r.rglob("*")) if p.is_file()}
              for r in (tmp_path / "a" / "dataset", tmp_path / "b" / "dataset")]
     assert len(trees[0]) == 2 * (2 + 2 * 16 + 1) and trees[0] == trees[1]
+
+
+def _serve_specs(dev, seconds=4.0):
+    """Serving's sessions at the north-star width (K=8 x C=4, F=257,
+    64-frame blocks): three STFT-domain sessions with their whole-clip
+    references (bit-identical to the per-block calls) and a time-domain
+    one; and the launches of their offline per-block calls."""
+    from disco_tpu_torch.core.masks import tf_mask_mag
+    from disco_tpu_torch.device import to_host
+    from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
+    from disco_tpu_torch.serve import check as sc
+
+    counters = [(stft_ops.stft_kernel, "launches"), (mwf_ops.fused_mwf_kernel, "launches"),
+                (eigh_ops.eigh_jacobi_kernel, "launches"), (cov_ops.masked_cov_kernel, "launches")]
+    y, s, n = scene(8, 4, int(seconds * 16000), seed=3, noise_scale=0.5)
+    spec, mag = stft_ops.stft_kernel(torch.from_numpy(np.stack([y, s, n])).to(dev), with_mag=True)
+    Y, m = to_host([spec[0], tf_mask_mag(mag[1][:, 0], mag[2][:, 0], "irm1")])
+    cfg = dict(n_nodes=8, n_mics=4, block_frames=64, update_every=4)
+    zm = np.ones(8, np.float32)
+    zm[2] = 0.0
+    specs, launches = [], [0] * len(counters)
+    for kw, z in (({"solver": "jacobi-pallas"}, None), ({"solver": "fused", "mu": 1.2}, None),
+                  ({"solver": "eigh"}, zm)):
+        okw = dict(kw, **({} if z is None else {"z_avail": z}))
+        ref = sc.offline_stream(Y, m, device=dev, **okw)
+        before = [getattr(f, a) for f, a in counters]
+        pb = sc.per_block_stream(Y, m, block=64, device=dev, **okw)
+        launches = [n + getattr(f, a) - b for n, (f, a), b in zip(launches, counters, before)]
+        np.testing.assert_array_equal(pb, ref)
+        specs.append({"Y": Y, "m": m, "ref": ref, "z_mask": z,
+                      "config": sc.session_config(257, **cfg, **kw)})
+    wins = [y[..., w * 16128:(w + 1) * 16128] for w in range(3)]
+    masks = [m[..., 63 * w:63 * w + 64] for w in range(3)]
+    before = [getattr(f, a) for f, a in counters]
+    refs = sc.chained_windows(wins, masks, device=dev, solver="jacobi-pallas")
+    launches = [n + getattr(f, a) - b for n, (f, a), b in zip(launches, counters, before)]
+    specs.append({"windows": wins, "masks": masks, "ref": np.concatenate(refs, axis=-1),
+                  "config": sc.session_config(257, **cfg, solver="jacobi-pallas",
+                                              domain="time")})
+    return specs, counters, launches
+
+
+@pytest.mark.parametrize("super_ticks", [False, True])
+def test_serve_parity_at_north_star_width(cuda, super_ticks):
+    """Four concurrent full-width sessions on a CUDA server (the eigensolver,
+    fused-solve and STFT kernels): each served stream bit-identical to its
+    offline reference, one batched readback a tick with work, and the
+    launches of the offline per-block calls."""
+    from disco_tpu_torch.serve import check as sc
+
+    specs, counters, launches = _serve_specs(cuda)
+    before = [getattr(f, a) for f, a in counters]
+    failures = []
+    res = sc.check_parity(failures, specs, device=cuda,
+                          server_kw={"blocks_per_super_tick": 2, "max_queue_blocks": 8}
+                          if super_ticks else None)
+    torch.cuda.synchronize()
+    assert not failures, failures
+    assert res["batched_readbacks"] == res["ticks"] >= 1
+    assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == launches
+    assert launches[0] == 3 and launches[1] == 4 * 2 and launches[2] == (4 + 3) * 2
+
+
+@pytest.mark.parametrize("solver", ["eigh", "jacobi-pallas", "fused"])
+@pytest.mark.parametrize("block", [8, 64])
+def test_whole_clip_stream_equals_its_blocks_at_north_star_width(cuda, solver, block):
+    """A 10-s north-star stream equals the same stream in blocks of 8 and
+    64 frames bit for bit on the card (every library call on the path sees
+    a batch of a fixed shape: ``filters._eigh_batches``, the per-block
+    filter product of ``streaming._stream_filter``); ``eigh`` at this width
+    also shows cuSOLVER's batch limit is kept."""
+    from disco_tpu_torch.serve import check as sc
+
+    rng = np.random.default_rng(1)
+    Y = complex_normal(rng, (8, 4, 257, 626))
+    m = rng.uniform(0.05, 0.95, (8, 257, 626)).astype(np.float32)
+    ref = sc.offline_stream(Y, m, device=cuda, solver=solver)
+    assert np.isfinite(ref).all()
+    np.testing.assert_array_equal(sc.per_block_stream(Y, m, block=block, device=cuda,
+                                                      solver=solver), ref)
+
+
+def test_fused_xla_session_evicted_on_a_cuda_server(cuda):
+    """'fused-xla' names the fused solve's plain version, which never runs
+    on a CUDA tensor: the session is admitted and evicted with a clean
+    error frame at its first dispatch, and the server keeps serving."""
+    from disco_tpu_torch.serve import EnhanceServer, ServeClient, ServeError
+    from disco_tpu_torch.serve import check as sc
+
+    Y, m = sc.scene(3, device=cuda)
+    srv = EnhanceServer(max_sessions=2, device=cuda)
+    try:
+        addr = srv.start()
+        cl = ServeClient(addr, reattach_retries=0)
+        try:
+            cl.open(sc.session_config(Y.shape[-2], solver="fused-xla"))
+            cl.send_block(Y[..., :sc.BLOCK], m[..., :sc.BLOCK], m[..., :sc.BLOCK])
+            with pytest.raises(ServeError) as err:
+                cl.recv_enhanced(0)
+        finally:
+            cl.shutdown()
+        assert err.value.code == "evicted" and "ValueError" in str(err.value)
+        good = ServeClient(addr)
+        try:
+            good.open(sc.session_config(Y.shape[-2], solver="fused"))
+            np.testing.assert_array_equal(good.enhance_clip(Y, m, m),
+                                          sc.offline_stream(Y, m, device=cuda, solver="fused"))
+            good.close()
+        finally:
+            good.shutdown()
+    finally:
+        srv.stop()
+    assert srv.crashed is None
+
+
+def test_to_host_counts_one_readback_on_the_card(cuda):
+    from disco_tpu_torch.device import to_host
+    from disco_tpu_torch.obs.accounting import device_get_count
+
+    a = torch.arange(12, dtype=torch.float32, device=cuda).reshape(3, 4)
+    b = torch.complex(a, -a)
+    before = device_get_count()
+    ha, hb = to_host([a, b])
+    assert device_get_count() - before == 1
+    np.testing.assert_array_equal(ha, a.cpu().numpy())
+    np.testing.assert_array_equal(hb, b.cpu().numpy())
