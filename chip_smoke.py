@@ -75,11 +75,12 @@ pass):
    under ``build/``, deleted at the end of the phase; cut from 16 clips to
    8, then to 4 to make room for phase 3f: host scoring takes ~30-40 s a
    clip, and the script stays near half its time limit)
-   through ``enhance_rirs_batched`` with ``max_batch=2`` (two chunks, so
-   the pipelined engine still overlaps a load with a dispatch), 4
-   scoring workers and a run ledger, in the staged lane (``solver='power'``: 2 STFT and 4
-   covariance launches) and the chained lane (2 STFT, 4 covariance and 4
-   fused-solve launches): every clip done in the ledger, every artifact
+   through ``enhance_rirs_batched`` with ``max_batch=2``, 4 scoring
+   workers and a run ledger, in the staged lane (``solver='power'``, two
+   chunks, so the pipelined engine still overlaps a load with a dispatch:
+   2 STFT and 4 covariance launches) and the chained lane on the first 2
+   clips (cut from 4 to make room for phase 3i; one chunk: 1 STFT, 2
+   covariance and 2 fused-solve launches): every clip done in the ledger, every artifact
    valid (``probe_artifact``), the JAX package's result schema in float64,
    every clip's mean sdr_cnv more than 3 dB over its mean sdr_in_cnv;
    one clip through ``enhance_rir(bucket=8192)`` within 1e-5 of the output
@@ -171,6 +172,26 @@ pass):
    stitched; a ``serve_tick`` crash after 3 ticks with every frame received
    before it bit-correct, and a ``mid_write`` crash in the drain checkpoint
    leaving no checkpoint at its final path.
+3i. The flywheel and promotion (``disco_tpu_torch.promote.check``,
+   ``disco_tpu_torch.runs.endure``) at the same width with the canonical
+   CRNN (``n_ch`` 1, phase 3d's seeded weights): the generation staged
+   from the card's module has the host's ``gen_id``; four ``masks="model"``
+   sessions (two ``jacobi-pallas``, two ``fused``) on seeded white-noise
+   spectra and a time-domain ``jacobi-pallas`` session (client masks from
+   the incumbent's lane on each window's STFT: a time-domain session cannot
+   be a model session, as in the JAX package) served together with the
+   corpus tap on, every stream bit-identical to its oracle, one readback a
+   tick, every model block tapped with the lane's masks, the launches
+   (counters set to 0 before serving and read after) equal to the oracles'
+   calls and nonzero for the STFT, the eigensolver and the fused solve;
+   blocks per second and latency p50/p95 beside phase 3h's; the lane's ms a
+   block and a resident train step's ms (CUDA events); a zeroed candidate
+   demoted on ``canary_sdr_db`` and a perturbed one promoted across the four
+   sessions, a ``pre_swap`` crash and restart, ``mid_canary`` and
+   ``post_gate`` crashes, each stream bit-identical to its per-generation
+   oracle; two endurance legs (a ``mid_epoch`` crash, then clean) in which
+   the resident trainer publishes from the tap's shards and the controller
+   promotes, with shards written and dropped and ``tap_to_promotion_ms``.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -251,6 +272,8 @@ TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "
        "crnn_rerun": 1e-6}
 #: phase 3e's corpus: clips (north-star width), clips a chunk, scoring workers
 CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 4, 2, 4
+#: the chained lane's clips (cut from 4 to 2 to make room for phase 3i)
+CORPUS_CHAINED_CLIPS = 2
 #: phase 3e's bounds: each clip's mean sdr_cnv over its mean sdr_in_cnv (dB); one
 #: clip through enhance_rir against its batched run (out_mix, output scale; every
 #: metric, dB) and against the host's plain versions (output scale; dB)
@@ -1217,23 +1240,25 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
             return driver.enhance_rirs_batched(str(corpus), "living", list(clips), NOISE,
                                                out_root=str(out), **common, **kw)
 
-        # (1), (2): the two offline lanes, two chunks each, timed by part
-        lanes = {"staged": ({}, {"stft": 1, "masked_cov": 2}),
-                 "chained": ({"chained": True}, {"stft": 1, "masked_cov": 2, "fused_mwf": 2})}
-        n_chunks = -(-len(rirs) // CORPUS_BATCH)
+        # (1), (2): the two offline lanes, timed by part: the staged lane in
+        # two chunks, the chained lane on CORPUS_CHAINED_CLIPS (one chunk)
+        lanes = {"staged": ({}, {"stft": 1, "masked_cov": 2}, rirs),
+                 "chained": ({"chained": True}, {"stft": 1, "masked_cov": 2, "fused_mwf": 2},
+                             rirs[:CORPUS_CHAINED_CLIPS])}
         results = {}
-        for lane, (kw, per_chunk) in lanes.items():
-            times = {}
+        for lane, (kw, per_chunk, clips) in lanes.items():
+            n_chunks = -(-len(clips) // CORPUS_BATCH)
+            times = {"clips": len(clips)}
             with corpus_timers(times), counted(f"corpus {lane}", {
                     k: v * n_chunks for k, v in per_chunk.items()}, d.launches):
                 t0 = time.perf_counter()
-                results[lane] = batched(tmp / lane, rirs, max_batch=CORPUS_BATCH,
+                results[lane] = batched(tmp / lane, clips, max_batch=CORPUS_BATCH,
                                         score_workers=CORPUS_WORKERS,
                                         ledger=tmp / f"{lane}.jsonl", **kw)
                 torch.cuda.synchronize()
                 times["wall_s"] = time.perf_counter() - t0
             check_corpus_run(f"{lane} lane ({times['wall_s']:.1f} s)", results[lane], tmp / lane,
-                             tmp / f"{lane}.jsonl", rirs)
+                             tmp / f"{lane}.jsonl", clips)
             d.corpus[lane] = times
 
         # (3): one clip through enhance_rir on the card and on the host
@@ -1346,7 +1371,7 @@ def phase5_corpus(d: SimpleNamespace) -> None:
             launches(chunk)  # warm-up
             runs[label] = sorted(time_ms(lambda: launches(chunk), reps=1, warmup=0)
                                  for _ in range(5))
-        n = CORPUS_CLIPS
+        n = times["clips"]
         split = {
             "clips": n, "wall_s": times["wall_s"], "clips_per_s": n / times["wall_s"],
             "load_s_per_clip": sum(times["load_s"]) / len(times["load_s"]),
@@ -2067,6 +2092,7 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
         fl, nbytes = stft_cost(3 * B, x.shape[-1])
         b_ms, b_by = bound(fl, nbytes)
         win = hann_periodic(512, device="cuda")
+        d.scene_stft_x = x   # phase 5 reads its device time
         stft_ms = {"kernel": time_ms(lambda: stft_kernel(x, with_mag=True), reps=20),
                    "plain": time_ms(lambda: stft_matmul(x, with_mag=True), reps=20),
                    "torch.stft": time_ms(lambda: torch.stft(
@@ -2293,6 +2319,155 @@ def phase3h_serving(d: SimpleNamespace) -> None:
               f"crash in the drain checkpoint left no checkpoint at its final path "
               f"({chaos['crashes_injected']} crashes injected)", flush=True)
     print(f"phase 3h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+#: phase 3i: the flywheel and promotion — paced rounds of a leg's clips
+#: (64-frame blocks), of the endurance campaign's clips, the canonical
+#: CRNN's build_crnn kwargs and the resident trainer's batch
+FLY_BLOCKS, FLY_ENDURE_BLOCKS = 14, 20
+FLY_ARCH = {"n_ch": 1, "win_len": 21, "n_freq": 257}
+FLY_TRAIN_BATCH = 8
+
+
+def phase3i_flywheel(d: SimpleNamespace) -> None:
+    """The flywheel and promotion on the card at the north-star width with
+    the canonical CRNN (``disco_tpu_torch.promote.check``,
+    ``disco_tpu_torch.runs.endure``): model-mask sessions beside a
+    time-domain session with the tap on (launches against the oracles'),
+    a zeroed candidate demoted, a perturbed one promoted, a ``pre_swap``
+    crash and restart, the controller's crashes, and the resident trainer
+    publishing from the tap's shards into a promotion."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.core.dsp import stft
+    from disco_tpu_torch.nn.crnn import build_crnn
+    from disco_tpu_torch.nn.optim import build_optimizer
+    from disco_tpu_torch.nn.training import create_train_state, make_step_fns
+    from disco_tpu_torch.obs import REGISTRY
+    from disco_tpu_torch.promote import GenerationStore
+    from disco_tpu_torch.promote import check as pc
+    from disco_tpu_torch.promote.lane import block_masks
+    from disco_tpu_torch.runs import endure
+    from disco_tpu_torch.serve import check as sc
+
+    t_phase = time.perf_counter()
+    variables = seeded_crnn_variables(1, CRNN_SEEDS["step1"])
+    model = canonical_crnn(1, CRNN_SEEDS["step1"], d.dev)
+    F = d.Y.shape[-2]
+    configs = [pc.model_config(F, n_nodes=K, n_mics=C, block=SERVE_BLOCK, update_every=SERVE_U,
+                               solver=solver)
+               for solver in ("jacobi-pallas", "jacobi-pallas", "fused", "fused")]
+    clips = [pc.scene(300 + i, FLY_BLOCKS, n_nodes=K, n_mics=C, block=SERVE_BLOCK, device=d.dev)
+             for i in range(len(configs))]
+    endure_clips = [pc.scene(400 + i, FLY_ENDURE_BLOCKS, n_nodes=K, n_mics=C, block=SERVE_BLOCK,
+                             device=d.dev) for i in range(2)]
+    # the time-domain session: the clip's first windows, its client masks
+    # the incumbent's lane on each window's STFT (the port keeps the JAX
+    # package's refusal of domain='time' with masks='model')
+    wins = [d.y_np[..., w * LW:(w + 1) * LW] for w in range(SERVE_WINDOWS)]
+    t_masks = [block_masks(stft(torch.as_tensor(w, device=d.dev)), model).cpu().numpy()
+               for w in wins]
+    chained = {"windows": wins, "masks": t_masks,
+               "config": sc.session_config(F, n_nodes=K, n_mics=C, block_frames=SERVE_BLOCK,
+                                           update_every=SERVE_U, solver="jacobi-pallas",
+                                           domain="time")}
+    failures: list = []
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="flywheel-", dir=build) as tmp:
+        tmp = Path(tmp)
+        # a generation staged from the card's module has the host's id
+        g_card = GenerationStore(tmp / "ids_card").stage_module(model, arch=FLY_ARCH)
+        g_host = GenerationStore(tmp / "ids_host").stage_variables(variables, arch=FLY_ARCH)
+        print(f"phase 3i: the canonical CRNN staged from the card: {g_card.gen_id}, from the "
+              f"host's numpy tree: {g_host.gen_id}", flush=True)
+        require(g_card.gen_id == g_host.gen_id, ("gen_id card vs host", g_card, g_host))
+
+        for name in ("serve_block_latency_ms", "serve_queue_wait_ms", "serve_dispatch_ms"):
+            REGISTRY.histogram(name).reset()
+        served = pc.check_model_sessions(failures, tmp / "sessions", clips, configs, FLY_ARCH,
+                                         variables, chained=chained, counters=kernel_counters(),
+                                         device=d.dev)
+        require(not failures, failures)
+        d.launches["flywheel serve"] = served["served_launches"]
+        print(f"launches, flywheel serve: {served['served_launches']}; the oracles' calls: "
+              f"{served['oracle_launches']}", flush=True)
+        require(all(served["served_launches"][k] > 0 for k in ("stft", "eigh_jacobi",
+                                                               "fused_mwf")),
+                ("phase 3i launches", served["served_launches"]))
+        lat = np.asarray(served["latency_ms"])
+        rate = {"blocks": served["blocks"], "seconds": served["seconds"],
+                "blocks_per_s": served["blocks"] / served["seconds"],
+                "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                               "p95": float(np.percentile(lat, 95))},
+                "registry_latency_ms": serve_latency()}
+        print(f"phase 3i: {len(configs)} model-mask sessions (2 jacobi-pallas, 2 fused) and a "
+              f"time-domain session, tap on: every stream bit-identical to its oracle, "
+              f"{served['ticks']} ticks with work, {served['batched_readbacks']} batched "
+              f"readbacks, {served['records']} blocks tapped "
+              f"({served['tap']['shards_written']} shards, {served['tap']['blocks_dropped']} "
+              f"dropped); " + json.dumps(rate) + "; phase 3h's: " +
+              json.dumps({m: {k: r[k] for k in ("blocks_per_s", "latency_ms")}
+                          for m, r in d.serve.items()}), flush=True)
+
+        Yb = torch.as_tensor(clips[0][..., :SERVE_BLOCK], device=d.dev)
+        mask_ms = time_ms(lambda: block_masks(Yb, model), reps=10)
+        torch.manual_seed(TRAIN_SEED)
+        tmodel = build_crnn(**FLY_ARCH).to(d.dev)
+        tstate = create_train_state(tmodel, build_optimizer(tmodel))
+        step, _ = make_step_fns(tmodel)
+        rng = np.random.default_rng(TRAIN_SEED)
+        xb = torch.as_tensor(rng.random((FLY_TRAIN_BATCH, 1, 21, F), np.float32), device=d.dev)
+        yb = torch.as_tensor(rng.random((FLY_TRAIN_BATCH, 21, F), np.float32), device=d.dev)
+        step_ms = time_ms(lambda: step(tstate, xb, yb), reps=10)
+        print(f"phase 3i: model-mask lane {mask_ms:.3f} ms a block (K={K}, {SERVE_BLOCK} frames, "
+              f"CUDA events, mean of 10); resident train step {step_ms:.3f} ms at batch "
+              f"{FLY_TRAIN_BATCH} (canonical CRNN, n_ch 1)", flush=True)
+
+        legs = {}
+        legs["rollback"] = pc.check_rollback(failures, tmp / "rollback", clips, configs, FLY_ARCH,
+                                             variables, device=d.dev)
+        require(not failures, failures)
+        legs["promote"] = pc.check_promote(failures, tmp / "promote", clips, configs, FLY_ARCH,
+                                           variables, device=d.dev)
+        require(not failures, failures)
+        legs["pre_swap"] = pc.check_pre_swap(failures, tmp / "pre_swap", clips, configs,
+                                             FLY_ARCH, variables, device=d.dev)
+        require(not failures, failures)
+        legs["controller"] = pc.check_controller_crash(failures, tmp / "controller", clips[0],
+                                                       configs[0], FLY_ARCH, variables,
+                                                       device=d.dev)
+        require(not failures, failures)
+        print(f"phase 3i: zeroed candidate {legs['rollback']['candidate']} demoted on "
+              f"canary_sdr_db after {legs['rollback']['rounds']} rounds; perturbed candidate "
+              f"{legs['promote']['candidate']} promoted after {legs['promote']['rounds']} rounds "
+              f"(tap_to_promotion_ms {legs['promote']['tap_to_promotion_ms']}); pre_swap crash "
+              f"after {legs['pre_swap']['blocks_before_crash']} blocks, restart promoted a fresh "
+              f"candidate; mid_canary and post_gate crashes rolled back "
+              f"({legs['pre_swap']['crashes_injected'] + legs['controller']['crashes_injected']} "
+              "crashes injected); every stream bit-identical to its per-generation oracle",
+              flush=True)
+
+        camp = endure.campaign(failures, tmp / "endure", lambda leg: endure_clips[leg],
+                               configs[0], FLY_ARCH, variables, legs=("mid_epoch", None),
+                               min_generations=1, batch_size=FLY_TRAIN_BATCH, device=d.dev)
+        endure.campaign_end_asserts(failures, camp, min_generations=1)
+        require(not failures, failures)
+        hist = REGISTRY.snapshot()["histograms"].get("tap_to_promotion_ms") or {}
+        print(f"phase 3i: endurance legs (mid_epoch crash, then clean): "
+              f"{len(camp['promoted'])} trainer generations promoted "
+              f"({[g for _, g in camp['promoted']]}), {camp['crashes']} crash, "
+              f"{camp['train_steps']} train steps, {camp['shards_written']} shards written, "
+              f"{camp['blocks_dropped']} dropped, {camp['blocks']} blocks in "
+              f"{camp['serve_seconds']:.3f} s, SLO sampled {camp['slo_samples']} times, "
+              f"tap_to_promotion_ms p50 {hist.get('p50')} p95 {hist.get('p95')} over "
+              f"{hist.get('count')} promotions", flush=True)
+    d.flywheel = {"serve": rate, "mask_ms": mask_ms, "train_step_ms": step_ms,
+                  "tap_to_promotion_ms": hist}
+    print(f"phase 3i took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: str = "f32"):
@@ -2573,6 +2748,16 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "library_ms": time_ms(lambda: torch.stft(rows_b, 512, 256, window=win, center=True,
                                                  pad_mode="reflect", return_complex=True), reps=5),
     }]
+    # the f32 STFT kernel at phase 3g's scene-batch stack: its device time
+    xs = d.scene_stft_x
+    fl, nbytes = stft_cost(xs.shape[0] * xs.shape[1], xs.shape[-1])
+    entries[0]["batch_launches"].append({
+        "shape": f"scene batch {tuple(xs.shape)}",
+        "ms": time_ms(lambda: stft_ops.stft_kernel(xs, with_mag=True), reps=20),
+        "device_ms": device_ms(lambda: stft_ops.stft_kernel(xs, with_mag=True),
+                               "stft_rfft_kernel", reps=20),
+        "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes})
+    del d.scene_stft_x
     fl, nbytes = stft_bf16_cost(rows_b.shape[0], d.L)
     frames16 = (torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256)
                 * win).to(torch.bfloat16)
@@ -2591,7 +2776,8 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "bound_ms": bound(fl, nbytes, PEAK_BF16)[0], "flops": fl, "bytes": nbytes,
     }]
     for e in entries[:2]:
-        print(f"phase 5: {e['name']}: " + json.dumps(e["batch_launches"][0]), flush=True)
+        for row in e["batch_launches"]:
+            print(f"phase 5: {e['name']}: " + json.dumps(row), flush=True)
     del xb, rows_b, frames16, table16
 
     def cov_times(label, yy, mm, plain_reps, precision):
@@ -2890,6 +3076,7 @@ def main() -> int:
     phase3f_training(d)
     phase3g_simulation(d)
     phase3h_serving(d)
+    phase3i_flywheel(d)
     phase4_streaming_path(d)
     entries = phase5_times(d)
     phase6_breakdown(d)

@@ -30,11 +30,16 @@ Not carried over:
   ``clear_step_fn_caches``; both exist against jit retraces, and an eager
   step has nothing to retrace;
 * ``mesh`` (data-parallel steps) comes with multi-GPU (ROADMAP Queue 1,
-  item 8), and ``promote_dir``/``publish_checkpoint`` with serving and
-  promotion (item 6): both raise ``NotImplementedError``;
+  item 5) and raises ``NotImplementedError``;
 * the obs counters, gauges and events of ``fit`` (``train_steps``,
   ``train_loss``, ``val_loss``, ``train_empty_epochs``, the ``epoch`` and
-  ``warning`` events; item 7).
+  ``warning`` events; item 3).  The ``promotion`` event of a publish is
+  recorded.
+
+The promotion seams are the JAX package's: :func:`publish_checkpoint`
+stages a checkpoint in a :class:`~disco_tpu_torch.promote.store.
+GenerationStore`, and ``fit(promote_dir=..., promote_arch=...)`` publishes
+every improved checkpoint after its epoch's ledger record.
 
 Determinism.  Some cuDNN backward algorithms reduce with atomics, so two
 runs of one step could differ in their last bits, and a resumed run could
@@ -181,11 +186,11 @@ def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
 
     The gradients of the rows flax does not have (:func:`~disco_tpu_torch.
     nn.convert.flax_absent`) are zeroed before the update, so those rows
-    stay 0.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 8).
+    stay 0.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 5).
     """
     if mesh is not None:
         raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
-                                  "ROADMAP Queue 1, item 8")
+                                  "ROADMAP Queue 1, item 5")
     precision = resolve_precision(precision)
     in_bounds, out_bounds = model.loss_frames(output_frames)
     n_freq = n_freq or model.input_shape[-1]
@@ -386,11 +391,23 @@ def load_params_for_inference(path, state: TrainState) -> TrainState:
     return state
 
 
-def publish_checkpoint(promote_dir, ckpt_path, *, arch: dict, ledger=None, source=None):
-    """Staging a checkpoint as a weight generation comes with serving and
-    promotion (ROADMAP Queue 1, item 6)."""
-    raise NotImplementedError("publish_checkpoint comes with serving and promotion: "
-                              "ROADMAP Queue 1, item 6")
+def publish_checkpoint(promote_dir, ckpt_path, *, arch: dict, ledger=None,
+                       source: str | None = None):
+    """The publish seam between training and live promotion: stage one
+    :func:`save_checkpoint` file (of either package) as an immutable weight
+    generation under ``promote_dir``
+    (:meth:`~disco_tpu_torch.promote.store.GenerationStore.stage_checkpoint`).
+    ``arch``: the ``build_crnn`` kwargs the weights were trained with;
+    ``ledger``: the training run's ledger (path or
+    :class:`~disco_tpu_torch.runs.RunLedger`) — a run whose latest
+    ``epoch:*`` unit is still ``in_flight`` is refused with
+    :class:`~disco_tpu_torch.promote.store.PublishRefused` naming the unit.
+    Returns the staged :class:`~disco_tpu_torch.promote.store.Generation`."""
+    from disco_tpu_torch.promote.store import GenerationStore
+
+    ledger_path = getattr(ledger, "path", ledger)
+    return GenerationStore(promote_dir).stage_checkpoint(
+        ckpt_path, arch=arch, ledger=ledger_path, source=source or str(ckpt_path))
 
 
 # -- the epoch loop ---------------------------------------------------------
@@ -440,9 +457,10 @@ def fit(
     resume.  Returns (state, train_losses, val_losses, run_name).
 
     ``train_batches`` / ``val_batches`` are callables returning an iterator
-    of (x, y) numpy batches (a fresh shuffle each epoch).  A callable with
-    a ``set_start_epoch(epoch)`` method is told the first epoch before the
-    loop (a resumed run's data epochs then line up with its training
+    of (x, y) numpy batches (a fresh shuffle each epoch), such as
+    :meth:`~disco_tpu_torch.flywheel.ShardDataset.batch_fn`.  A callable
+    with a ``set_start_epoch(epoch)`` method is told the first epoch before
+    the loop (a resumed run's data epochs then line up with its training
     epochs).  Each epoch's batches ride the double-buffered host feed
     (:func:`_prefetch_host_batches`) into
     :func:`~disco_tpu_torch.device.prefetch_to_device`, so batch prep,
@@ -461,8 +479,12 @@ def fit(
     anything of it is written; a graceful stop (SIGTERM/SIGINT) is honoured
     between epochs and leaves a run that ``resume_from`` continues.
 
-    ``mesh`` (ROADMAP Queue 1, item 8) and ``promote_dir``/``promote_arch``
-    (item 6) are not ported yet and raise ``NotImplementedError``.
+    ``promote_dir`` (with ``promote_arch``, the ``build_crnn`` kwargs): the
+    live publish seam — every improved checkpoint is also staged as a weight
+    generation (:func:`publish_checkpoint`) after its epoch's ledger record
+    lands; a refusal is recorded as a ``promotion`` event and training goes
+    on.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 5) and raises
+    ``NotImplementedError``.
     """
     from disco_tpu_torch.io.atomic import file_digest, savez_atomic
     from disco_tpu_torch.runs import chaos as run_chaos
@@ -471,10 +493,10 @@ def fit(
 
     if mesh is not None:
         raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
-                                  "ROADMAP Queue 1, item 8")
-    if promote_dir is not None:
-        raise NotImplementedError("fit(promote_dir=...) comes with serving and promotion: "
-                                  "ROADMAP Queue 1, item 6")
+                                  "ROADMAP Queue 1, item 5")
+    if promote_dir is not None and promote_arch is None:
+        raise ValueError("fit(promote_dir=...) needs promote_arch (the build_crnn "
+                         "kwargs) to stage generations with")
     dev = resolve_device(device)
     check_module_device(model, dev)
     if state.model is not model:
@@ -546,6 +568,20 @@ def fit(
                 ckpt=str(ckpt_path) if improved else None,
                 ckpt_digest=file_digest(ckpt_path) if improved else None,
             )
+        if improved and promote_dir is not None:
+            # publish AFTER the epoch's done record: staging reads this
+            # run's ledger, and an in_flight unit would refuse the checkpoint
+            from disco_tpu_torch.obs import events as obs_events
+            from disco_tpu_torch.promote.store import PublishRefused
+
+            try:
+                gen = publish_checkpoint(promote_dir, ckpt_path, arch=promote_arch,
+                                         ledger=ledger)
+                obs_events.record("promotion", stage="train", action="published",
+                                  gen=gen.gen_id, epoch=int(epoch))
+            except PublishRefused as e:
+                obs_events.record("promotion", stage="train", action="refused",
+                                  unit=e.unit, reason=str(e))
         if gate.early_stop_query():
             break
     return state, train_losses, val_losses, run_name

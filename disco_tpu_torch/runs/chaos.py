@@ -31,6 +31,14 @@ Seams wired through the port (each a named :func:`tick` call):
   windows are fully yielded (``scenes/stream.py``) and after one chunk of
   the batched datagen driver is fully saved (``datagen/disco.py``): the
   scene factory's clean boundary.
+* ``pre_swap``       — on the serve dispatch thread, before a model
+  session moves to another weight generation (``serve/scheduler.py``).
+* ``mid_canary`` / ``post_gate`` — on the promotion controller's thread,
+  while a canary window is judged and after its verdict, before the ledger
+  records it (``promote/controller.py``).
+* ``pre_publish`` / ``between_generations`` — in the co-resident trainer,
+  after an epoch's checkpoint and before its generation is staged, and
+  after a generation lands (``flywheel/resident.py``).
 
 Injection is armed either programmatically (:func:`configure`) or via the
 ``DISCO_TPU_CHAOS`` environment variable (``"seam"`` or ``"seam:N"`` —

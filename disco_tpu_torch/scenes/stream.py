@@ -140,12 +140,14 @@ class SceneStream:
 
     # -- the batch stream ----------------------------------------------------
     def batches(self, batch_size: int, *, epoch: int = 0, shuffle: bool = True,
-                ledger=None, drop_last: bool = True):
-        """Yield ``(x, y)`` numpy batches for one epoch: batches never cross
-        a scene-batch boundary, and ``ledger`` arms per-scene-batch verified
-        resume (simulated-and-consumed batches are skipped on replay).  (The
-        JAX package's ``recent``, ignored there, comes with the shard feed
-        of the flywheel slice.)
+                ledger=None, drop_last: bool = True, recent: int | None = None):
+        """Yield ``(x, y)`` numpy batches for one epoch — the
+        :meth:`~disco_tpu_torch.flywheel.ShardDataset.batches` contract,
+        scene batches standing in for shards: batches never cross a
+        scene-batch boundary, ``ledger`` arms per-scene-batch verified
+        resume (simulated-and-consumed batches are skipped on replay), and
+        ``recent`` is accepted so the stream can stand in for a shard feed,
+        and ignored (an on-demand factory has no backlog to window).
 
         No reference counterpart (module docstring).
         """

@@ -19,9 +19,11 @@ concurrent streaming sessions on one device (the port's counterpart of
 * :mod:`~disco_tpu_torch.serve.check`     — the serving contract's legs as
   functions of a device.
 
-The server runs on ``"cuda"`` unless it is given ``device="cpu"``.  The
-flywheel's corpus tap, promotion and the co-resident trainer are not
-ported yet (ROADMAP Queue 1, item 2).
+The server runs on ``"cuda"`` unless it is given ``device="cpu"``.  It
+takes the flywheel's corpus tap (``tap=``), a promotion controller
+(``promote=``, which serves ``masks="model"`` sessions) and a co-resident
+trainer (``resident=``): :mod:`disco_tpu_torch.flywheel` and
+:mod:`disco_tpu_torch.promote`.
 """
 from disco_tpu_torch.serve.client import ServeClient, ServeError
 from disco_tpu_torch.serve.ladder import RUNGS, DegradationLadder

@@ -31,8 +31,12 @@ contract is written once:
 All references are computed by the caller BEFORE the server starts (while a
 server runs, only its dispatch thread touches the device), through
 :func:`offline_stream`, :func:`per_block_stream` and
-:func:`chained_windows`.  The JAX package's flywheel-tap leg waits for the
-tap (ROADMAP Queue 1, item 2).
+:func:`chained_windows`.
+
+6. :func:`check_tap` — the parity cycle with a
+   :class:`~disco_tpu_torch.flywheel.CorpusTap` on: no block dropped, one
+   record a delivered block, every shard passing ``probe_shard`` and the
+   manifest's verified replay, and serving bit-identical with the tap on.
 """
 from __future__ import annotations
 
@@ -487,3 +491,48 @@ def check_chained(failures: list, wins, masks, refs, config, *, device=None,
         if bad:
             failures.append(bad)
     return {"windows": len(got), "outputs": got}
+
+
+def check_tap(failures: list, specs: list, tap_dir, *, device=None,
+              server_kw: dict | None = None, records_per_shard: int = 8,
+              label: str = "tap") -> dict:
+    """:func:`check_parity` with a corpus tap on the server: every delivered
+    STFT block spooled, nothing dropped, every shard intact, and each
+    stream still bit-identical to its reference (the tap is transparent to
+    serving).  Time-domain sessions are served but never tapped."""
+    from disco_tpu_torch.flywheel import MANIFEST_NAME, CorpusTap, list_shards, probe_shard, read_shard
+    from disco_tpu_torch.runs.ledger import RunLedger
+
+    tap = CorpusTap(tap_dir, records_per_shard=records_per_shard)
+    try:
+        parity = check_parity(failures, specs, device=device, label=label,
+                              server_kw={**(server_kw or {}), "tap": tap})
+    finally:
+        stats = tap.close()
+    expected = sum(-(-sp["ref"].shape[-1] // sp["config"].block_frames)
+                   for sp in specs if sp["config"].domain != "time")
+    if stats["blocks_dropped"]:
+        failures.append(f"{label}: {stats['blocks_dropped']} blocks dropped — the "
+                        "spool bound is undersized for the load")
+    if stats["blocks_accepted"] != expected:
+        failures.append(f"{label}: spooled {stats['blocks_accepted']} blocks, expected "
+                        f"{expected} (one a delivered STFT block)")
+    shards = list_shards(tap_dir)
+    if expected and not shards:
+        failures.append(f"{label}: no shard files written")
+    n_records = 0
+    for sp in shards:
+        if not probe_shard(sp):
+            failures.append(f"{label}: shard fails its integrity probe: {sp}")
+        else:
+            n_records += len(read_shard(sp)[1])
+    if n_records != stats["blocks_accepted"]:
+        failures.append(f"{label}: shards hold {n_records} records, the tap accepted "
+                        f"{stats['blocks_accepted']}")
+    led = RunLedger(Path(tap_dir) / MANIFEST_NAME)
+    done, requeued = led.verified_done(requeue=False)
+    led.close()
+    if len(done) != len(shards) or requeued:
+        failures.append(f"{label}: the manifest verifies {len(done)}/{len(shards)} shards "
+                        f"({len(requeued)} requeued)")
+    return {**parity, "shards": len(shards), "records": n_records, **stats}

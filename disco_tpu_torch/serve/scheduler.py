@@ -35,10 +35,19 @@ re-queues the undispatched blocks and quarantines the session, any other
 error evicts it with a clean error frame), a host-only dispatch deadline,
 session parking with a bounded replay buffer, and the degradation ladder.
 
-Not in the port yet (ROADMAP Queue 1, item 2): the flywheel's corpus tap,
-weight-generation promotion and the co-resident trainer (``tap=``,
-``promote=`` and ``resident=`` raise ``NotImplementedError``), and with
-them ``masks="model"`` sessions, which are refused at admission.
+The flywheel's seams are the JAX package's: a corpus tap (``tap=``,
+:class:`~disco_tpu_torch.flywheel.CorpusTap`) is offered every delivered
+STFT block at the post-readback seam; a promotion controller
+(``promote=``, :class:`~disco_tpu_torch.promote.PromotionController`)
+serves ``masks="model"`` sessions, whose blocks get their masks at dispatch
+from the session's weight generation (:mod:`disco_tpu_torch.promote.lane`),
+with the controller's swaps applied on the dispatch thread at block
+boundaries; a co-resident trainer (``resident=``,
+:class:`~disco_tpu_torch.flywheel.ResidentTrainer`) takes its slice of
+train steps at the tail of every tick.  A model session's masks stay on
+the device, and the tap's copy of them rides the tick's one readback.
+Without a promotion store, ``masks="model"`` sessions are refused at
+admission with the JAX package's message.
 """
 from __future__ import annotations
 
@@ -76,8 +85,6 @@ DEFAULT_MAX_BLOCKS_PER_TICK = 64
 #: horizon are treated as delivered).
 FAULT_PLAN_BLOCKS = 4096
 
-#: Where the seams the port does not have yet are planned.
-_DEFERRED = "ROADMAP Queue 1, item 2 (the flywheel and promotion)"
 
 
 class AdmissionError(RuntimeError):
@@ -103,13 +110,6 @@ def set_dispatch_fault_injector(fn) -> None:
     """Install (or clear, with ``None``) the dispatch fault injector above."""
     global _DISPATCH_FAULT_INJECTOR
     _DISPATCH_FAULT_INJECTOR = fn
-
-
-def _deferred(name: str, value) -> None:
-    if value is not None:
-        raise NotImplementedError(
-            f"serve: {name}= is not ported yet; it comes with {_DEFERRED}"
-        )
 
 
 class Scheduler:
@@ -144,9 +144,6 @@ class Scheduler:
                  wait_window_ticks: int = 50,
                  ladder=None, state_dir=None, promote=None, resident=None,
                  device=None):
-        _deferred("tap", tap)
-        _deferred("promote", promote)
-        _deferred("resident", resident)
         if max_sessions < 1 or max_queue_blocks < 1 or max_blocks_per_tick < 1:
             raise ValueError("scheduler bounds must be >= 1")
         if blocks_per_super_tick < 1:
@@ -182,6 +179,11 @@ class Scheduler:
         #: admit ``domain="time"`` (chained-lane) sessions?
         self.allow_chained = allow_chained
         self.fault_spec = fault_spec
+        #: optional flywheel corpus tap (flywheel.CorpusTap), offered every
+        #: delivered STFT block's host arrays (noisy Y, masks, enhanced yf)
+        #: at the post-readback seam.  Its offer() never blocks and never
+        #: raises, so serving cannot backpressure or crash on its tap.
+        self.tap = tap
         #: transport-retry budget per dispatch/readback call (retries past
         #: the first attempt; an exhausted budget quarantines)
         self.dispatch_retries = dispatch_retries
@@ -211,6 +213,19 @@ class Scheduler:
         #: sessions are checkpointed here on the next tick so a reattach
         #: survives even a server death in between
         self.state_dir = state_dir
+        #: optional PromotionController.  The controller only requests
+        #: generation swaps; this scheduler's dispatch thread executes them
+        #: at block boundaries (:meth:`_apply_generation_swaps`), so every
+        #: block runs under exactly one generation.
+        self.promote = promote
+        #: {gen_id: model on this scheduler's device}, dispatch thread only
+        self._gen_models: dict = {}
+        if promote is not None:
+            promote.bind(self)
+        #: optional co-resident trainer (flywheel.ResidentTrainer), stepped
+        #: at the end of every tick with the ladder's rung, on this
+        #: dispatch thread: all its device work happens inside that call.
+        self.resident = resident
         self.draining = False
         self._lock = threading.Lock()
         self._sessions: dict[str, Session] = {}
@@ -229,9 +244,12 @@ class Scheduler:
         self._park_notices: list = []
         #: (tick_no, wait_ms) samples feeding the ladder's p95 window
         self._wait_samples: list = []
+        #: the ladder's rung >= 2 switches the tap off
+        self._tap_suspended = False
         #: dispatched-but-not-read-back units of the previous tick
         #: (overlap_readback): [(session, [seq, ...], yf on the device,
-        #: t_dispatch)]
+        #: t_dispatch, raw)] where raw keeps the input (seq, Y, mz, mw)
+        #: tuples for the tap (None when no tap)
         self._inflight: list = []
 
     # -- registry (I/O thread) ----------------------------------------------
@@ -242,6 +260,13 @@ class Scheduler:
     def get(self, session_id: str) -> Session | None:
         with self._lock:
             return self._sessions.get(session_id)
+
+    def model_session_ids(self) -> list:
+        """Ids of the OPEN model-mask sessions — the promotion controller's
+        canary-eligible set (any thread)."""
+        with self._lock:
+            return [s.id for s in self._sessions.values()
+                    if s.status == OPEN and s.config.masks == "model"]
 
     def _reject(self, code: str, message: str) -> AdmissionError:
         obs_registry.counter("admission_reject").inc()
@@ -266,8 +291,7 @@ class Scheduler:
                 config = SessionConfig.from_dict(config)
             except ValueError as e:
                 raise self._reject("bad_config", str(e)) from None
-        if config.masks == "model":
-            # the JAX package's refusal of a promote-less server
+        if config.masks == "model" and self.promote is None:
             raise self._reject(
                 "bad_config",
                 'masks="model" needs a promotion store; start the server '
@@ -317,6 +341,16 @@ class Scheduler:
                 ),
             )
         session.open_seq = seq
+        if config.masks == "model":
+            # every open (fresh or resumed) adopts the store's ACTIVE
+            # pointer: generations are not kept in session checkpoints, so
+            # a crash mid-rollout lands every resumed session back on the
+            # committed generation
+            try:
+                gen = self.promote.active_generation()
+            except RuntimeError as e:
+                raise self._reject("bad_config", str(e)) from None
+            session.set_generation(gen, at_seq=session.blocks_done)
         with self._lock:
             if session.id in self._sessions or session.id in self._parked:
                 raise self._reject(
@@ -404,12 +438,22 @@ class Scheduler:
                 )
         else:
             t_frames = Y.shape[-1]
-        for name, m in (("mask_z", mask_z), ("mask_w", mask_w)):
-            m = np.asarray(m)
-            if not np.issubdtype(m.dtype, np.number):
-                raise ValueError(f"{name} dtype {m.dtype} is not numeric")
-            if m.shape != (cfg.n_nodes, cfg.n_freq, t_frames):
-                raise QueueFull(f"{name} shape {m.shape} does not match block {Y.shape}")
+        if cfg.masks == "model":
+            # the model-mask lane: blocks arrive maskless and the dispatch
+            # thread fills both masks from the session's generation
+            if mask_z is not None or mask_w is not None:
+                raise QueueFull(
+                    f'session {session.id} has masks="model"; blocks must '
+                    "not carry mask_z/mask_w"
+                )
+        else:
+            for name, m in (("mask_z", mask_z), ("mask_w", mask_w)):
+                m = np.asarray(m)
+                if not np.issubdtype(m.dtype, np.number):
+                    raise ValueError(f"{name} dtype {m.dtype} is not numeric")
+                if m.shape != (cfg.n_nodes, cfg.n_freq, t_frames):
+                    raise QueueFull(f"{name} shape {m.shape} does not match block {Y.shape}")
+            mask_z, mask_w = np.asarray(mask_z), np.asarray(mask_w)
         if session.queue_depth() >= self.max_queue_blocks:
             raise QueueFull(
                 f"session {session.id} input queue at max_queue_blocks="
@@ -426,8 +470,7 @@ class Scheduler:
                 (session.id, int(seq)), ctx, "enqueue",
                 session=session.id, seq=int(seq),
             )
-        session.push_block(seq, Y, np.asarray(mask_z), np.asarray(mask_w),
-                           time.time(), trace_ctx=ctx)
+        session.push_block(seq, Y, mask_z, mask_w, time.time(), trace_ctx=ctx)
         self._set_gauges()
 
     def request_close(self, session: Session) -> None:
@@ -527,6 +570,14 @@ class Scheduler:
             session.status = OPEN
             session.parked_at = None
             session.outage_tick = self.tick_no
+        if (self.promote is not None and session.config.masks == "model"
+                and session.generation is not None):
+            # a rollout can end while a session is parked (its swap request
+            # was voided): a generation that is neither ACTIVE nor the live
+            # candidate is stale, and the session adopts ACTIVE
+            active = self.promote.active_generation()
+            if session.generation not in (active, self.promote.current_candidate()):
+                session.set_generation(active, at_seq=session.blocks_done)
         obs_registry.counter("session_reattached").inc()
         obs_events.record("session", stage="serve", action="reattach",
                           session=session.id, resume_seq=resume_seq,
@@ -588,6 +639,89 @@ class Scheduler:
                     reason=f"park checkpoint failed for {s.id}: "
                            f"{type(e).__name__}: {e}",
                 )
+
+    # -- promotion (dispatch thread) -----------------------------------------
+    def _apply_generation_swaps(self) -> None:
+        """Execute the promotion controller's requested generation swaps —
+        here, on the dispatch thread, and only for sessions at a block
+        boundary (``inflight == 0``): every block a session dispatches runs
+        under exactly one generation, which makes the per-generation replay
+        bit-exact.  Sessions not at a boundary are retried next tick;
+        sessions that left the live registry are reported void.
+
+        The ``pre_swap`` chaos seam fires here, after the rollout intent is
+        durable in the ledger and before the session moves.  With a state
+        dir, the session is checkpointed at the boundary first
+        (``save_session_state``): the carry a resume would adopt was
+        produced entirely under the old generation."""
+        swaps = self.promote.pending_swaps()
+        if not swaps:
+            return
+        from disco_tpu_torch.runs import chaos
+
+        for sid, gen, kind in swaps:
+            with self._lock:
+                session = self._sessions.get(sid)
+            if session is None or session.status not in (OPEN, DRAINING):
+                self.promote.note_swap_void(sid)
+                continue
+            if session.inflight != 0:
+                continue   # mid-flight: not at a boundary, next tick
+            chaos.tick("pre_swap")
+            boundary = session.blocks_done
+            if self.state_dir is not None:
+                from pathlib import Path
+
+                from disco_tpu_torch.serve.session import save_session_state
+
+                state_dir = Path(self.state_dir)
+                state_dir.mkdir(parents=True, exist_ok=True)
+                try:
+                    save_session_state(state_dir / f"session_{sid}.state.msgpack", session)
+                except Exception as e:
+                    obs_events.record(
+                        "warning", stage="serve",
+                        reason=f"swap checkpoint failed for {sid}: "
+                               f"{type(e).__name__}: {e}",
+                    )
+            session.set_generation(gen, at_seq=boundary)
+            ev_kind, ev_action = {"canary": ("canary", "swap"),
+                                  "promote": ("promotion", "adopt"),
+                                  "rollback": ("rollback", "swap")}[kind]
+            obs_events.record(ev_kind, stage="serve", action=ev_action,
+                              session=sid, gen=gen, seq=boundary)
+            self.promote.note_swapped(sid, gen, boundary)
+        # drop the device weights no live or parked session references (a
+        # rolled-back candidate must not pin its weights on the device)
+        refs = {s.generation for s in self.sessions()}
+        refs |= {s.generation for s in self.parked_sessions()}
+        for g in [g for g in self._gen_models if g not in refs]:
+            del self._gen_models[g]
+
+    def _gen_model(self, gen_id: str):
+        """The CRNN of one generation on this scheduler's device: a cache
+        miss loads it through the controller (digest-verified) and moves
+        its weights to the device once (dispatch thread only)."""
+        model = self._gen_models.get(gen_id)
+        if model is None:
+            model, _variables = self.promote.model_for(gen_id, device=self.device)
+            self._gen_models[gen_id] = model
+        return model
+
+    def _fill_model_masks(self, session: Session, blocks: list) -> None:
+        """Fill a model-mask session's popped blocks in place with masks of
+        its current generation (:func:`~disco_tpu_torch.promote.lane.
+        block_masks`, tensors on the device) before grouping, so the scan
+        path, the tap and a transport-retry requeue all see the same masks
+        (a retried block is never recomputed under a later generation)."""
+        from disco_tpu_torch.promote.lane import block_masks
+
+        model = self._gen_model(session.generation)
+        for i, (seq, Y, mz, mw) in enumerate(blocks):
+            if mz is not None:
+                continue   # already filled (requeued after a retry)
+            m = block_masks(Y, model, ref_mic=session.config.ref_mic)
+            blocks[i] = (seq, Y, m, m)
 
     # -- quarantine (dispatch thread) ----------------------------------------
     def _quarantine(self, session: Session, error: BaseException) -> None:
@@ -669,6 +803,8 @@ class Scheduler:
         self._release_quarantined()
         self._expire_parks()
         self._checkpoint_parked()
+        if self.promote is not None:
+            self._apply_generation_swaps()
         sessions = self.sessions()
         if sessions:
             # rotate the starting session each tick: under sustained overload
@@ -677,7 +813,8 @@ class Scheduler:
             k = self._rotate % len(sessions)
             self._rotate += 1
             sessions = sessions[k:] + sessions[:k]
-        units: list = []  # (session, [seq, ...], yf on the device, t_dispatch)
+        units: list = []  # (session, [seq, ...], yf on the device, t_dispatch, raw)
+        keep_raw = self.tap is not None and not self._tap_suspended
         budget = self.max_blocks_per_tick
         # ladder rung >= 1: fall back to the per-block path
         n_super = (1 if self.ladder is not None and self.ladder.rung >= 1
@@ -712,7 +849,8 @@ class Scheduler:
                 # are already in `units` with the carry advanced
                 progress = [0]
                 try:
-                    self._dispatch_blocks(session, blocks, n_super, units, progress)
+                    self._dispatch_blocks(session, blocks, n_super, units, keep_raw,
+                                          progress)
                 except TRANSPORT_ERRORS as e:
                     # transport budget exhausted after the per-call retries:
                     # the carry never advanced for the blocks past
@@ -756,27 +894,42 @@ class Scheduler:
                     and session.queue_depth() == 0 and session.inflight == 0):
                 self._finish(session)
         self._step_ladder(deadline_hits)
+        if self.resident is not None and not self.draining:
+            # the co-resident trainer's slice rides the tail of the tick:
+            # this tick's serving work is dispatched and read back, and the
+            # ladder has folded this tick's distress — a rung at or above
+            # the trainer's throttle threshold trains nothing
+            self.resident.step(tick_no=self.tick_no,
+                               rung=self.ladder.rung if self.ladder is not None else 0)
         self._set_gauges()
         return deliveries
 
     def _dispatch_blocks(self, session: Session, blocks: list, n_super: int,
-                         units: list, progress: list) -> int:
+                         units: list, keep_raw: bool, progress: list) -> int:
         """Dispatch one session's popped blocks (scan groups + per-block
         tail); every dispatch goes through the transport-retry wrapper.
         ``progress`` (a 1-cell list) advances after every successful
         dispatch, so the caller knows exactly which blocks to re-queue when
         this raises mid-pop.  A time-domain session's window always goes
         alone: the window STFT pads each window by reflection, so two
-        windows joined are another transform."""
+        windows joined are another transform.  A model session's masks are
+        filled first (:meth:`_fill_model_masks`).  With ``keep_raw`` each
+        unit keeps its input tuples for the tap; a time-domain window is
+        never tapped (the shard records are STFT tuples)."""
         bf = session.config.block_frames
+        if self.promote is not None and session.config.masks == "model":
+            self._fill_model_masks(session, blocks)
         chained = session.config.domain == "time"
+        if chained:
+            keep_raw = False
         done = 0
         for g in range(0, len(blocks), n_super):
             group = blocks[g:g + n_super]
             if (not chained and n_super > 1 and len(group) == n_super
                     and all(b[1].shape[-1] == bf for b in group)):
                 yf = self._dispatch_resilient(self._dispatch_scan, session, group)
-                units.append((session, [b[0] for b in group], yf, time.time()))
+                units.append((session, [b[0] for b in group], yf, time.time(),
+                              group if keep_raw else None))
                 session.inflight += len(group)
                 done += len(group)
                 progress[0] = done
@@ -786,7 +939,8 @@ class Scheduler:
                     yf = self._dispatch_resilient(
                         self._dispatch_chained if chained else self._dispatch,
                         session, seq, Y, mz, mw)
-                    units.append((session, [seq], yf, time.time()))
+                    units.append((session, [seq], yf, time.time(),
+                                  [(seq, Y, mz, mw)] if keep_raw else None))
                     session.inflight += 1
                     done += 1
                     progress[0] = done
@@ -878,8 +1032,8 @@ class Scheduler:
 
     def _step_ladder(self, deadline_hits: int) -> None:
         """Feed the degradation ladder this tick's metrics and apply the
-        rung's effects (super-tick shrink is read by the next tick;
-        shedding applies here)."""
+        rung's effects (super-tick shrink is read by the next tick; the tap
+        gate and shedding apply here)."""
         if self.ladder is None:
             return
         cutoff = self.tick_no - self.wait_window_ticks
@@ -890,6 +1044,7 @@ class Scheduler:
         rung = self.ladder.observe(queue_wait_p95_ms=p95,
                                    deadline_hits=deadline_hits,
                                    tick=self.tick_no)
+        self._tap_suspended = rung >= 2
         if rung >= 3:
             self._shed_one()
 
@@ -915,19 +1070,29 @@ class Scheduler:
         ``serve_block_latency_ms`` is split into ``serve_queue_wait_ms``
         (enqueue → dispatch) and ``serve_dispatch_ms`` (dispatch → host
         delivery: device time plus the readback share and, with
-        ``overlap_readback``, the one-tick buffering lag)."""
+        ``overlap_readback``, the one-tick buffering lag).
+
+        The tap's copies of a model session's masks (tensors on the device)
+        cross in the same ``to_host``, after the outputs."""
+        import torch
+
         from disco_tpu_torch.device import to_host
         from disco_tpu_torch.utils.resilience import call_with_retries
 
-        n_blocks = sum(len(seqs) for (_, seqs, _, _) in units)
-        n_sessions = len({s.id for (s, _, _, _) in units})
+        n_blocks = sum(len(seqs) for (_, seqs, _, _, _) in units)
+        n_sessions = len({s.id for (s, _, _, _, _) in units})
+        tap_on = self.tap is not None and not self._tap_suspended
+        dev_masks = [mz for (_, _, _, _, raw) in units if tap_on and raw
+                     for (_, _, mz, _) in raw if isinstance(mz, torch.Tensor)]
         with obs_events.stage("serve_tick", n_blocks=n_blocks, n_sessions=n_sessions):
             # an EXHAUSTED budget raises: the carries already advanced on
             # the device, so there is no bit-exact way to replay this tick;
             # the server unwinds and checkpointed sessions resume elsewhere
             t_rb0 = time.perf_counter()
-            host = call_with_retries(to_host, [yf for (_, _, yf, _) in units],
+            host = call_with_retries(to_host, [yf for (_, _, yf, _, _) in units] + dev_masks,
                                      **self._retry_opts("serve_readback"))
+        host_masks = dict(zip(map(id, dev_masks), host[len(units):]))
+        host = host[:len(units)]
         readback_ms = round((time.perf_counter() - t_rb0) * 1e3, 3)
         now = time.time()
         lat_hist = obs_registry.histogram("serve_block_latency_ms")
@@ -935,7 +1100,8 @@ class Scheduler:
         disp_hist = obs_registry.histogram("serve_dispatch_ms")
         deliveries = []
         tracing = obs_trace.enabled()
-        for (session, seqs, _, t_disp), yf in zip(units, host):
+        delivered_ctx: dict = {}
+        for (session, seqs, _, t_disp, raw), yf in zip(units, host):
             bf = session.config.block_frames
             for j, seq in enumerate(seqs):
                 blk = yf if len(seqs) == 1 else yf[..., j * bf:(j + 1) * bf]
@@ -950,10 +1116,11 @@ class Scheduler:
                             tick=self.tick_no, readback_ms=readback_ms,
                             n_blocks=n_blocks,
                         )
-                        obs_trace.span(
+                        ctx = obs_trace.span(
                             "deliver", ctx, session=session.id, seq=int(seq),
                             latency_ms=round(lat_s * 1e3, 3),
                         )
+                        delivered_ctx[(session.id, int(seq))] = ctx
                         obs_trace.tracer().inflight_end((session.id, int(seq)))
                 if t_in is not None:
                     wait_ms = max(t_disp - t_in, 0.0) * 1e3
@@ -972,10 +1139,27 @@ class Scheduler:
                 session.record_delivery(
                     seq, blk if len(seqs) == 1 else np.ascontiguousarray(blk))
                 deliveries.append((session, seq, blk, lat_s))
+                if self.promote is not None and session.generation is not None:
+                    # advances the canary window, attributed to the
+                    # generation the block ran under
+                    self.promote.note_delivery(session.id, seq, session.gen_for(seq))
+            if tap_on and raw:
+                # the corpus-tap seam: the block's training tuple is on the
+                # host here (inputs kept at dispatch, yf and a model
+                # session's masks just read back).  offer() never blocks and
+                # never raises.  Super-tick slices are copied, so a queued
+                # record never pins the whole readback buffer.
+                for j, (seq, Y, mz, mw) in enumerate(raw):
+                    blk = (yf if len(seqs) == 1
+                           else np.ascontiguousarray(yf[..., j * bf:(j + 1) * bf]))
+                    mz = host_masks.get(id(mz), mz)
+                    mw = host_masks.get(id(mw), mw)
+                    self.tap.offer(session.id, seq, Y, mz, mw, blk,
+                                   trace=delivered_ctx.get((session.id, int(seq))))
         self.ticks_with_work += 1
         obs_registry.counter("serve_ticks").inc()
         obs_registry.counter("serve_blocks").inc(n_blocks)
-        if any(len(seqs) > 1 for (_, seqs, _, _) in units):
+        if any(len(seqs) > 1 for (_, seqs, _, _, _) in units):
             obs_registry.counter("serve_super_ticks").inc()
         return deliveries
 
@@ -1033,9 +1217,15 @@ class Scheduler:
             _DISPATCH_FAULT_INJECTOR(session.id, [b[0] for b in blocks])
         from disco_tpu_torch.enhance.streaming import streaming_tango_scan
 
+        import torch
+
+        def join(arrays):  # a model session's masks are device tensors
+            if isinstance(arrays[0], torch.Tensor):
+                return torch.cat(arrays, dim=-1)
+            return np.concatenate(arrays, axis=-1)
+
         Y = np.concatenate([b[1] for b in blocks], axis=-1)
-        mz = np.concatenate([b[2] for b in blocks], axis=-1)
-        mw = np.concatenate([b[3] for b in blocks], axis=-1)
+        mz, mw = join([b[2] for b in blocks]), join([b[3] for b in blocks])
         n_refresh = Y.shape[-1] // session.config.update_every  # grouped blocks are full
         out = streaming_tango_scan(Y, mz, mw, blocks_per_dispatch=len(blocks),
                                    **self._step_kwargs(session, blocks[0][0], n_refresh))

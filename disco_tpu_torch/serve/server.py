@@ -147,6 +147,10 @@ class EnhanceServer:
             ladder=ladder, state_dir=state_dir, promote=promote,
             resident=resident, device=device,
         )
+        self.promote = (promote if promote is not None
+                        else getattr(self.scheduler, "promote", None))
+        self.resident = (resident if resident is not None
+                         else getattr(self.scheduler, "resident", None))
         #: connection drops / mid-frame protocol truncations PARK the
         #: session (resume token, bounded TTL, bit-exact reattach) instead
         #: of evicting; False restores the old evict-on-drop behavior
@@ -515,6 +519,11 @@ class EnhanceServer:
                     break   # evicted mid-drain (slow client) / detached
                 frame = {"type": "enhanced", "session": s.id,
                          "seq": int(seq), "yf": yf}
+                if s.generation is not None:
+                    # the weight generation that enhanced this block: only
+                    # model sessions carry the key, so the wire of a
+                    # promote-less server is unchanged
+                    frame["gen"] = s.gen_for(seq)
                 self._post(conn, frame)
                 conn.next_out = seq + 1
 
@@ -661,6 +670,10 @@ class EnhanceServer:
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="disco-serve-dispatch", daemon=True)
         self._dispatch_thread.start()
+        if self.promote is not None:
+            # resume, then run: an interrupted rollout is settled from the
+            # ledger before any session can open against it
+            self.promote.start()
         obs_events.record("run_start", stage="serve", tool="disco-serve",
                           address=str(self.address), **self.run_info)
         return self.address
@@ -670,6 +683,8 @@ class EnhanceServer:
         checkpoint, close streams, stop threads.  Raises the dispatch
         thread's crash, if any (a chaos-injected death must surface)."""
         self._stop_event.set()
+        if self.promote is not None:
+            self.promote.stop()
         self.wait(timeout_s)
 
     def wait(self, timeout_s: float | None = None) -> None:
@@ -681,6 +696,13 @@ class EnhanceServer:
                 raise TimeoutError("serve: dispatch thread did not stop in time")
         if self._loop_thread is not None:
             self._loop_thread.join(5.0)
+        if self.promote is not None:
+            self.promote.stop()
+            self.promote.wait(timeout_s=5.0)
+        if self.resident is not None:
+            # the dispatch thread (its only stepper) is gone by here, so the
+            # flag-only close cannot race a running slice
+            self.resident.close()
         if self.crashed is not None:
             crash, self.crashed = self.crashed, None
             raise crash

@@ -47,9 +47,9 @@ SERVE_POLICIES = ("local", "distant", "none")
 
 #: Where a session's masks come from.  ``"client"`` (default): every block
 #: frame carries ``mask_z``/``mask_w``.  ``"model"``: blocks arrive
-#: maskless and the scheduler fills both masks from the session's weight
-#: generation; that needs a promotion store, which the port does not have
-#: yet, so the port's scheduler refuses such sessions at admission.
+#: maskless and the scheduler fills both masks at dispatch from the
+#: session's weight generation (:mod:`disco_tpu_torch.promote.lane`); that
+#: needs a server with a promotion store.
 MASK_SOURCES = ("client", "model")
 
 #: Wire domain of a session's blocks.  ``"stft"`` (default): blocks are
@@ -260,6 +260,16 @@ class Session:
         self.quarantine_count = 0
         #: scheduler tick number at which a QUARANTINED session re-opens
         self.quarantine_until_tick = 0
+        #: current weight generation id of a model-mask session (None for
+        #: client-mask sessions).  Written only by the dispatch thread at
+        #: block boundaries (``Scheduler._apply_generation_swaps``), so
+        #: every block is computed under exactly one generation.
+        self.generation: str | None = None
+        #: [(first_seq, gen_id)] — the session's generation history, one
+        #: entry per adoption or swap, first_seq ascending: what makes a
+        #: delivered frame's generation derivable (:meth:`gen_for`) and the
+        #: per-generation replay checkable.  Dispatch thread only.
+        self.gen_segments: list = []
         #: tick of this session's last outage transition (park, reattach,
         #: quarantine, release).  Queue-wait samples observed within the
         #: scheduler's grace window after it are EXCLUDED from the
@@ -361,6 +371,24 @@ class Session:
                 f"losing frames"
             )
         return missing
+
+    def set_generation(self, gen_id: str, at_seq: int) -> None:
+        """Adopt a weight generation from block ``at_seq`` on (dispatch
+        thread, at a block boundary only).  Adopting the current generation
+        again adds no segment."""
+        if self.generation == gen_id:
+            return
+        self.generation = gen_id
+        self.gen_segments.append((int(at_seq), gen_id))
+
+    def gen_for(self, seq: int) -> str | None:
+        """Generation that computed block ``seq`` (the latest segment whose
+        ``first_seq`` <= seq), or None for a session without generations."""
+        gen = None
+        for first_seq, gen_id in self.gen_segments:
+            if first_seq <= int(seq):
+                gen = gen_id
+        return gen
 
     def block_z_avail(self, seq: int, n_blocks: int):
         """Availability columns for input block ``seq`` (``n_blocks``

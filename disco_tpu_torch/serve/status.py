@@ -62,6 +62,10 @@ def status_payload(scheduler, *, ladder=None, tracer=None) -> dict:
             "priority": bool(s.priority),
             "quarantine_count": s.quarantine_count,
         }
+        if getattr(s, "generation", None) is not None:
+            # only a model session has the key: a promote-less payload is
+            # unchanged
+            entry["generation"] = s.generation
         sessions.append(entry)
     snap = obs_registry.snapshot()
     sched_section = {
@@ -73,6 +77,9 @@ def status_payload(scheduler, *, ladder=None, tracer=None) -> dict:
         "blocks_per_super_tick": scheduler.blocks_per_super_tick,
         "pending_blocks": scheduler.pending_blocks(),
     }
+    promote = getattr(scheduler, "promote", None)
+    if promote is not None:
+        sched_section["active_generation"] = promote.store.active()
     return {
         "sessions": sessions,
         "scheduler": sched_section,

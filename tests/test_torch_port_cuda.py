@@ -17,7 +17,10 @@ output scale (max-abs; the tensor cores' float32 accumulation order is not
 a sequential sum), the covariances and the solve bit for bit.  Serving
 (``disco_tpu_torch.serve``) at the north-star width: concurrent sessions on
 a CUDA server bit-identical to their offline streams in both tick modes,
-with one batched readback a tick and the offline calls' launches.
+with one batched readback a tick and the offline calls' launches.  The
+flywheel: model-mask sessions on a CUDA server bit-identical to their
+per-generation oracles across a swap, the lane's masks the same bits run
+after run, and a generation staged from the card carrying the host's id.
 """
 import numpy as np
 import pytest
@@ -792,3 +795,61 @@ def test_to_host_counts_one_readback_on_the_card(cuda):
     assert device_get_count() - before == 1
     np.testing.assert_array_equal(ha, a.cpu().numpy())
     np.testing.assert_array_equal(hb, b.cpu().numpy())
+
+
+# ----------------------------------------------------- the flywheel on the card
+def _flywheel_setup(n_blocks=14, n=2, solvers=("jacobi-pallas", "fused")):
+    from disco_tpu_torch.promote import check as pc
+
+    F = 257
+    arch = pc.tiny_arch(F)
+    clips = [pc.scene(500 + i, n_blocks, device="cuda") for i in range(n)]
+    configs = [pc.model_config(F, solver=solvers[i % len(solvers)]) for i in range(n)]
+    return pc, arch, pc.seeded_variables(arch, 7), clips, configs
+
+
+def test_model_mask_sessions_bit_identical_across_a_swap_on_card(cuda, tmp_path):
+    """A promotion on a CUDA server: each stream, through the canary swap
+    and the promotion, bit-identical to its per-generation oracle replayed
+    on the card."""
+    pc, arch, variables, clips, configs = _flywheel_setup()
+    failures = []
+    st = pc.check_promote(failures, tmp_path, clips, configs, arch, variables, device=cuda)
+    assert not failures, failures
+    assert st["store"].active() == st["candidate"]
+    assert all(len(set(g.values())) == 2 for _, g in st["streams"])
+
+
+def test_block_masks_bit_identical_between_runs_on_card(cuda):
+    from disco_tpu_torch.promote.lane import block_masks
+    from disco_tpu_torch.promote.store import GenerationStore
+
+    import tempfile
+
+    pc, arch, variables, clips, _ = _flywheel_setup(n_blocks=2, n=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = GenerationStore(tmp)
+        g = store.stage_variables(variables, arch=arch)
+        model = store.load(g.gen_id, device=cuda)[0]
+        host = store.load(g.gen_id)[0]
+    Y = clips[0][..., :8]
+    a, b = block_masks(Y, model), block_masks(Y, model)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert float((a.cpu() - block_masks(Y, host)).abs().max()) <= 1e-4
+
+
+def test_generation_staged_on_card_has_the_host_id(cuda, tmp_path):
+    """A module on the card staged through its state dict lands on the id
+    the host store gives the same numpy weights, and the host store loads
+    it."""
+    from disco_tpu_torch.promote.store import GenerationStore
+
+    pc, arch, variables, _, _ = _flywheel_setup(n_blocks=1, n=1)
+    host = GenerationStore(tmp_path / "h").stage_variables(variables, arch=arch)
+    model = GenerationStore(tmp_path / "h").load(host.gen_id, device=cuda)[0]
+    assert next(model.parameters()).device.type == "cuda"
+    g = GenerationStore(tmp_path / "c").stage_module(model, arch=arch)
+    assert g.gen_id == host.gen_id
+    assert g.weights_path.read_bytes() == host.weights_path.read_bytes()
+    back, _ = GenerationStore(tmp_path / "c").load(g.gen_id)
+    assert next(back.parameters()).device.type == "cpu"

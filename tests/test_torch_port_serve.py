@@ -302,6 +302,14 @@ def test_model_masks_refused_at_admission(specs):
     assert err.value.code == "bad_config" and "promotion store" in str(err.value)
 
 
+class _Seam:
+    """Stands in for a tap, a promotion controller or a trainer: the
+    scheduler binds a controller at construction."""
+
+    def bind(self, scheduler):
+        self.scheduler = scheduler
+
+
 def test_server_needs_cuda_unless_cpu(monkeypatch):
     from disco_tpu_torch.serve import EnhanceServer, Scheduler
 
@@ -312,8 +320,8 @@ def test_server_needs_cuda_unless_cpu(monkeypatch):
         Scheduler()
     assert Scheduler(device="cpu").device == torch.device("cpu")
     for seam in ("tap", "promote", "resident"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            Scheduler(device="cpu", **{seam: object()})
+        sched = Scheduler(device="cpu", **{seam: _Seam()})
+        assert getattr(sched, seam) is not None
 
 
 def test_status_counters_equal_the_registry(specs):

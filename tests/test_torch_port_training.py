@@ -227,7 +227,7 @@ def test_bf16_lane_keeps_f32_masters_and_matches_jax():
 
 def test_steps_refuse_a_mesh():
     _, _, tmodel, _ = pair("crnn")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ttr.make_step_fns(tmodel, "all", mesh=object())
 
 
@@ -426,11 +426,9 @@ def test_fit_device_rule_and_unported_options(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttr.fit(tmodel, tstate, EpochBatches(1), EpochBatches(2), 1, save_path=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ttr.fit(tmodel, tstate, EpochBatches(1), EpochBatches(2), 1, save_path=tmp_path,
-                device="cpu", promote_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttr.publish_checkpoint(tmp_path, tmp_path / "x.msgpack", arch={})
+                device="cpu", mesh=object())
 
 
 def test_fit_zero_batch_epoch_warns(tmp_path, capsys):
