@@ -69,29 +69,34 @@ pass):
    stream route within 1e-5 of the per-window route; a second run of the
    masks within 1e-6 (bit-identity reported); ``_batched_masks`` on the
    16 distinct clips within 1e-5 of each clip's ``estimate_masks``.
-3e. The corpus driver at the same width: a 4-clip corpus (the port's
+3e. The corpus driver at the same width: a 2-clip corpus (the port's
    ``runs.check._mini_corpus``: a white source through random 8-tap
-   filters per mic plus white noise, K=8 x C=4 x 10 s, 0.25 GB of WAV
-   under ``build/``, deleted at the end of the phase; cut from 16 clips to
-   8, then to 4 to make room for phase 3f: host scoring takes ~30-40 s a
-   clip, and the script stays near half its time limit)
+   filters per mic plus white noise, K=8 x C=4 x 10 s, under ``build/``,
+   deleted at the end of the phase; cut from 16 clips to 8, to 4, then to
+   2 to make room for phase 3j: host scoring takes ~30-40 s a clip, and
+   the script stays near half its time limit)
    through ``enhance_rirs_batched`` with ``max_batch=2``, 4 scoring
-   workers and a run ledger, in the staged lane (``solver='power'``, two
-   chunks, so the pipelined engine still overlaps a load with a dispatch:
-   2 STFT and 4 covariance launches) and the chained lane on the first 2
-   clips (cut from 4 to make room for phase 3i; one chunk: 1 STFT, 2
-   covariance and 2 fused-solve launches): every clip done in the ledger, every artifact
-   valid (``probe_artifact``), the JAX package's result schema in float64,
-   every clip's mean sdr_cnv more than 3 dB over its mean sdr_in_cnv;
-   one clip through ``enhance_rir(bucket=8192)`` within 1e-5 of the output
-   scale and 1e-3 dB of its batched run, and through the plain versions on
-   the host (``device='cpu'``) within 1e-4 and 0.01 dB; the sequential
-   engine with inline scoring on two clips byte-identical to the staged
-   lane's first pipelined chunk of the same two clips (4 scoring workers;
-   the separate pipelined run was cut to make room for phase 3h: it
-   repeated that chunk's work); the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2
-   eigensolver launches) finite and above its input; ``export_z`` of one
-   clip finite.  Each driver run's parts are timed on the host clock.
+   workers and a run ledger, in the staged lane (``solver='power'``, one
+   chunk: 1 STFT and 2 covariance launches), recorded with the finiteness
+   sentinels and the flight ring armed, and the chained lane (one chunk:
+   1 STFT, 2 covariance and 2 fused-solve launches): every clip done in
+   the ledger, every artifact valid (``probe_artifact``), the JAX
+   package's result schema in float64, every clip's mean sdr_cnv more than
+   3 dB over its mean sdr_in_cnv; the staged lane's event log read back
+   (schema-validated) with each clip's ``score_persist`` span and ``clip``
+   event, one ``chunk_load``/``chunk_enhance``/``chunk_readback``/
+   ``chunk_pipeline`` span, ``device_get_batches`` and ``chunk_readbacks``
+   a chunk, ``clips_enhanced`` the clips, one sentinel check a clip (the
+   batched engine checks ``istft_out`` only, as the JAX package's does)
+   and no trip; one clip through ``enhance_rir(bucket=8192)`` within 1e-5
+   of the output scale and 1e-3 dB of its batched run, and through the
+   plain versions on the host (``device='cpu'``) within 1e-4 and 0.01 dB;
+   the sequential engine (the same 4 scoring workers), unrecorded, on the
+   two clips byte-identical to the recorded pipelined chunk, with the same
+   launches;
+   the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2 eigensolver
+   launches) finite and above its input; ``export_z`` of one clip finite.
+   Each driver run's parts are timed on the host clock.
 3f. The training path at full width, on a training corpus under ``build/``
    (deleted at the end of the phase) in the DISCO training geometry that
    ``PostGenerator`` and ``DiscoDataset`` hard-code: 4 nodes x 4 mics,
@@ -151,6 +156,10 @@ pass):
    ``load_meetit_sample``, its mixture STFTs within 1e-5 of
    ``stft_matmul`` of the summed images; ``dynamic_scene_mixture`` of 4
    segments, the crossfaded boundary jumps under half the hard switch's.
+   The scene gate's dispatch-budget and log legs ride the SceneStream run:
+   one batched readback a batch, one new ``scene_batch`` signature a
+   ``rir_len`` bucket (``obs.accounting.counted_jit``), one ``scene``
+   event a batch.
 3h. Online serving (``disco_tpu_torch.serve``) on the north-star clip: an
    in-process ``EnhanceServer`` on loopback with ``ServeClient`` clients on host
    threads, five concurrent sessions of 64-frame blocks (``update_every``
@@ -192,6 +201,26 @@ pass):
    oracle; two endurance legs (a ``mid_epoch`` crash, then clean) in which
    the resident trainer publishes from the tap's shards and the controller
    promotes, with shards written and dropped and ``tap_to_promotion_ms``.
+3j. The gates on the card, each leg a function of the device, its
+   launches counted: the fault gate (``fault.check``) on the north-star
+   clip with ``solver='fused'`` (a node dropped and a NaN z: the outputs
+   finite and apart from the fault-free run, one ``node_dropout`` and one
+   ``nan_z`` event, a ``degraded`` entry, the injections counted); the
+   chaos gate (``runs.check``) and the corpus-engine gate's legs 1-3 and 5
+   (``enhance.check``: artifacts byte-identical across engines, the ledger
+   clean, one batched readback a chunk, the default path's kernels against
+   the unfused formulations on the host) on the gates' 2-clip mini corpus
+   (4 nodes x 2 mics, 2 s); the scene gate's oracle, per-scene, dynamic
+   and stream legs at its size (``scenes.check``); scope (``obs.scope``)
+   at the north-star width: two traced sessions and one untraced, 64-frame
+   blocks, ``solver='jacobi-pallas'``, every delivered frame a complete
+   causal chain, the status frame equal to the registry, the fault leg's
+   quarantine dump naming the failed ``dispatch`` span and byte-stable,
+   every stream bit-exact; the soak (``runs.soak``) at its size, one seed
+   run twice to byte-identical summaries and the crash leg resuming
+   bit-exact on a fresh server; a NaN in the north-star ``Y`` tripping one
+   sentinel with its stats and one flight dump, and one ``check_finite``
+   of the clean ``Y`` (41 MB) timed by CUDA events with its fences.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -200,7 +229,9 @@ pass):
    to ``per_block_reference``; the eigensolver bit-identical to its
    plain version on the matrices of one window; windows 2-9 through the
    plain versions from the state after window 1 within 1e-4 rel-l2 and
-   0.1 dB SI-SDR of the kernels' windows; the windows' SI-SDR gain at
+   0.1 dB SI-SDR of the kernels' windows (the first 2 windows from the warm
+   start through the plain versions printed beside the kernels'; cut from 9
+   to make room for phase 3j); the windows' SI-SDR gain at
    node 0 over the noisy reference mic within 0.2 dB of the JAX package's
    on the same windows (``JAX_WINDOWS_GAIN_DB``) after 1, 2 and 3 s; the
    full-clip stream's more than 3 dB after the recursion's first three
@@ -270,8 +301,12 @@ TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "
        "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2,
        "bf16_lane": 1e-2, "crnn_host": 1e-4, "crnn_route": 1e-5, "crnn_batch": 1e-5,
        "crnn_rerun": 1e-6}
-#: phase 3e's corpus: clips (north-star width), clips a chunk, scoring workers
-CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 4, 2, 4
+#: phase 3e's corpus: clips (north-star width), clips a chunk, scoring workers.
+#: Cut from 4 clips (two chunks) to 2 (one chunk) to make room for phase 3j:
+#: the phase measures host scoring (~30-40 s a clip), not the card's work,
+#: and one chunk loses only the pipelined engine's overlap of a load with a
+#: dispatch, which the CPU tests hold
+CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 2, 2, 4
 #: the chained lane's clips (cut from 4 to 2 to make room for phase 3i)
 CORPUS_CHAINED_CLIPS = 2
 #: phase 3e's bounds: each clip's mean sdr_cnv over its mean sdr_in_cnv (dB); one
@@ -282,6 +317,12 @@ CORPUS_TOL = {"gain_db": 3.0, "single": 1e-5, "single_db": 1e-3, "host": 1e-4, "
 CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
+#: phase 4: the windows run from the warm start through the plain versions,
+#: beside the kernels' (printed, not held to a bound).  Cut from N_WINDOWS to
+#: 2 to make room for phase 3j: a window of plain versions takes ~9 s on the
+#: card (32 plain eigensolver calls), and the first windows are where the
+#: warm start's roundoff shows
+COLD_WINDOWS = 2
 BLOCKS_PER_DISPATCH = 16
 STREAM_SDR_FROM_S = 3.0  # the full-clip stream's SI-SDR is read after this many seconds
 #: SI-SDR gain at node 0 after t s of the JAX package's ``streaming_clip_fused``
@@ -1129,18 +1170,16 @@ def corpus_timers(out: dict):
     ``wait_s`` each chunk's wait for its queued launches and ``readback_s``
     its fetch (the six ISTFTs and the one copy; the chained lane's ISTFTs
     ran in its launches), ``score_s`` each clip's ``_persist_and_score`` (on
-    the scoring workers); ``overlap`` the engine's own record of each
-    chunk's prefetch stall (``enhance.pipeline.OVERLAP``)."""
+    the scoring workers); ``stall_ms`` each chunk's prefetch stall as the
+    engine notes it (``pipeline.note_chunk_overlap``)."""
     import torch
 
     from disco_tpu_torch.enhance import driver
 
-    from disco_tpu_torch.enhance import pipeline
-
     real = {name: getattr(driver, name) for name in
-            ("load_input_signals", "fetch_chunk_host", "fetch_chained_host", "_persist_and_score")}
-    pipeline.OVERLAP.clear()
-    for key in ("load_s", "wait_s", "readback_s", "score_s"):
+            ("load_input_signals", "fetch_chunk_host", "fetch_chained_host", "_persist_and_score",
+             "note_chunk_overlap")}
+    for key in ("load_s", "wait_s", "readback_s", "score_s", "stall_ms"):
         out[key] = []
 
     def timed(key, fn):
@@ -1163,12 +1202,17 @@ def corpus_timers(out: dict):
     driver.fetch_chunk_host = fetch(real["fetch_chunk_host"])
     driver.fetch_chained_host = fetch(real["fetch_chained_host"])
     driver._persist_and_score = timed("score_s", real["_persist_and_score"])
+
+    def note_overlap(stall_s, busy_s):
+        out["stall_ms"].append(stall_s * 1e3)
+        return real["note_chunk_overlap"](stall_s, busy_s)
+
+    driver.note_chunk_overlap = note_overlap
     try:
         yield out
     finally:
         for name, fn in real.items():
             setattr(driver, name, fn)
-        out["overlap"] = list(pipeline.OVERLAP)
 
 
 def check_corpus_run(label: str, res: dict, out, ledger, rirs) -> None:
@@ -1200,6 +1244,48 @@ def check_corpus_run(label: str, res: dict, out, ledger, rirs) -> None:
 def _tree(root) -> dict:
     return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
             if p.is_file()}
+
+
+@contextmanager
+def armed(log, dump_dir):
+    """The recorder (and with it the finiteness sentinels) and the flight
+    ring armed for the block."""
+    from disco_tpu_torch import obs
+
+    obs.flight.enable(dump_dir=dump_dir)
+    try:
+        with obs.recording(log):
+            yield
+    finally:
+        obs.flight.disable()
+
+
+def check_corpus_events(log, before: dict, after: dict, rirs, n_chunks: int) -> None:
+    """Phase 3e's recorded run, read back through ``read_events`` (schema-
+    validated): each clip's spans and ``clip`` event, one ``chunk_readback``
+    span and one ``device_get_batches`` a chunk, ``clips_enhanced`` equal to
+    the clips, one sentinel check a clip (the batched engine checks
+    ``istft_out`` only, as the JAX package's does) and no trip."""
+    from disco_tpu_torch import obs
+
+    events = obs.read_events(log)
+    spans = {r: [e["stage"] for e in events if e["kind"] == "stage_end"
+                 and e["attrs"].get("rir") == r] for r in rirs}
+    chunk = {name: sum(e["kind"] == "stage_end" and e["stage"] == name for e in events)
+             for name in ("chunk_load", "chunk_enhance", "chunk_readback", "chunk_pipeline")}
+    delta = {k: after[k] - before.get(k, 0) for k in
+             ("device_get_batches", "chunk_readbacks", "clips_enhanced", "sentinel_checks",
+              "sentinel_trips")}
+    clips = sorted(e["attrs"]["rir"] for e in events if e["kind"] == "clip")
+    print(f"phase 3e: staged lane recorded with the sentinels and the flight ring armed: "
+          f"{len(events)} events; spans a clip {spans}; chunk spans {chunk}; counters "
+          f"{delta}; clip events {clips}", flush=True)
+    require(all(v == ["score_persist"] for v in spans.values()) and clips == sorted(rirs),
+            ("clip spans", spans, clips))
+    require(all(v == n_chunks for v in chunk.values()), ("chunk spans", chunk))
+    require(delta == {"device_get_batches": n_chunks, "chunk_readbacks": n_chunks,
+                      "clips_enhanced": len(rirs), "sentinel_checks": len(rirs),
+                      "sentinel_trips": 0}, ("corpus counters", delta))
 
 
 def _metric_diff(a: dict, b: dict) -> float:
@@ -1245,12 +1331,22 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
         lanes = {"staged": ({}, {"stft": 1, "masked_cov": 2}, rirs),
                  "chained": ({"chained": True}, {"stft": 1, "masked_cov": 2, "fused_mwf": 2},
                              rirs[:CORPUS_CHAINED_CLIPS])}
+        # The staged lane runs recorded, with the sentinels and the flight
+        # ring armed; the sequential engine run of (4) stays unrecorded, so
+        # its byte-identity shows that observing changes nothing on the card
+        from contextlib import nullcontext
+
+        from disco_tpu_torch import obs
+
         results = {}
         for lane, (kw, per_chunk, clips) in lanes.items():
             n_chunks = -(-len(clips) // CORPUS_BATCH)
             times = {"clips": len(clips)}
+            observe = lane == "staged"
+            before = obs.REGISTRY.snapshot()["counters"]
             with corpus_timers(times), counted(f"corpus {lane}", {
-                    k: v * n_chunks for k, v in per_chunk.items()}, d.launches):
+                    k: v * n_chunks for k, v in per_chunk.items()}, d.launches), (
+                    armed(tmp / "events.jsonl", tmp / "flight") if observe else nullcontext()):
                 t0 = time.perf_counter()
                 results[lane] = batched(tmp / lane, clips, max_batch=CORPUS_BATCH,
                                         score_workers=CORPUS_WORKERS,
@@ -1259,6 +1355,9 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
                 times["wall_s"] = time.perf_counter() - t0
             check_corpus_run(f"{lane} lane ({times['wall_s']:.1f} s)", results[lane], tmp / lane,
                              tmp / f"{lane}.jsonl", clips)
+            if observe:
+                check_corpus_events(tmp / "events.jsonl", before,
+                                    obs.REGISTRY.snapshot()["counters"], clips, n_chunks)
             d.corpus[lane] = times
 
         # (3): one clip through enhance_rir on the card and on the host
@@ -1292,23 +1391,24 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
         require(e_host <= CORPUS_TOL["host"] and m_host <= CORPUS_TOL["host_db"],
                 ("enhance_rir on the host", e_host, m_host))
 
-        # (4): the engines on two clips write byte-identical trees; the runs
-        # differ in both switches (the CPU tests hold each one alone).  The
-        # pipelined side is the staged lane's first chunk above (the same two
-        # clips, a chunk of 2, 4 scoring workers), so only the sequential run
-        # with inline scoring is added here
+        # (4): the engines on two clips write byte-identical trees: the
+        # staged lane's recorded pipelined chunk above against a sequential,
+        # unrecorded run with the same scoring workers (scoring is host
+        # numpy; the CPU tests hold inline scoring against the workers)
         t0 = time.perf_counter()
-        batched(tmp / "sequential", rirs[:CORPUS_BATCH], max_batch=CORPUS_BATCH,
-                pipeline=False, score_workers=1)
+        with counted("corpus sequential (unrecorded)", lanes["staged"][1], d.launches):
+            batched(tmp / "sequential", rirs[:CORPUS_BATCH], max_batch=CORPUS_BATCH,
+                    pipeline=False, score_workers=CORPUS_WORKERS)
         seq_tree = _tree(tmp / "sequential")
         pipe_tree = {str(p.relative_to(tmp / "staged")): p.read_bytes()
                      for r in rirs[:CORPUS_BATCH]
                      for p in driver.clip_artifacts(tmp / "staged", r, NOISE, SNR_RANGE, K)}
         same = seq_tree == pipe_tree
-        print(f"phase 3e: sequential engine with inline scoring on {CORPUS_BATCH} clips vs the "
-              f"staged lane's pipelined chunk ({CORPUS_WORKERS} scoring workers): "
-              f"{len(seq_tree)} files, trees byte-identical {same} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"phase 3e: sequential engine on {CORPUS_BATCH} clips, unrecorded, vs the staged "
+              f"lane's recorded pipelined chunk ({CORPUS_WORKERS} scoring workers each): "
+              f"{len(seq_tree)} files, trees byte-identical {same}, launches "
+              f"equal {d.launches['corpus sequential (unrecorded)'] == d.launches['corpus staged']}"
+              f" ({time.perf_counter() - t0:.1f} s)", flush=True)
         require(same and len(seq_tree) == CORPUS_BATCH * (2 + 10 * K), "engine trees differ")
 
         # (5): the streaming lane with the eigensolver kernel
@@ -1378,7 +1478,7 @@ def phase5_corpus(d: SimpleNamespace) -> None:
             "chunk_clips": CORPUS_BATCH,
             "device_ms_per_chunk": runs["device"][2], "device_ms_runs": runs["device"],
             "dispatch_ms_per_chunk": runs["dispatch"][2], "dispatch_ms_runs": runs["dispatch"],
-            "prefetch_stall_ms_per_chunk": [o["stall_ms"] for o in times["overlap"]],
+            "prefetch_stall_ms_per_chunk": times["stall_ms"],
             "wait_s_per_chunk": times["wait_s"],
             "readback_s_per_chunk": times["readback_s"],
             "score_s_per_clip": sum(times["score_s"]) / len(times["score_s"]),
@@ -1573,13 +1673,23 @@ def phase3f_training(d: SimpleNamespace) -> None:
             """``fit`` of a fresh canonical CRNN, its wall seconds (the
             model's construction not included) and its prefetch stalls."""
             model, state = canonical_train_state(4)
-            pipeline.OVERLAP.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fit(model, state, EpochBatches(train_ds, 1, passes), EpochBatches(val_ds, 2),
-                      n_epochs, save_path=tmp / "models", run_name=name, verbose=False, **kw)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0, [o["stall_ms"] for o in pipeline.OVERLAP]
+            stalls, note = [], pipeline.note_chunk_overlap
+
+            def note_overlap(stall_s, busy_s):
+                stalls.append(stall_s * 1e3)
+                return note(stall_s, busy_s)
+
+            pipeline.note_chunk_overlap = note_overlap
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fit(model, state, EpochBatches(train_ds, 1, passes),
+                          EpochBatches(val_ds, 2), n_epochs, save_path=tmp / "models",
+                          run_name=name, verbose=False, **kw)
+                torch.cuda.synchronize()
+            finally:
+                pipeline.note_chunk_overlap = note
+            return out, time.perf_counter() - t0, stalls
 
         def epochs_by_ledger(path):
             ledger = [json.loads(line) for line in path.read_text().splitlines()]
@@ -1975,6 +2085,9 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
     from disco_tpu_torch.nn.training import fit
     from disco_tpu_torch.ops.stft_ops import hann_periodic, stft_kernel, stft_matmul
     from disco_tpu_torch.runs import RunLedger, chaos
+    from disco_tpu_torch import obs
+    from disco_tpu_torch.obs.accounting import device_get_count, recompile_count
+    from disco_tpu_torch.scenes import check as scene_check
     from disco_tpu_torch.scenes import (SceneStream, boundary_jumps, dynamic_scene_mixture,
                                         piecewise_trajectory)
     from disco_tpu_torch.sim import (InterferentSpeakersSetup, SignalDefaults, SpeechAndNoiseSetup,
@@ -2071,20 +2184,37 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
         stream = SceneStream(seed=0, batches_per_epoch=STREAM_BATCHES, win_len=21)
         B = stream.scenes_per_batch
         walls, errs, parts = [], [], {}
+        # the scene gate's dispatch-budget and log legs, folded into this run:
+        # one batched readback a batch, one new scene_batch signature a
+        # bucket (rir_len), one scene event a batch
+        budget, buckets = [], []
         with timed_calls(ism, {"shoebox_rirs_batched": "ism_ms", "fft_convolve": "conv_ms"}, {},
-                         parts):
+                         parts), obs.recording(tmp / "scene_events.jsonl"):
             for i in range(STREAM_BATCHES):
+                g0, r0 = device_get_count(), recompile_count("scene_batch")
                 with counted(f"scene batch {i}", {"stft": 1}, d.launches):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     out = stream.simulate_batch(0, i)
                     walls.append(time.perf_counter() - t0)
+                budget.append((device_get_count() - g0, recompile_count("scene_batch") - r0))
+                new_bucket = out["rirs"].shape[-1] not in buckets
+                buckets.append(out["rirs"].shape[-1])
+                require(budget[-1] == (1, int(new_bucket)), ("scene dispatch budget", budget))
                 noisy = torch.as_tensor(out["noisy"][:, 0], device="cuda")
                 errs.append(rel_l2(torch.as_tensor(out["mag_noisy"], device="cuda"),
                                    stft_matmul(noisy, with_mag=True)[1]))
                 require(all(np.isfinite(v).all() for v in out.values())
                         and out["mask"].min() >= 0 and out["mask"].max() <= 1, "scene batch")
         require(max(errs) <= SIM_TOL["stft"], ("scene batch magnitudes", errs))
+        failures: list = []
+        scene_events = [e for e in obs.read_events(tmp / "scene_events.jsonl")
+                        if e["kind"] == "scene"]
+        scene_check.check_scene_events(failures, scene_events, datagen=False)
+        require(not failures and len(scene_events) == STREAM_BATCHES, (failures, scene_events))
+        print(f"phase 3g: the scene gate's dispatch budget on the stream's batches: (batched "
+              f"readbacks, new scene_batch signatures) {budget} for rir_len buckets {buckets}; "
+              f"{len(scene_events)} scene events", flush=True)
         # the STFT kernel at the scene batch's (3, B, L) stack, beside its
         # plain version, torch.stft and its bound
         x = torch.as_tensor(np.stack([out["noisy"][:, 0], out["clean"][:, 0],
@@ -2490,6 +2620,164 @@ def stream_windows(d: SimpleNamespace, first: int, last: int, state, precision: 
     return torch.cat(outs, dim=-1), states
 
 
+#: phase 3j: the scope gate's north-star clients — (seed, SessionConfig
+#: kwargs, traced?): two traced sessions and one that sends no trace header
+SCOPE_SPECS = ((71, {}, True), (72, {"mu": 1.2}, True), (74, {}, False))
+#: phase 3j: the launches each gate leg makes on the card (a kernel it does
+#: not name: none)
+GATE_LAUNCHES = {
+    # north-star clip: 3 STFTs (y, s, n); the degraded and the clean tango,
+    # each 2 covariance and 2 fused-solve launches
+    "fault": {"stft": 3, "masked_cov": 4, "fused_mwf": 4},
+    # six one-chunk runs of the mini corpus (the reference, the mid_write
+    # crash and its resume, the between_clips crash and its resume, the
+    # requeue): 1 STFT and 2 covariance launches each
+    "chaos": {"stft": 6, "masked_cov": 12},
+    # the two engines' chunks, then leg 5: the STFT, the covariances, one
+    # fused solve, and step 1 of compute_z_signals (3 STFT, 1 covariance and
+    # 1 fused-solve launch)
+    "perf": {"stft": 6, "masked_cov": 6, "fused_mwf": 2},
+    # one scene batch for the per-scene comparison, 8 for the stream leg
+    "scene": {"stft": 9},
+    # scope: the four clients' STFTs; 2 eigensolver launches for each of
+    # the four offline references and for each served block (3 sessions of
+    # 10 blocks, and the wounded session's 10; a faulted attempt launches
+    # nothing)
+    "scope": {"stft": 4, "eigh_jacobi": 88},
+    # soak (the default 'eigh' solver: cuSOLVER): the STFTs of seed 201's two
+    # sessions, twice, and of the crash leg's one
+    "soak": {"stft": 5},
+    # the sentinel leg reads back what phase 2 computed: no launch
+    "sentinel": {},
+}
+
+
+def phase3j_gates(d: SimpleNamespace) -> None:
+    """The gates on the card, each a function of the device
+    (``disco_tpu_torch.{fault,runs,enhance,scenes}.check``,
+    ``obs.scope``, ``runs.soak``), each with its launches counted: the
+    fault gate on the north-star clip (``solver='fused'``), the chaos and
+    corpus-engine gates on the gates' 2-clip mini corpus, the scene gate's
+    oracle, per-scene, dynamic and stream legs at its size (its dispatch
+    budget and log legs ride phase 3g's SceneStream run), scope at the
+    north-star width (two traced sessions and one untraced, 64-frame
+    blocks, ``solver='jacobi-pallas'``, and the fault leg's quarantine
+    dump), the soak at its size (one seed twice, and the crash leg); then
+    a sentinel trip on the north-star ``Y`` and the time of one
+    ``check_finite`` of it."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch import obs
+    from disco_tpu_torch.enhance import check as perf_check
+    from disco_tpu_torch.fault import check as fault_check
+    from disco_tpu_torch.obs import scope, sentinels
+    from disco_tpu_torch.obs.accounting import device_get_count, fence_count
+    from disco_tpu_torch.runs import check as chaos_check
+    from disco_tpu_torch.runs import soak
+    from disco_tpu_torch.scenes import check as scene_check
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    failures: list = []
+    seconds = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        with counted(f"gate {name}", GATE_LAUNCHES[name], d.launches):
+            out = fn()
+        seconds[name] = time.perf_counter() - t0
+        require(not failures, (name, failures))
+        print(f"phase 3j: {name} gate passed on the card ({seconds[name]:.1f} s): "
+              + json.dumps(out, default=str), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="gates-", dir=build) as tmp:
+        tmp = Path(tmp)
+        leg("fault", lambda: fault_check.check_faults(
+            failures, tmp / "fault", device=d.dev, n_nodes=K, n_mics=C, length=d.L,
+            solver="fused"))
+
+        def chaos():
+            with obs.recording(tmp / "chaos.jsonl"):
+                out = chaos_check.check_chaos(failures, tmp / "chaos", device=d.dev)
+            out.update(chaos_check.check_chaos_events(
+                failures, obs.read_events(tmp / "chaos.jsonl"), out["crashes_injected"]))
+            return out
+
+        leg("chaos", chaos)
+
+        def perf():
+            with obs.recording(tmp / "perf.jsonl"):
+                out = perf_check.check_engine(failures, tmp / "perf", device=d.dev)
+            perf_check.check_engine_events(failures, obs.read_events(tmp / "perf.jsonl"))
+            return {**out, "parity": perf_check.check_fused_parity(failures, device=d.dev)}
+
+        leg("perf", perf)
+
+        def scene():
+            out = {}
+            out.update(scene_check.check_oracle_parity(failures, device=d.dev))
+            out.update(scene_check.check_batched_equals_per_scene(failures, device=d.dev))
+            out.update(scene_check.check_dynamic_continuity(failures, device=d.dev))
+            out.update(scene_check.check_stream(failures, tmp / "scene", device=d.dev))
+            return out
+
+        (tmp / "scene").mkdir()
+        leg("scene", scene)
+        leg("scope", lambda: scope.run_scope(
+            failures, tmp / "scope", device=d.dev, specs=SCOPE_SPECS, solver="jacobi-pallas",
+            n_nodes=K, n_mics=C, block=SERVE_BLOCK, update_every=SERVE_U, length=d.L))
+
+        def soak_legs():
+            summary = soak.check_byte_stable(failures, tmp / "soak", soak.SEEDS[0], device=d.dev)
+            crash = soak.crash_leg(soak.SEEDS[-1], tmp / "soak", failures, device=d.dev)
+            return {"seed": summary["seed"], "blocks": summary["blocks"],
+                    "all_parks_reattached": summary["all_parks_reattached"],
+                    "transport_faults_injected": summary["transport_faults_injected"],
+                    "quarantines": summary["quarantines"], "crash_leg": crash}
+
+        leg("soak", soak_legs)
+
+        def sentinel():
+            """A NaN in the north-star Y trips one sentinel with its stats and
+            one flight dump; a clean check of it is timed by CUDA events."""
+            Y = d.Y
+            nan = Y.clone()
+            nan[3, 1, 100, 200] = complex(float("nan"), 0.0)
+            ms, fences = [], []
+            with armed(tmp / "sentinel.jsonl", tmp / "sentinel_flight"):
+                g0 = device_get_count()
+                for _ in range(5):
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    f0 = fence_count()
+                    start.record()
+                    ok = sentinels.check_finite("stft_Y", Y, stage="stft")
+                    end.record()
+                    end.synchronize()
+                    ms.append(start.elapsed_time(end))
+                    fences.append(fence_count() - f0)
+                    require(ok, "the clean north-star Y tripped a sentinel")
+                tripped = not sentinels.check_finite("stft_Y", nan, stage="stft")
+                gets = device_get_count() - g0
+            (ev,) = [e["attrs"] for e in obs.read_events(tmp / "sentinel.jsonl")
+                     if e["kind"] == "sentinel"]
+            dumps = list((tmp / "sentinel_flight").glob("flight-*-sentinel.json"))
+            want = {"name": "stft_Y", "shape": list(Y.shape), "dtype": "complex64",
+                    "n_nonfinite": 1, "n_nan": 1, "n_inf": 0}
+            require(tripped and len(dumps) == 1 and gets == 0
+                    and {k: ev[k] for k in want} == want, ("sentinel trip", ev, dumps, gets))
+            return {"check_finite_ms": ms, "median_ms": sorted(ms)[2],
+                    "bytes": Y.numel() * Y.element_size(), "fences_a_check": fences,
+                    "batched_readbacks": gets, "event": ev, "dumps": len(dumps)}
+
+        leg("sentinel", sentinel)
+    total = time.perf_counter() - t_phase
+    print(f"phase 3j took {total:.1f} s (legs {json.dumps(seconds)})", flush=True)
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -2534,7 +2822,7 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     # the plain versions from the state after the first window
     with plain_kernels():
         yp, _ = stream_windows(d, 1, N_WINDOWS, states[0])
-        yc, _ = stream_windows(d, 0, N_WINDOWS, None)
+        yc, _ = stream_windows(d, 0, COLD_WINDOWS, None)
     torch.cuda.synchronize()
     yk = yw[:, LW:]
     err = rel_l2(yk, yp)
@@ -2542,12 +2830,12 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     for label, out in (("kernels", yk), ("plain", yp)):
         sdr[label] = si_sdr(d.s_np[0, 0, LW:Lc], out[0].cpu().numpy())
     cold = [rel_l2(yw[:, w * LW:(w + 1) * LW], yc[:, w * LW:(w + 1) * LW])
-            for w in range(N_WINDOWS)]
+            for w in range(COLD_WINDOWS)]
     print(f"phase 4: windows 2-{N_WINDOWS} from the state after window 1, kernels vs plain "
           f"versions: rel-l2 {err:.3e}, SI-SDR node 0 {sdr['kernels']:.4f} vs "
           f"{sdr['plain']:.4f} dB", flush=True)
-    print("phase 4: every window from the warm start, kernels vs plain versions, rel-l2 per "
-          "window: " + json.dumps(cold), flush=True)
+    print(f"phase 4: the first {COLD_WINDOWS} windows from the warm start, kernels vs plain "
+          "versions, rel-l2 per window: " + json.dumps(cold), flush=True)
     require(err <= TOL["stream"], ("stream vs plain", err))
     require(abs(sdr["kernels"] - sdr["plain"]) <= TOL["stream_sdr_db"], ("stream sdr", sdr))
 
@@ -3066,20 +3354,27 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    smi = phase1_build()
-    d = phase2_kernels()
-    phase2_sizes(d)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed("1", phase1_build)
+    d = timed("2", phase2_kernels)
+    timed("2 sizes", phase2_sizes, d)
     d.launches = {}
-    phase3_offline_path(d)
-    phase3d_crnn_masked_clip(d)
-    phase3e_corpus(d)
-    phase3f_training(d)
-    phase3g_simulation(d)
-    phase3h_serving(d)
-    phase3i_flywheel(d)
-    phase4_streaming_path(d)
-    entries = phase5_times(d)
-    phase6_breakdown(d)
+    for name, phase in (("3", phase3_offline_path), ("3d", phase3d_crnn_masked_clip),
+                        ("3e", phase3e_corpus), ("3f", phase3f_training),
+                        ("3g", phase3g_simulation), ("3h", phase3h_serving),
+                        ("3i", phase3i_flywheel), ("3j", phase3j_gates),
+                        ("4", phase4_streaming_path)):
+        timed(name, phase, d)
+    entries = timed("5", phase5_times, d)
+    timed("6", phase6_breakdown, d)
+    print(f"phase seconds {json.dumps(seconds)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": entries}))

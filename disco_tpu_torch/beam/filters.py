@@ -92,29 +92,43 @@ def _whitened(Rxx: torch.Tensor, Rnn: torch.Tensor):
     return L, 0.5 * (A + _herm(A))
 
 
-def _eigh_batches(A: torch.Tensor):
-    """``torch.linalg.eigh`` of a stack of matrices; on a CUDA tensor in
-    batches of exactly :data:`EIGH_BATCH` matrices, the last padded with
-    identities.  cuSOLVER's batched eigensolver refuses the batches a
-    streaming step hands it at the north-star width (8 x 16 x 257 pencils
-    a 64-frame block, 8 x 157 x 257 a 10-s clip:
-    ``CUSOLVER_STATUS_INVALID_VALUE``), and one batch size for every call
-    keeps a matrix's eigenpairs independent of how many others came with
-    it, so a stream served block by block equals the whole-clip stream bit
-    for bit (``exp/serve_parity_probe.py``)."""
-    if A.device.type != "cuda":
-        return torch.linalg.eigh(A)
-    lead, n = A.shape[:-2], A.shape[-1]
-    flat = A.reshape(-1, n, n)
-    m = flat.shape[0]
-    pad = (-m) % EIGH_BATCH
+#: the power solver's fixed batch (:func:`gevd_mwf_power`): padding its
+#: tiny matrices costs less than more launches — at the north-star 16-clip
+#: batch (32,896 4 x 4 pencils) 2.08 ms in one batch of 65,536 against 5.69
+#: in three of 16,384 (2.11 unbatched; H100, ``exp/batch_invariance_probe.py``)
+POWER_BATCH = 1 << 16
+
+
+def _fixed_batches(fn, *mats, size: int = EIGH_BATCH):
+    """``fn`` over stacks of (..., n, n) matrices, on a CUDA tensor in
+    batches of exactly ``size`` matrices, the last padded with
+    identities; ``fn`` returns a tuple of tensors with the matrices'
+    leading axis.  cuBLAS and cuSOLVER pick their kernels by the batch, so
+    one batch size for every call keeps a matrix's result independent of
+    how many others came with it: a stream served block by block equals the
+    whole-clip stream bit for bit (``exp/serve_parity_probe.py``), and a
+    clip enhanced alone equals the same clip in a corpus chunk (ROADMAP
+    Queue 3, faults 2 and 5)."""
+    if mats[0].device.type != "cuda":
+        return fn(*mats)
+    lead, n = mats[0].shape[:-2], mats[0].shape[-1]
+    flat = [a.reshape(-1, n, n) for a in mats]
+    m = flat[0].shape[0]
+    pad = (-m) % size
     if pad:
-        eye = torch.eye(n, dtype=A.dtype, device=A.device)
-        flat = torch.cat([flat, eye.expand(pad, n, n)])
-    parts = [torch.linalg.eigh(c) for c in flat.split(EIGH_BATCH)]
-    lam = torch.cat([p[0] for p in parts])[:m]
-    U = torch.cat([p[1] for p in parts])[:m]
-    return lam.reshape(lead + (n,)), U.reshape(lead + (n, n))
+        eye = torch.eye(n, dtype=mats[0].dtype, device=mats[0].device).expand(pad, n, n)
+        flat = [torch.cat([a, eye]) for a in flat]
+    parts = [fn(*chunk) for chunk in zip(*(a.split(size) for a in flat))]
+    return tuple(torch.cat(outs)[:m].reshape(lead + outs[0].shape[1:]) for outs in zip(*parts))
+
+
+def _eigh_batches(A: torch.Tensor):
+    """``torch.linalg.eigh`` of a stack of matrices (:func:`_fixed_batches`
+    on a CUDA tensor; cuSOLVER's batched eigensolver also refuses the
+    batches a streaming step hands it at the north-star width: 8 x 16 x 257
+    pencils a 64-frame block, 8 x 157 x 257 a 10-s clip,
+    ``CUSOLVER_STATUS_INVALID_VALUE``)."""
+    return _fixed_batches(torch.linalg.eigh, A)
 
 
 def _eigh_xla(A: torch.Tensor):
@@ -182,7 +196,15 @@ def gevd_mwf(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, rank=1,
 def gevd_mwf_power(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float = 1.0, iters: int = 12,
                    sanitize: bool = True):
     """Rank-1 GEVD-MWF by ``iters`` power iterations on the whitened
-    matrix (the dominant pair only)."""
+    matrix (the dominant pair only); on a CUDA tensor in fixed batches of
+    :data:`POWER_BATCH` pencils (:func:`_fixed_batches`), so a pencil's
+    filter does not depend on the batch it came in."""
+    return _fixed_batches(lambda a, b: _gevd_mwf_power(a, b, mu, iters, sanitize), Rxx, Rnn,
+                          size=POWER_BATCH)
+
+
+def _gevd_mwf_power(Rxx: torch.Tensor, Rnn: torch.Tensor, mu: float, iters: int,
+                    sanitize: bool):
     C = Rxx.shape[-1]
     L, A = _whitened(Rxx, Rnn)
     v = torch.full(A.shape[:-1], 1.0 / C ** 0.5, dtype=A.dtype, device=A.device)

@@ -19,8 +19,9 @@ __main__:329):
 * per-RIR idempotency guards and deterministic per-scene reseeding keep the
   corpus-scale jobs restartable and process-parallel.
 
-The JAX package also records ``warning``, ``run_resume`` and ``scene``
-events; the port has no event log yet.
+Both drivers record the ``warning`` of temp litter removed on resume and
+the ``run_resume`` event of a verified resume; the batched driver one
+``scene`` event (stage ``datagen``) per chunk.
 
 The reference's ``simulate_room`` calls ``signal_setup.get_signal(n_type=
 "SSN", ...)`` which does not exist on SpeechAndNoiseSetup (its method is
@@ -296,6 +297,7 @@ def generate_disco_rirs(
     Returns the list of RIR ids actually generated (existing ones skipped).
     """
     from disco_tpu_torch.io.atomic import remove_tmp_litter
+    from disco_tpu_torch.obs import events as obs_events
     from disco_tpu_torch.runs import chaos as run_chaos
     from disco_tpu_torch.runs import interrupt as run_interrupt
     from disco_tpu_torch.runs.ledger import RunLedger, unit_scene
@@ -312,12 +314,21 @@ def generate_disco_rirs(
     if ledger is not None and not isinstance(ledger, RunLedger):
         ledger = RunLedger(ledger)
     if resume:
-        remove_tmp_litter(layout.base)
+        litter = remove_tmp_litter(layout.base)
+        if litter:
+            obs_events.record("warning", stage="resume",
+                              reason=f"removed {len(litter)} abandoned temp file(s) "
+                                     f"from a crashed writer", files=litter[:20])
     ledger_done: set = set()
     requeued_units: set = set()
     if ledger is not None and resume:
         ledger_done, requeued = ledger.verified_done()
         requeued_units = set(requeued)
+        obs_events.record(
+            "run_resume", stage="datagen", ledger=str(ledger.path),
+            n_done=len(ledger_done), n_requeued=len(requeued),
+            requeued=sorted(requeued),
+        )
 
     for rir_id in range(rir_start, rir_start + n_rirs):
         if run_interrupt.stop_requested():
@@ -378,7 +389,7 @@ def generate_disco_rirs(
         if ledger is not None:
             ledger.mark_done(unit_scene(rir_id), written)
         generated.append(rir_id)
-        run_chaos.tick("between_scenes")
+        run_chaos.tick("between_scenes", rir=rir_id)
         i_file += 1
     return generated
 
@@ -515,6 +526,7 @@ def generate_disco_rirs_batched(
     Returns the list of RIR ids actually generated.
     """
     from disco_tpu_torch.io.atomic import remove_tmp_litter
+    from disco_tpu_torch.obs import events as obs_events
     from disco_tpu_torch.runs import chaos as run_chaos
     from disco_tpu_torch.runs import interrupt as run_interrupt
     from disco_tpu_torch.runs.ledger import RunLedger, unit_scene
@@ -534,12 +546,21 @@ def generate_disco_rirs_batched(
     if ledger is not None and not isinstance(ledger, RunLedger):
         ledger = RunLedger(ledger)
     if resume:
-        remove_tmp_litter(layout.base)
+        litter = remove_tmp_litter(layout.base)
+        if litter:
+            obs_events.record("warning", stage="resume",
+                              reason=f"removed {len(litter)} abandoned temp file(s) "
+                                     f"from a crashed writer", files=litter[:20])
     ledger_done: set = set()
     requeued_units: set = set()
     if ledger is not None and resume:
         ledger_done, requeued = ledger.verified_done()
         requeued_units = set(requeued)
+        obs_events.record(
+            "run_resume", stage="datagen", ledger=str(ledger.path),
+            n_done=len(ledger_done), n_requeued=len(requeued),
+            requeued=sorted(requeued),
+        )
 
     # Pending ids under the same skip rules as the per-scene driver: ledger
     # done, or a validated infos completion marker (unless requeued).
@@ -607,6 +628,9 @@ def generate_disco_rirs_batched(
             raise RuntimeError(
                 f"RIRs {[chunk[i] for i in active]}: no valid configuration "
                 f"after {max_redraws} batched redraw rounds")
+        obs_events.record("scene", stage="datagen", n_scenes=len(chunk),
+                          rir_start=int(chunk[0]), rir_end=int(chunk[-1]),
+                          scenario=scenario)
         for rir_id, scene in zip(chunk, scenes):
             # Stream 1: extra-noise reverb draws, reseeded per scene.
             signal_setup.rng = np.random.default_rng([seed, rir_id, 1])
@@ -636,8 +660,9 @@ def generate_disco_rirs_batched(
             if ledger is not None:
                 ledger.mark_done(unit_scene(rir_id), written)
             generated.append(rir_id)
-            run_chaos.tick("between_scenes")
-        run_chaos.tick("between_scene_batches")
+            run_chaos.tick("between_scenes", rir=rir_id)
+        run_chaos.tick("between_scene_batches", rir_start=int(chunk[0]),
+                       rir_end=int(chunk[-1]))
     return generated
 
 

@@ -21,19 +21,31 @@ stage :func:`estimate_masks` / :func:`_batched_masks`.  Each runs on
 device.  Threads: the main thread is the only CUDA user; the prefetch
 thread loads numpy and the scoring workers get numpy arrays only.
 
-Left for later slices: the FIG plot (``save_fig=True`` raises), the
-telemetry of the JAX driver (stage events, finiteness sentinels, counters),
-``mesh`` (multi-card) and ``compile_cache`` (the port compiles nothing at
-run time; its kernels build once into ``build/kernels/<sha256>/``).
+Telemetry, the JAX driver's (``disco_tpu_torch.obs``): the stage spans
+``load_input``, ``stft``, ``masks``, ``mwf``, ``istft``, ``score_persist``,
+``chunk_load``, ``chunk_enhance``, ``chunk_pipeline`` (and the pipeline's
+``chunk_readback``); the finiteness sentinels ``stft_Y``, ``masks``,
+``mwf_yf`` and ``istft_out``; the ``clips_enhanced``, ``degraded_clips``,
+``snr_sidecar_missing`` and ``corrupt_artifacts_detected`` counters; the
+``clip``, ``degraded``, ``fault``, ``warning``, ``run_resume``, ``note``
+and ``counters`` events; the batch runners' call signatures
+(``obs.accounting.counted_jit``).  With no event sink live, none of it
+reads a tensor's value.
+
+Left for later slices: the FIG plot (``save_fig=True`` raises; the tools
+slice), ``mesh`` (multi-card, with its ``oracle_masks_batched`` runner) and
+``compile_cache`` (the port compiles nothing at run time; its kernels
+build once into ``build/kernels/<sha256>/``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import pickle
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from functools import partial
+from functools import lru_cache, partial
 from pathlib import Path
 
 import numpy as np
@@ -69,10 +81,42 @@ from disco_tpu_torch.io.atomic import (
 )
 from disco_tpu_torch.io.audio import read_wav
 from disco_tpu_torch.io.layout import DatasetLayout, case_of_rir, snr_dirname
+from disco_tpu_torch.obs import accounting as obs_accounting
+from disco_tpu_torch.obs import events as obs_events
+from disco_tpu_torch.obs import sentinels as obs_sentinels
+from disco_tpu_torch.obs.metrics import REGISTRY as obs_registry
 from disco_tpu_torch.ops.stft_ops import stft_fused, stft_with_mag
 from disco_tpu_torch.runs import chaos as run_chaos
 from disco_tpu_torch.runs import interrupt as run_interrupt
 from disco_tpu_torch.runs.ledger import RunLedger, unit_rir
+from disco_tpu_torch.utils.resilience import TRANSPORT_ERRORS, call_with_retries
+
+
+def _record_degraded(fault_plan, streaming: bool = False, **attrs):
+    """Record the pipeline's degraded-mode entry for one clip: a
+    ``degraded`` event naming what was lost and the ``degraded_clips``
+    counter.  No-op when the plan injects nothing."""
+    if fault_plan is None or not fault_plan.any_fault():
+        return
+    obs_registry.counter("degraded_clips").inc()
+    if not obs_events.enabled():
+        return
+    if streaming:
+        lost = fault_plan.avail_streaming < 1.0
+        obs_events.record(
+            "degraded", stage="mwf", mode="streaming",
+            n_blocks_held=int(lost.sum()),
+            nodes=np.flatnonzero(lost.any(axis=1)).tolist(),
+            **attrs,
+        )
+    else:
+        excluded = np.flatnonzero(fault_plan.avail_offline < 1.0).tolist()
+        obs_events.record(
+            "degraded", stage="mwf", mode="offline",
+            n_streams_excluded=len(excluded), nodes=excluded,
+            nan_nodes=np.flatnonzero(fault_plan.z_nan).tolist(),
+            **attrs,
+        )
 
 
 def _check_save_fig(save_fig: bool) -> None:
@@ -86,13 +130,22 @@ def _check_save_fig(save_fig: bool) -> None:
 def load_input_signals(layout: DatasetLayout, rir: int, noise: str, snr_range, n_nodes=4,
                        mics_per_node=4):
     """Processed node signals + dry references + logged SNRs (reference
-    tango.py:55-111).  A missing SNR sidecar reads as zeros, as in the JAX
-    package (which also records a warning event)."""
+    tango.py:55-111).  A missing SNR sidecar reads as zeros, made visible:
+    the ``snr_sidecar_missing`` counter and a ``warning`` event."""
     y, s, n = load_node_signals(layout, rir, noise, snr_range, n_nodes, mics_per_node)
     s_dry, fs = read_wav(layout.dry_source("target", rir, 1))
     n_dry, _ = read_wav(layout.dry_source("noise", rir, 2, noise=noise))
     snr_path = layout.snr_log(snr_range, rir, noise)
-    rnd_snrs = np.load(snr_path) if snr_path.exists() else np.zeros(n_nodes)
+    if snr_path.exists():
+        rnd_snrs = np.load(snr_path)
+    else:
+        rnd_snrs = np.zeros(n_nodes)
+        obs_registry.counter("snr_sidecar_missing").inc()
+        obs_events.record(
+            "warning", stage="load_input", rir=rir, noise=noise,
+            reason="SNR sidecar missing; substituting zeros for snr_in_raw",
+            path=str(snr_path),
+        )
     return y, s, n, s_dry, n_dry, fs, rnd_snrs
 
 
@@ -111,9 +164,19 @@ def _clip_done(out: Path, rir, noise: str) -> bool:
     """Validated idempotency probe for one enhanced RIR: both OIM pickles
     (the last artifacts :func:`_persist_and_score` writes) must exist AND
     unpickle to completion; a truncated one reads as not-done and the clip
-    is redone."""
-    return all(probe_pickle(out / "OIM" / f"results_{kind}_{rir}_{noise}.p")
-               for kind in ("mwf", "tango"))
+    is redone (``corrupt_artifacts_detected`` and a ``warning`` event)."""
+    for kind in ("mwf", "tango"):
+        p = out / "OIM" / f"results_{kind}_{rir}_{noise}.p"
+        if not probe_pickle(p):
+            if p.exists():
+                obs_registry.counter("corrupt_artifacts_detected").inc()
+                obs_events.record(
+                    "warning", stage="skip_probe", rir=rir, noise=noise,
+                    reason="existing OIM pickle failed its integrity probe; "
+                           "re-enhancing this clip", path=str(p),
+                )
+            return False
+    return True
 
 
 def clip_artifacts(out: Path, rir, noise: str, snr_range, n_nodes: int) -> list:
@@ -262,9 +325,11 @@ def _z_for_mask_device(z_y, zn, n_nodes: int, z_sigs: str):
 def _clip_host(res, length: int) -> dict:
     """One clip's scoring payload on the host, in ONE copy: the six ISTFTs
     at the clip's length (:func:`~disco_tpu_torch.enhance.pipeline.
-    clip_time_domain`), both masks and the complex z export."""
-    td, masks_z, mask_w, z_y = to_host([clip_time_domain(res, length), res.masks_z,
-                                        res.mask_w, res.z_y])
+    clip_time_domain`), both masks and the complex z export, under the
+    transport-retry budget."""
+    td, masks_z, mask_w, z_y = call_with_retries(
+        to_host, [clip_time_domain(res, length), res.masks_z, res.mask_w, res.z_y],
+        retry_on=TRANSPORT_ERRORS, label="persist_readback")
     return {"td": tuple(td), "masks_z": masks_z, "mask_w": mask_w, "z_y": z_y}
 
 
@@ -282,6 +347,11 @@ def _persist_and_score(out: Path, rir: int, noise: str, snr_range, y, s, n, s_dr
     nzf_t)``, and ``masks_z`` / ``mask_w`` / ``z_y`` (K, F, T)."""
     sh_t, szh_t, sf_t, nf_t, szf_t, nzf_t = host["td"]
     masks_z_h, mask_w_h, z_y_h = host["masks_z"], host["mask_w"], host["z_y"]
+    obs_sentinels.check_finite("istft_out", sh_t, stage="istft")
+    # score_persist covers the whole tail (node loop, artifacts); a clip
+    # that crashes loses its stage_end, which the aborted run does not need
+    score_stage = contextlib.ExitStack()
+    score_stage.enter_context(obs_events.stage("score_persist", rir=rir, noise=noise))
     for sub in ("WAV", "MASK", "OIM", "FIG"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     (out / "WAV" / str(rir)).mkdir(exist_ok=True)
@@ -328,7 +398,12 @@ def _persist_and_score(out: Path, rir: int, noise: str, snr_range, y, s, n, s_dr
     resultsz = {"snr_in_raw": rnd_snrs, **stack_keys(per_node_mwf)}
     dump_pickle_atomic(out / "OIM" / f"results_tango_{rir}_{noise}.p", results)
     dump_pickle_atomic(out / "OIM" / f"results_mwf_{rir}_{noise}.p", resultsz)
-    run_chaos.tick("between_clips")
+    score_stage.close()
+    obs_registry.counter("clips_enhanced").inc()
+    if obs_events.enabled():
+        obs_events.record("clip", rir=rir, noise=noise, n_nodes=n_nodes,
+                          sdr_cnv_mean=float(np.mean(results["sdr_cnv"])))
+    run_chaos.tick("between_clips", rir=rir)
     return results
 
 
@@ -436,8 +511,9 @@ def enhance_rir(
         ledger.mark_in_flight(unit_rir(rir, noise))
 
     layout = DatasetLayout(root, scenario, case_of_rir(rir))
-    y, s, n, s_dry, n_dry, fs, rnd_snrs = load_input_signals(layout, rir, noise, snr_range,
-                                                             n_nodes, mics_per_node)
+    with obs_events.stage("load_input", rir=rir, noise=noise):
+        y, s, n, s_dry, n_dry, fs, rnd_snrs = load_input_signals(layout, rir, noise, snr_range,
+                                                                 n_nodes, mics_per_node)
     L = y.shape[-1]
     if bucket:
         pad = ((0, 0), (0, 0), (0, bucket_length(L, bucket) - L))
@@ -447,24 +523,36 @@ def enhance_rir(
     T_true = n_stft_frames(L)  # saved masks/z trimmed to the true frames
 
     if chained:
-        exp = tango_clip_fused(y_in, s_in, n_in, mu=mu, policy=policy, mask_type=mask_type,
-                               solver=solver, cov_impl=cov_impl, stft_impl=stft_impl,
-                               precision=precision, export=True, device=dev)
-        host = fetch_chained_host({"td": tuple(a[None] for a in exp["td"]),
-                                   **{k: exp[k][None] for k in ("masks_z", "mask_w", "z_y")}},
-                                  [L], 1)
-        host = {"td": host["td"][0], **{k: host[k][0] for k in ("masks_z", "mask_w", "z_y")}}
+        # the whole clip in one call and its scoring payload in one copy;
+        # the staged stft/masks/mwf/istft stages below never run
+        with obs_events.stage("mwf", rir=rir, mode="chained", solver=solver):
+            exp = tango_clip_fused(y_in, s_in, n_in, mu=mu, policy=policy, mask_type=mask_type,
+                                   solver=solver, cov_impl=cov_impl, stft_impl=stft_impl,
+                                   precision=precision, export=True, device=dev)
+            td, masks_z, mask_w, z_y = call_with_retries(
+                to_host, [torch.stack(exp["td"]), exp["masks_z"], exp["mask_w"], exp["z_y"]],
+                retry_on=TRANSPORT_ERRORS, label="chained_readback")
+            del exp
+        # bucket padding trimmed on the host (numpy views)
+        host = {"td": tuple(td[..., :L]), "masks_z": masks_z, "mask_w": mask_w, "z_y": z_y}
+        obs_sentinels.check_finite("mwf_yf", host["td"][0], stage="mwf")
     else:
-        spec, mag = stft_with_mag(torch.as_tensor(np.stack([y_in, s_in, n_in]), device=dev),
-                                  impl=stft_impl, precision=precision)
-        Y, S, N = spec[0], spec[1], spec[2]
-        masks_z, mask_w = estimate_masks(Y, S, N, models, mask_type, n_nodes, mu=mu,
-                                         z_sigs=z_sigs, mags=(mag[1], mag[2]), device=dev)
+        with obs_events.stage("stft", rir=rir):
+            spec, mag = stft_with_mag(torch.as_tensor(np.stack([y_in, s_in, n_in]), device=dev),
+                                      impl=stft_impl, precision=precision)
+            Y, S, N = spec[0], spec[1], spec[2]
+        obs_sentinels.check_finite("stft_Y", Y, stage="stft")
+        with obs_events.stage("masks", rir=rir):
+            masks_z, mask_w = estimate_masks(Y, S, N, models, mask_type, n_nodes, mu=mu,
+                                             z_sigs=z_sigs, mags=(mag[1], mag[2]), device=dev)
+        obs_sentinels.check_finite("masks", (masks_z, mask_w), stage="masks")
         del mag
         fault_plan = None
         if fault_spec is not None:
             n_blocks = math.ceil(Y.shape[-1] / DEFAULT_UPDATE_EVERY) if streaming else 1
             fault_plan = plan_faults(fault_spec, n_nodes, n_blocks)
+            fault_plan.record(mode="streaming" if streaming else "offline")
+            _record_degraded(fault_plan, rir=rir, streaming=streaming)
             if not fault_plan.any_fault():
                 fault_plan = None  # nothing drawn: the fault-free path
         if streaming:
@@ -478,10 +566,11 @@ def enhance_rir(
                     f"streaming mode uses the smoothed-covariance estimator; "
                     f"cov_impl={cov_impl!r} applies to the offline pipeline only"
                 )
-            st = streaming_tango(Y, masks_z, mask_w, mu=mu, S=S, N=N, with_diagnostics=True,
-                                 policy=policy, solver=solver, precision=precision,
-                                 z_avail=None if fault_plan is None
-                                 else fault_plan.avail_streaming, device=dev)
+            with obs_events.stage("mwf", rir=rir, mode="streaming", solver=solver):
+                st = streaming_tango(Y, masks_z, mask_w, mu=mu, S=S, N=N, with_diagnostics=True,
+                                     policy=policy, solver=solver, precision=precision,
+                                     z_avail=None if fault_plan is None
+                                     else fault_plan.avail_streaming, device=dev)
             # one filter everywhere: every saved wav, mask, z and metric
             # describes the online beamformer
             res = TangoResult(yf=st["yf"], sf=st["sf"], nf=st["nf"], z_y=st["z_y"],
@@ -491,11 +580,14 @@ def enhance_rir(
             faults = {} if fault_plan is None else {
                 "z_mask": fault_plan.avail_offline,
                 "z_nan": fault_plan.z_nan if fault_plan.z_nan.any() else None}
-            res = tango(Y, S, N, masks_z, mask_w, mu=mu, policy=policy, mask_type=mask_type,
-                        solver=solver, cov_impl=cov_impl, precision=precision, device=dev,
-                        **faults)
+            with obs_events.stage("mwf", rir=rir, mode="offline", solver=solver):
+                res = tango(Y, S, N, masks_z, mask_w, mu=mu, policy=policy, mask_type=mask_type,
+                            solver=solver, cov_impl=cov_impl, precision=precision, device=dev,
+                            **faults)
+        obs_sentinels.check_finite("mwf_yf", res.yf, stage="mwf")
         del spec, Y, S, N
-        host = _clip_host(res, L)
+        with obs_events.stage("istft", rir=rir):
+            host = _clip_host(res, L)
         del res
 
     out_results = _persist_and_score(out, rir, noise, snr_range, y, s, n, s_dry, n_dry, fs,
@@ -503,6 +595,8 @@ def enhance_rir(
     if ledger is not None:
         ledger.mark_done(unit_rir(rir, noise), clip_artifacts(out, rir, noise, snr_range,
                                                               n_nodes))
+    if obs_events.enabled():
+        obs_events.record("counters", **obs_registry.snapshot())
     return out_results
 
 
@@ -524,14 +618,28 @@ def aggregate_results(oim_dir, kind: str = "tango", noise: str | None = None):
     return concatenate_dicts(dicts)
 
 
-def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=None, mags=None):
+@lru_cache(maxsize=8)
+def _step1_2d(mu: float):
+    """The corpus driver's batched step 1 for the CRNN step-2 masks, one
+    counted entry point per ``mu`` (the JAX package's ``step1_2d`` label):
+    :func:`compute_z_signals` over a (B, K, C, F, T) batch."""
+    def step1_2d(Yb, Sb, Nb, Mz):
+        return compute_z_signals(None, None, None, Y=Yb, S=Sb, N=Nb, masks_z=Mz, mu=mu,
+                                 device=Yb.device)
+
+    return obs_accounting.counted_jit(step1_2d, label="step1_2d")
+
+
+def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=None, mags=None,
+                   step1=None):
     """Step-1/step-2 masks for a whole clip batch (B, K, C, F, T): the
     (B K) node forwards of each CRNN step run as one
     :func:`crnn_masks_batched` call, step 1 as one :func:`compute_z_signals`
-    call over the batch (its default solver, ``'power'``).  ``mags``:
-    optional (B, K, C, F, T) ``(mag_S, mag_N)`` for the irm/ibm oracle
-    masks (see :func:`estimate_masks`).  Returns (Mz, Mw), each
-    (B, K, F, T)."""
+    call over the batch (its default solver, ``'power'``; ``step1``: the
+    function making it, which the corpus driver passes as its counted
+    :func:`_step1_2d`).  ``mags``: optional (B, K, C, F, T)
+    ``(mag_S, mag_N)`` for the irm/ibm oracle masks (see
+    :func:`estimate_masks`).  Returns (Mz, Mw), each (B, K, F, T)."""
     dev = resolve_device(device)
     Yb, Sb, Nb = _spectra(dev, Yb, Sb, Nb)
     B, K, _, F, T = Yb.shape
@@ -549,7 +657,11 @@ def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=No
         Mz = crnn_masks_batched(refs, models[0], device=dev).reshape(B, K, F, T)
     if models[1] is None:
         return Mz, oracle()
-    out = compute_z_signals(None, None, None, Y=Yb, S=Sb, N=Nb, masks_z=Mz, mu=mu, device=dev)
+    if step1 is None:
+        out = compute_z_signals(None, None, None, Y=Yb, S=Sb, N=Nb, masks_z=Mz, mu=mu,
+                                device=dev)
+    else:
+        out = step1(Yb, Sb, Nb, Mz)
     zs = _z_for_mask_device(out["z_y"], out["zn"], n_nodes, z_sigs).reshape(B * K, -1, F, T)
     Mw = crnn_masks_batched(refs, models[1], zs=zs, device=dev).reshape(B, K, F, T)
     return Mz, Mw
@@ -570,7 +682,10 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
     scoring ISTFTs; the fault masks are rejected there.
 
     The JAX package donates the STFT stacks to its jitted runners; here the
-    driver drops its references to them once a runner returns.
+    driver drops its references to them once a runner returns.  Each runner
+    counts its call signatures under the JAX package's label
+    (``run_batch``, ``run_batch_with_masks``, ``run_batch_chained``;
+    :func:`~disco_tpu_torch.obs.accounting.counted_jit`).
     """
     dev = resolve_device(device)
     if chained:
@@ -580,21 +695,29 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
                 "fault scenarios on the staged path"
             )
 
+        @obs_accounting.counted_jit(label="run_batch_chained")
         def run_batch_chained(yb, sb, nb):
-            return tango_clip_fused(yb, sb, nb, mu=mu, policy=policy, mask_type=mask_type,
-                                    solver=solver, cov_impl=cov_impl, stft_impl=stft_impl,
-                                    precision=precision, export=True, device=dev)
+            # the uncounted function: this runner's signature is the count
+            return tango_clip_fused.__wrapped__(
+                yb, sb, nb, mu=mu, policy=policy, mask_type=mask_type, solver=solver,
+                cov_impl=cov_impl, stft_impl=stft_impl, precision=precision, export=True,
+                device=dev)
 
         return run_batch_chained, None
 
-    def run_batch_with_masks(Yb, Sb, Nb, Mz, Mw):
+    def batch_tango(Yb, Sb, Nb, Mz, Mw):
         return tango(Yb, Sb, Nb, Mz, Mw, mu=mu, policy=policy, mask_type=mask_type,
                      solver=solver, cov_impl=cov_impl, precision=precision,
                      z_mask=z_mask_arr, z_nan=z_nan_arr, device=dev)
 
+    @obs_accounting.counted_jit(label="run_batch_with_masks")
+    def run_batch_with_masks(Yb, Sb, Nb, Mz, Mw):
+        return batch_tango(Yb, Sb, Nb, Mz, Mw)
+
+    @obs_accounting.counted_jit(label="run_batch")
     def run_batch(Yb, Sb, Nb):
         m = oracle_masks(Sb, Nb, mask_type)
-        return run_batch_with_masks(Yb, Sb, Nb, m, m)
+        return batch_tango(Yb, Sb, Nb, m, m)
 
     return run_batch, run_batch_with_masks
 
@@ -681,12 +804,16 @@ def enhance_rirs_batched(
         solver = "fused" if chained else "power"
     dev = resolve_device(device)
 
+    fault_plan = None
     z_mask_arr = z_nan_arr = None
     if fault_spec is not None:
         fault_plan = plan_faults(fault_spec, n_nodes, 1)
+        fault_plan.record(mode="offline")
         if fault_plan.any_fault():
             z_mask_arr = fault_plan.avail_offline
             z_nan_arr = fault_plan.z_nan if fault_plan.z_nan.any() else None
+        else:  # nothing drawn: every chunk on the fault-free path
+            fault_plan = None
 
     def out_of(rir):
         return Path(out_root) if out_root is not None else results_root(
@@ -697,13 +824,24 @@ def enhance_rirs_batched(
     if resume:
         # a real crash (process death) can leave abandoned *.tmp.<pid>
         # partial writes; sweep them before probing
-        for root_ in sorted({str(out_of(r)) for r in rirs}):
-            remove_tmp_litter(root_)
+        litter = [p for root_ in sorted({str(out_of(r)) for r in rirs})
+                  for p in remove_tmp_litter(root_)]
+        if litter:
+            obs_events.record(
+                "warning", stage="resume",
+                reason=f"removed {len(litter)} abandoned temp file(s) from a "
+                       f"crashed writer", files=litter[:20],
+            )
     ledger_done: set = set()
     requeued_units: set = set()
     if ledger is not None and resume:
         ledger_done, requeued = ledger.verified_done()
         requeued_units = set(requeued)
+        obs_events.record(
+            "run_resume", stage="enhance", ledger=str(ledger.path),
+            n_done=len(ledger_done), n_requeued=len(requeued),
+            requeued=sorted(requeued),
+        )
     elif ledger is not None:
         ledger_done = {u for u, rec in ledger.replay().items() if rec["state"] == "done"}
 
@@ -765,9 +903,10 @@ def enhance_rirs_batched(
         if ledger is not None:
             for rir, _out, _layout in chunk:
                 ledger.mark_in_flight(unit_rir(rir, noise), bucket=Lp)
-        run_chaos.tick("chunk_load")
-        sigs = [load_input_signals(layout, rir, noise, snr_range, n_nodes, mics_per_node)
-                for rir, _, layout in chunk]
+        run_chaos.tick("chunk_load", bucket=Lp, n_clips=len(chunk))
+        with obs_events.stage("chunk_load", n_clips=len(chunk), bucket=Lp):
+            sigs = [load_input_signals(layout, rir, noise, snr_range, n_nodes, mics_per_node)
+                    for rir, _, layout in chunk]
         ys, ss, ns = [], [], []
         for (y, s, n, *_rest) in sigs:
             pad = ((0, 0), (0, 0), (0, Lp - y.shape[-1]))
@@ -786,18 +925,21 @@ def enhance_rirs_batched(
 
     def dispatch_chunk(lc):
         """The chunk's launches (main thread, the only CUDA user); the STFT
-        stacks are dropped as soon as the runner returns."""
-        run_chaos.tick("pre_dispatch")
-        x = torch.stack([torch.as_tensor(a, device=dev) for a in (lc.ys, lc.ss, lc.ns)])
-        if chained:
-            return run_batch(x[0], x[1], x[2])
-        spec = stft_fused(x, impl=stft_impl, precision=precision)
-        del x
-        if models == (None, None):
-            return run_batch(spec[0], spec[1], spec[2])
-        Mz, Mw = _batched_masks(spec[0], spec[1], spec[2], models, mask_type, mu, n_nodes,
-                                z_sigs, device=dev)
-        return run_batch_with_masks(spec[0], spec[1], spec[2], Mz, Mw)
+        stacks are dropped as soon as the runner returns.  ``chunk_enhance``
+        times the launches' queueing, not the card's work."""
+        run_chaos.tick("pre_dispatch", bucket=lc.bucket, n_clips=lc.n_real)
+        with obs_events.stage("chunk_enhance", n_clips=lc.n_real, bucket=lc.bucket,
+                              batch=len(lc.ys)):
+            x = torch.stack([torch.as_tensor(a, device=dev) for a in (lc.ys, lc.ss, lc.ns)])
+            if chained:
+                return run_batch(x[0], x[1], x[2])
+            spec = stft_fused(x, impl=stft_impl, precision=precision)
+            del x
+            if models == (None, None):
+                return run_batch(spec[0], spec[1], spec[2])
+            Mz, Mw = _batched_masks(spec[0], spec[1], spec[2], models, mask_type, mu, n_nodes,
+                                    z_sigs, device=dev, step1=_step1_2d(mu))
+            return run_batch_with_masks(spec[0], spec[1], spec[2], Mz, Mw)
 
     def submit_scoring(lc, host_of):
         """Queue (or run inline) one chunk's per-clip scoring; ``host_of(i)``
@@ -806,6 +948,7 @@ def enhance_rirs_batched(
         for i in range(lc.n_real):
             rir, out, _layout = lc.chunk[i]
             y, s, n, s_dry, n_dry, fs, rnd_snrs = lc.sigs[i]
+            _record_degraded(fault_plan, rir=rir)
             L = y.shape[-1]
             score = partial(_persist_and_score, out, rir, noise, snr_range, y, s, n, s_dry,
                             n_dry, fs, rnd_snrs, host_of(i), n_stft_frames(L), n_nodes)
@@ -822,26 +965,37 @@ def enhance_rirs_batched(
         return lambda i: {"td": host["td"][i], "masks_z": host["masks_z"][i],
                           "mask_w": host["mask_w"][i], "z_y": host["z_y"][i]}
 
+    stopping = False  # graceful interruption: wind down between chunks
     with ThreadPoolExecutor(max_workers=max(score_workers, 1)) as ex:
         if pipeline:
             prefetcher = ChunkPrefetcher(work_items, load_chunk,
                                          stop_requested=run_interrupt.stop_requested)
+            n_done_chunks = 0
             try:
                 for lc, stall_s in prefetcher:
                     if run_interrupt.stop_requested():
+                        stopping = True
                         break  # graceful stop: in-flight scoring drains below
                     t0 = time.perf_counter()
-                    res_b = dispatch_chunk(lc)
-                    host_of = host_payload(res_b, lc,
-                                           fetch_chained_host if chained else fetch_chunk_host)
-                    del res_b
-                    submit_scoring(lc, host_of)
+                    with obs_events.stage("chunk_pipeline", n_clips=lc.n_real, bucket=lc.bucket,
+                                          stall_ms=round(stall_s * 1e3, 3)):
+                        res_b = dispatch_chunk(lc)
+                        host_of = host_payload(
+                            res_b, lc, fetch_chained_host if chained else fetch_chunk_host)
+                        del res_b
+                        submit_scoring(lc, host_of)
                     note_chunk_overlap(stall_s, time.perf_counter() - t0)
+                    n_done_chunks += 1
+                # the prefetcher may be the one that saw the stop: the loop
+                # then ends with work items never loaded
+                if n_done_chunks < len(work_items):
+                    stopping = True
             finally:
                 prefetcher.close()
         else:
             for Lp, chunk in work_items:
                 if run_interrupt.stop_requested():
+                    stopping = True
                     break
                 lc = load_chunk(Lp, chunk)
                 res_b = dispatch_chunk(lc)
@@ -849,10 +1003,21 @@ def enhance_rirs_batched(
                     host_of = host_payload(res_b, lc, fetch_chained_host)
                 else:
                     # one copy per clip, from the clip's slice of the batch
-                    hosts = [_clip_host(clip_slice(res_b, i), L)
-                             for i, L in enumerate(lc.clip_lengths)]
+                    hosts = []
+                    for i, L in enumerate(lc.clip_lengths):
+                        with obs_events.stage("istft", rir=lc.chunk[i][0]):
+                            hosts.append(_clip_host(clip_slice(res_b, i), L))
                     host_of = hosts.__getitem__
                 del res_b
                 submit_scoring(lc, host_of)
         drain_chunks()
+    if stopping:
+        obs_events.record(
+            "note", stage="enhance",
+            reason="graceful stop: partial corpus run; rerun with resume=True "
+                   "(--resume) to continue",
+            n_done=len(all_results),
+        )
+    if obs_events.enabled():
+        obs_events.record("counters", **obs_registry.snapshot())
     return all_results

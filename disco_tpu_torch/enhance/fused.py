@@ -12,9 +12,12 @@ Its streaming twin :func:`streaming_clip_fused` takes one super-tick
 window of time-domain signal through the window STFT (one STFT launch),
 the oracle masks, ``streaming_tango_scan`` and the ISTFT; under
 ``solver='jacobi-pallas'`` every refresh block launches the eigensolver
-kernel once per step.
+kernel once per step.  Both entry points count their call signatures
+under the JAX package's jit labels (``obs.accounting.counted_jit``).
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -28,6 +31,7 @@ from disco_tpu_torch.enhance.streaming import (
     streaming_tango_scan,
 )
 from disco_tpu_torch.enhance.tango import oracle_masks, tango
+from disco_tpu_torch.obs.accounting import counted_jit
 from disco_tpu_torch.ops.resolve import resolve_precision
 from disco_tpu_torch.ops.stft_ops import stft_with_mag
 
@@ -41,6 +45,9 @@ def _clip_oracle_masks(spec, mag, mask_type: str, ref_mic: int):
     return oracle_masks(spec[1], spec[2], mask_type, ref_mic=ref_mic)
 
 
+@partial(counted_jit, label="tango_clip_fused",
+         static_argnames=("policy", "ref_mic", "mask_type", "oracle_step1_stats", "solver",
+                          "cov_impl", "stft_impl", "precision", "export"))
 def tango_clip_fused(y, s, n, masks_z=None, mask_w=None, mu: float = 1.0,
                      policy: str | None = "local", ref_mic: int = 0, mask_type: str = "irm1",
                      oracle_step1_stats: bool = False, solver: str = "fused",
@@ -86,6 +93,9 @@ def tango_clip_fused(y, s, n, masks_z=None, mask_w=None, mu: float = 1.0,
     }
 
 
+@partial(counted_jit, label="streaming_clip_fused",
+         static_argnames=("update_every", "ref_mic", "mask_type", "policy", "solver",
+                          "blocks_per_dispatch", "stft_impl", "precision"))
 def streaming_clip_fused(y, s=None, n=None, masks_z=None, mask_w=None,
                          lambda_cor: float = DEFAULT_LAMBDA_COR,
                          update_every: int = DEFAULT_UPDATE_EVERY, mu: float = DEFAULT_MU,
@@ -134,7 +144,7 @@ def streaming_clip_fused(y, s=None, n=None, masks_z=None, mask_w=None,
         Y = stft_with_mag(y, impl=stft_impl, precision=precision)[0]
     if mask_w is None:
         mask_w = masks_z
-    out = streaming_tango_scan(
+    out = streaming_tango_scan.__wrapped__(
         Y, masks_z, mask_w, lambda_cor=lambda_cor, update_every=update_every, mu=mu,
         ref_mic=ref_mic, policy=policy, state=state, solver=solver, z_avail=z_avail,
         blocks_per_dispatch=blocks_per_dispatch, precision=precision, device=dev,

@@ -18,16 +18,19 @@ enhance_rirs_batched`) composes two overlap primitives:
   (:func:`~disco_tpu_torch.device.to_host`).  Scoring workers then get
   numpy arrays only.
 
-:func:`note_chunk_overlap` keeps each chunk's prefetch stall and busy time
-in :data:`OVERLAP` (the JAX package folds them into its metrics registry,
-which the port does not have yet).
+Observability, the JAX package's names: each fetch records a
+``chunk_readback`` stage event, the ``readback_ms`` gauge and histogram and
+the ``chunk_readbacks`` counter; :func:`note_chunk_overlap` the
+``prefetch_stall_ms`` gauge and histogram, the ``overlap_efficiency`` gauge
+and the ``chunks_pipelined`` counter; a loader that outlives
+:meth:`ChunkPrefetcher.close` a ``warning`` event and the
+``prefetch_orphaned`` counter.
 
 No reference counterpart: the reference enhances clips one at a time in a
 Python loop (SURVEY.md §5.5).
 """
 from __future__ import annotations
 
-import collections
 import queue as queue_mod
 import threading
 import time
@@ -38,18 +41,14 @@ import torch
 
 from disco_tpu_torch.core.dsp import istft
 from disco_tpu_torch.device import to_host
+from disco_tpu_torch.obs import events as obs_events
+from disco_tpu_torch.obs.metrics import REGISTRY as obs_registry
 
 #: Scoring backpressure: at most this many chunks of pending scoring
 #: futures are kept in flight before the dispatch thread blocks on the
 #: oldest, so chunk N-1's scoring overlaps chunk N's dispatch AND chunk
 #: N+1's prefetch without unbounded host memory growth.
 MAX_PENDING_CHUNKS = 2
-
-#: One record per pipelined chunk, newest last: ``stall_ms`` (the dispatch
-#: loop's wait for the prefetcher), ``busy_ms`` (dispatch + readback +
-#: scoring submission) and ``overlap_efficiency`` = busy / (busy + stall),
-#: 1.0 when the prefetch fully hid the load.
-OVERLAP: collections.deque = collections.deque(maxlen=4096)
 
 
 @dataclass
@@ -91,7 +90,8 @@ class ChunkPrefetcher:
 
     Always :meth:`close` in a ``finally``: a consumer that unwinds
     mid-iteration would otherwise leave the loader thread blocked on a full
-    queue.
+    queue.  A loader still inside one chunk read when ``close`` times out is
+    recorded (a ``warning`` event and the ``prefetch_orphaned`` counter).
     """
 
     def __init__(self, work, load_chunk, depth: int = 2, stop_requested=None):
@@ -149,7 +149,8 @@ class ChunkPrefetcher:
         """Stop the loader and release it: set the stop flag, drain the
         queue (unblocking a pending put) and join.  Idempotent.  Returns
         True when the loader exited; a loader still inside one slow chunk
-        read starts nothing new afterwards."""
+        read starts nothing new afterwards, and outliving the timeout is
+        recorded, never swallowed."""
         self._stop.set()
         while True:
             try:
@@ -157,7 +158,16 @@ class ChunkPrefetcher:
             except queue_mod.Empty:
                 break
         self._thread.join(timeout=join_timeout)
-        return not self._thread.is_alive()
+        if self._thread.is_alive():
+            obs_registry.counter("prefetch_orphaned").inc()
+            obs_events.record(
+                "warning", stage="chunk_load",
+                reason="prefetch loader still inside a chunk read after "
+                       f"close({join_timeout:g}s); it will exit after that "
+                       "read without starting new work",
+            )
+            return False
+        return True
 
 
 def clip_time_domain(res, length: int) -> torch.Tensor:
@@ -194,10 +204,24 @@ def fetch_chunk_host(res_b, clip_lengths, n_real: int) -> dict:
       / ``mask_w`` (``(n_real, K, F, T)`` float32) and ``z_y``
       (``(n_real, K, F, T)`` complex64).
     """
-    td = [clip_time_domain(clip_slice(res_b, i), int(clip_lengths[i])) for i in range(n_real)]
-    host = to_host(td + [res_b.masks_z[:n_real], res_b.mask_w[:n_real], res_b.z_y[:n_real]])
+    with obs_events.stage("chunk_readback", n_clips=n_real):
+        td = [clip_time_domain(clip_slice(res_b, i), int(clip_lengths[i]))
+              for i in range(n_real)]
+        t0 = time.perf_counter()
+        host = to_host(td + [res_b.masks_z[:n_real], res_b.mask_w[:n_real],
+                             res_b.z_y[:n_real]])
+        _note_readback(time.perf_counter() - t0)
     return {"td": [tuple(t) for t in host[:n_real]], "masks_z": host[n_real],
             "mask_w": host[n_real + 1], "z_y": host[n_real + 2]}
+
+
+def _note_readback(dt_s: float) -> None:
+    """One chunk readback's copy time in the ``readback_ms`` gauge and
+    histogram, and the ``chunk_readbacks`` count."""
+    dt_ms = dt_s * 1e3
+    obs_registry.gauge("readback_ms").set(dt_ms)
+    obs_registry.histogram("readback_ms").observe(dt_ms)
+    obs_registry.counter("chunk_readbacks").inc()
 
 
 def fetch_chained_host(out_b, clip_lengths, n_real: int) -> dict:
@@ -210,17 +234,26 @@ def fetch_chained_host(out_b, clip_lengths, n_real: int) -> dict:
     The trimmed streams are the ISTFTs of the padded clip, sliced — not a
     per-clip ``istft(length=L_i)`` — so chained artifacts match the staged
     path at the chained lane's tolerance, not bit for bit."""
-    td, masks_z, mask_w, z_y = to_host([torch.stack(out_b["td"])[:, :n_real],
-                                        out_b["masks_z"][:n_real], out_b["mask_w"][:n_real],
-                                        out_b["z_y"][:n_real]])
+    with obs_events.stage("chunk_readback", n_clips=n_real, chained=True):
+        t0 = time.perf_counter()
+        td, masks_z, mask_w, z_y = to_host([torch.stack(out_b["td"])[:, :n_real],
+                                            out_b["masks_z"][:n_real],
+                                            out_b["mask_w"][:n_real], out_b["z_y"][:n_real]])
+        _note_readback(time.perf_counter() - t0)
     return {"td": [tuple(td[:, i, ..., :int(clip_lengths[i])]) for i in range(n_real)],
             "masks_z": masks_z, "mask_w": mask_w, "z_y": z_y}
 
 
 def note_chunk_overlap(stall_s: float, busy_s: float) -> None:
-    """Record one chunk's overlap economics in :data:`OVERLAP`: the stall
-    the dispatch loop paid waiting for the prefetcher and the busy time it
-    then spent."""
+    """Record one chunk's overlap economics: the stall the dispatch loop
+    paid waiting for the prefetcher and the busy time it then spent, in the
+    ``prefetch_stall_ms`` / ``overlap_efficiency`` gauges (last chunk), the
+    stall histogram (whole run) and the ``chunks_pipelined`` counter.
+    ``overlap_efficiency`` is busy / (busy + stall): 1.0 means the prefetch
+    fully hid the load."""
+    stall_ms = stall_s * 1e3
+    obs_registry.gauge("prefetch_stall_ms").set(stall_ms)
+    obs_registry.histogram("prefetch_stall_ms").observe(stall_ms)
     total = busy_s + stall_s
-    OVERLAP.append({"stall_ms": stall_s * 1e3, "busy_ms": busy_s * 1e3,
-                    "overlap_efficiency": busy_s / total if total > 0 else 1.0})
+    obs_registry.gauge("overlap_efficiency").set(busy_s / total if total > 0 else 1.0)
+    obs_registry.counter("chunks_pipelined").inc()

@@ -32,9 +32,13 @@ as the JAX package's lane); the refresh frame's outer product stays
 float32, and the solve takes the lane only under the ``'fused*'``
 solvers.  The ``between_blocks`` chaos seam (``runs.chaos``) fires at
 the start of every chunk-continuation call of :func:`streaming_tango` and
-:func:`streaming_tango_scan`, a call that carries a state.
+:func:`streaming_tango_scan`, a call that carries a state.  Each entry
+point counts its call signatures under the JAX package's jit label
+(``obs.accounting.counted_jit``); internal callers use ``__wrapped__``.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -42,6 +46,7 @@ import torch
 from disco_tpu_torch.beam.filters import rank1_gevd
 from disco_tpu_torch.device import resolve_device
 from disco_tpu_torch.enhance.tango import others_index
+from disco_tpu_torch.obs.accounting import counted_jit
 from disco_tpu_torch.ops.cov_ops import outer_acc_bf16
 from disco_tpu_torch.ops.resolve import resolve_precision
 from disco_tpu_torch.runs import chaos
@@ -272,6 +277,8 @@ def _as_real(a, dev):
     return None if a is None else torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
+@partial(counted_jit, label="streaming_step1",
+         static_argnames=("update_every", "ref_mic", "with_diagnostics", "solver", "precision"))
 def streaming_step1(Y, mask_z, lambda_cor: float = DEFAULT_LAMBDA_COR,
                     update_every: int = DEFAULT_UPDATE_EVERY, mu: float = DEFAULT_MU,
                     ref_mic: int = 0, S=None, N=None, with_diagnostics: bool = False,
@@ -464,6 +471,9 @@ def _stream_inputs(Y, masks_z, mask_w, S, N, with_diagnostics, policy, state, up
     return Y, masks_z, mask_w, S, N, state_from_numpy(state, dev), precision, dev
 
 
+@partial(counted_jit, label="streaming_tango",
+         static_argnames=("update_every", "ref_mic", "with_diagnostics", "policy", "solver",
+                          "precision"))
 def streaming_tango(Y, masks_z, mask_w, lambda_cor: float = DEFAULT_LAMBDA_COR,
                     update_every: int = DEFAULT_UPDATE_EVERY, mu: float = DEFAULT_MU,
                     ref_mic: int = 0, S=None, N=None, with_diagnostics: bool = False,
@@ -501,6 +511,9 @@ def streaming_tango(Y, masks_z, mask_w, lambda_cor: float = DEFAULT_LAMBDA_COR,
                                  with_diagnostics, policy, state, solver, z_avail, precision)
 
 
+@partial(counted_jit, label="streaming_tango_scan",
+         static_argnames=("blocks_per_dispatch", "update_every", "ref_mic", "with_diagnostics",
+                          "policy", "solver", "precision"))
 def streaming_tango_scan(Y, masks_z, mask_w, lambda_cor: float = DEFAULT_LAMBDA_COR,
                          update_every: int = DEFAULT_UPDATE_EVERY, mu: float = DEFAULT_MU,
                          ref_mic: int = 0, S=None, N=None, with_diagnostics: bool = False,

@@ -102,20 +102,33 @@ def _step1_covariances(Y, S, N, mask_z, oracle_stats: bool, cov_impl: str, preci
     return _masked_cov_pair(Y, mask_z, cov_impl, precision)
 
 
+def _apply(w, X):
+    """``sum_c w[..., f, c] X[..., c, f, t]``: (..., F, C) filters on
+    (..., C, F, T) streams, as a product and a sum over the channel axis.
+    A batched matrix product would let cuBLAS pick its kernel by the
+    batch, so on the card a clip would come out of a chunk of two in other
+    bits than alone, and a resumed corpus run, whose chunks are other sizes,
+    would not rewrite the same files (ROADMAP Queue 3, fault 5); the
+    product and the sum give each output the same arithmetic in any batch,
+    and at the north-star batch are no slower
+    (`exp/batch_invariance_probe.py`, H100)."""
+    return (w.transpose(-1, -2)[..., None] * X).sum(-3)
+
+
 def _step1_apply(w, t1, Y, S, N, ref_mic: int = 0):
     """The filter-application stage of step 1: (..., F, C) weights -> the
     compressed (..., F, T) exchange streams (the ``np.inner`` applications
     of reference tango.py:361-374)."""
     wc = w.conj()
-    z_y = torch.einsum("...fc,...cft->...ft", wc, Y)
+    z_y = _apply(wc, Y)
     return {
         "z_y": z_y,
-        "z_s": torch.einsum("...fc,...cft->...ft", wc, S),
-        "z_n": torch.einsum("...fc,...cft->...ft", wc, N),
+        "z_s": _apply(wc, S),
+        "z_n": _apply(wc, N),
         "zn": Y[..., ref_mic, :, :] - z_y,
         # np.inner(t1, .): no conjugate
-        "z_t1_s": torch.einsum("...fc,...cft->...ft", t1, S),
-        "z_t1_n": torch.einsum("...fc,...cft->...ft", t1, N),
+        "z_t1_s": _apply(t1, S),
+        "z_t1_n": _apply(t1, N),
     }
 
 
@@ -262,10 +275,7 @@ def tango_step2(Y, S, N, mask_w_k, k, all_z, all_masks_w, all_S_ref, all_N_ref,
     wc = w.conj()
     in_s = torch.cat([S, sel(all_z["z_s"])], dim=-3)
     in_n = torch.cat([N, sel(all_z["z_n"])], dim=-3)
-    yf = torch.einsum("...fc,...cft->...ft", wc, in_y)
-    sf = torch.einsum("...fc,...cft->...ft", wc, in_s)
-    nf = torch.einsum("...fc,...cft->...ft", wc, in_n)
-    return yf, sf, nf
+    return _apply(wc, in_y), _apply(wc, in_s), _apply(wc, in_n)
 
 
 def _check_policy(policy: Policy) -> None:

@@ -4,9 +4,8 @@
 :func:`plan_faults` expands a declarative :class:`~disco_tpu_torch.fault.spec.FaultSpec`
 into a concrete :class:`FaultPlan` for one (K nodes, B blocks) run: a
 ``(K, B)`` per-source availability matrix, per-node NaN-corruption flags,
-and a host-side list of every injected fault (which the JAX package's
-``FaultPlan.record`` emits as ``fault`` events; the port has no event log
-yet).
+and a host-side list of every injected fault (the ``fault`` events that
+:meth:`FaultPlan.record` emits through ``disco_tpu_torch.obs``).
 
 The plan is what the pipeline actually consumes:
 
@@ -65,6 +64,26 @@ class FaultPlan:
 
     def any_fault(self) -> bool:
         return bool(self.faults)
+
+    def record(self, mode: str | None = None) -> None:
+        """Emit one ``fault`` event per injected fault plus the injection
+        counters (``faults_injected``, ``fault_blocks_lost``) through
+        ``disco_tpu_torch.obs``; the events are a no-op while recording is
+        off."""
+        from disco_tpu_torch.obs import events as obs_events
+        from disco_tpu_torch.obs.metrics import REGISTRY
+
+        REGISTRY.counter("faults_injected").inc(len(self.faults))
+        n_lost = int((self.avail < 1.0).sum())
+        if n_lost:
+            REGISTRY.counter("fault_blocks_lost").inc(n_lost)
+        if not obs_events.enabled():
+            return
+        for f in self.faults:
+            attrs = {k: v for k, v in f.items() if k != "fault"}
+            if mode is not None:
+                attrs["mode"] = mode
+            obs_events.record("fault", stage="inject", fault=f["fault"], **attrs)
 
     def n_unavailable_offline(self) -> int:
         return int((self.avail_offline < 1.0).sum())

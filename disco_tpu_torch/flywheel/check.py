@@ -18,9 +18,7 @@
 
 Left out: the JAX gate's data-parallel leg (mesh training with loss parity
 against the single-device oracle) comes with multi-GPU, ROADMAP Queue 1,
-item 5; and its ``prefetch_stall_ms``/``overlap_efficiency`` gauges, which
-the port keeps in ``enhance.pipeline.OVERLAP`` until training's
-observability seams (item 3).
+item 5.
 """
 from __future__ import annotations
 

@@ -383,7 +383,7 @@ class ResidentTrainer:
         # mid_epoch chaos seam (the fit() seam, interleaved): train pass
         # complete, nothing persisted — resume must redo NOTHING (shard
         # units are durable) and duplicate nothing
-        chaos.tick("mid_epoch")
+        chaos.tick("mid_epoch", epoch=int(epoch))
         train_loss = float(self._tr) / nb if nb else 0.0
         if nb == 0:
             obs_registry.counter("train_empty_epochs").inc()
@@ -436,7 +436,7 @@ class ResidentTrainer:
 
         # pre_publish chaos seam: the checkpoint and its epoch record are
         # durable, the generation is not — the restart re-stages it
-        chaos.tick("pre_publish")
+        chaos.tick("pre_publish", epoch=int(epoch))
         try:
             gen = publish_checkpoint(
                 self.promote_dir, self.ckpt_path, arch=self._arch,
@@ -465,7 +465,7 @@ class ResidentTrainer:
                               resumed=resumed)
         # between_generations chaos seam: the clean boundary — everything
         # durable, nothing in flight
-        chaos.tick("between_generations")
+        chaos.tick("between_generations", gen=gen.gen_id, epoch=int(epoch))
 
     # -- lifecycle -------------------------------------------------------------
     @property

@@ -112,7 +112,7 @@ def atomic_write(path, mode: str = "wb", **open_kwargs):
         fh.close()
         from disco_tpu_torch.runs import chaos
 
-        chaos.tick("mid_write")
+        chaos.tick("mid_write", path=str(path))
         os.replace(tmp, path)
         _fsync_dir(path.parent)
     except BaseException:

@@ -28,13 +28,19 @@ Not carried over:
 
 * the JAX package memoizes its jitted step pair and offers
   ``clear_step_fn_caches``; both exist against jit retraces, and an eager
-  step has nothing to retrace;
+  step has nothing to retrace (each ``make_step_fns`` pair counts its own
+  call signatures under the ``train_step``/``eval_step`` labels,
+  ``obs.accounting.counted_jit``);
 * ``mesh`` (data-parallel steps) comes with multi-GPU (ROADMAP Queue 1,
-  item 5) and raises ``NotImplementedError``;
-* the obs counters, gauges and events of ``fit`` (``train_steps``,
-  ``train_loss``, ``val_loss``, ``train_empty_epochs``, the ``epoch`` and
-  ``warning`` events; item 3).  The ``promotion`` event of a publish is
-  recorded.
+  item 5) and raises ``NotImplementedError``.
+
+``fit`` records the JAX package's telemetry: the ``train_steps`` counter,
+the ``train_loss``/``val_loss`` gauges, ``train_empty_epochs`` with its
+``warning`` event, one ``epoch`` event an epoch (``steps``,
+``val_batches``, ``dur_s`` and ``recompiles``, the new signatures of the
+two step labels), the ``promotion`` events of a publish and the ``note``
+of a graceful stop.  The losses are read back once an epoch, never once a
+step.
 
 The promotion seams are the JAX package's: :func:`publish_checkpoint`
 stages a checkpoint in a :class:`~disco_tpu_torch.promote.store.
@@ -71,6 +77,9 @@ from disco_tpu_torch.nn.convert import (
 from disco_tpu_torch.nn.losses import reconstruction_loss
 from disco_tpu_torch.nn.optim import RMSprop
 from disco_tpu_torch.nn.serialization import packb, unpackb
+from disco_tpu_torch.obs import events as obs_events
+from disco_tpu_torch.obs.accounting import counted_jit, recompile_count
+from disco_tpu_torch.obs.metrics import REGISTRY as obs_registry
 from disco_tpu_torch.ops.resolve import compute_dtype, resolve_precision
 
 
@@ -213,6 +222,7 @@ def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
             _x_for_loss(x, in_bounds, n_freq),
         )
 
+    @counted_jit(label="train_step")
     def train_step(state: TrainState, x, y):
         dev = next(iter(params.values())).device
         x, y = _as_tensor(x, dev), _as_tensor(y, dev)
@@ -230,6 +240,7 @@ def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
         state.step += 1
         return state, loss.detach()
 
+    @counted_jit(label="eval_step")
     def eval_step(state: TrainState, x, y):
         dev = next(iter(params.values())).device
         x, y = _as_tensor(x, dev), _as_tensor(y, dev)
@@ -415,8 +426,9 @@ def _prefetch_host_batches(make_batches):
     """Double-buffered host batch feed: batch N+1's numpy prep runs on a
     :class:`~disco_tpu_torch.enhance.pipeline.ChunkPrefetcher` loader
     thread while step N runs, and each batch's stall and busy time land in
-    ``enhance.pipeline.OVERLAP`` (:func:`~disco_tpu_torch.enhance.pipeline.
-    note_chunk_overlap`), as the corpus engine's chunks do.  The loader is
+    the ``prefetch_stall_ms`` / ``overlap_efficiency`` gauges
+    (:func:`~disco_tpu_torch.enhance.pipeline.note_chunk_overlap`), as the
+    corpus engine's chunks do.  The loader is
     closed on unwind."""
     from disco_tpu_torch.enhance.pipeline import ChunkPrefetcher, note_chunk_overlap
 
@@ -524,11 +536,20 @@ def fit(
             hook(first_epoch)
 
     gate = SaveAndStop(patience=patience if patience is not None else n_epochs, mode="min")
+    # the two step labels' counts, not the process-wide total: a signature
+    # counted elsewhere in the process is not this fit's
+    def fit_recompiles():
+        return recompile_count("train_step") + recompile_count("eval_step")
+
+    recompiles0 = fit_recompiles()
+    interrupted = False
     for epoch in range(first_epoch, first_epoch + n_epochs):
         if run_interrupt.stop_requested():
+            interrupted = True
             break  # graceful stop between epochs: all on disk, resumable
         if ledger is not None:
             ledger.mark_in_flight(unit_epoch(epoch))
+        t_epoch = time.perf_counter()
         # losses summed on the device, one readback an epoch
         tr, nb = torch.zeros((), device=dev), 0
         for x, y in prefetch_to_device(_prefetch_host_batches(train_batches), dev):
@@ -537,16 +558,40 @@ def fit(
             nb += 1
         # crash with the train pass done but nothing persisted: the whole
         # epoch is redone on resume, never half of it
-        run_chaos.tick("mid_epoch")
+        run_chaos.tick("mid_epoch", epoch=int(epoch))
         va, nv = torch.zeros((), device=dev), 0
         for x, y in prefetch_to_device(_prefetch_host_batches(val_batches), dev):
             va = va + eval_step(state, x, y)
             nv += 1
-        if nb == 0 and verbose:
-            print(f"epoch {epoch}\tWARNING: zero training batches "
-                  "(empty dataset or fully-consumed dataset ledger)")
+        if nb == 0:
+            # an epoch with NO training batches is an operator error (an
+            # empty dataset, or a reused ledger that marks every shard
+            # consumed): loud, or an untrained model is checkpointed as best
+            obs_registry.counter("train_empty_epochs").inc()
+            obs_events.record(
+                "warning", stage="train", epoch=int(epoch),
+                reason="epoch yielded ZERO training batches — empty "
+                       "dataset, or a reused dataset ledger already marks "
+                       "every shard consumed for this epoch",
+            )
+            if verbose:
+                print(f"epoch {epoch}\tWARNING: zero training batches "
+                      "(empty dataset or fully-consumed dataset ledger)")
         train_losses[epoch] = float(tr) / nb if nb else 0.0
         val_losses[epoch] = float(va) / nv if nv else 0.0
+        obs_registry.counter("train_steps").inc(nb)
+        obs_registry.gauge("train_loss").set(train_losses[epoch])
+        obs_registry.gauge("val_loss").set(val_losses[epoch])
+        if obs_events.enabled():
+            recompiles = fit_recompiles()
+            obs_events.record(
+                "epoch", stage="train", epoch=int(epoch),
+                train_loss=train_losses[epoch], val_loss=val_losses[epoch],
+                steps=nb, val_batches=nv,
+                dur_s=round(time.perf_counter() - t_epoch, 6),
+                recompiles=recompiles - recompiles0,
+            )
+            recompiles0 = recompiles
         if verbose:
             print(f"epoch {epoch}\tTrain\t{train_losses[epoch]:.6f}\t"
                   f"Val\t{val_losses[epoch]:.6f}")
@@ -571,7 +616,6 @@ def fit(
         if improved and promote_dir is not None:
             # publish AFTER the epoch's done record: staging reads this
             # run's ledger, and an in_flight unit would refuse the checkpoint
-            from disco_tpu_torch.obs import events as obs_events
             from disco_tpu_torch.promote.store import PublishRefused
 
             try:
@@ -584,4 +628,10 @@ def fit(
                                   unit=e.unit, reason=str(e))
         if gate.early_stop_query():
             break
+    if interrupted:
+        obs_events.record(
+            "note", stage="train",
+            reason="graceful stop: training wound down between epochs; "
+                   "resume with --weights on the saved checkpoint",
+        )
     return state, train_losses, val_losses, run_name

@@ -419,7 +419,7 @@ class PromotionController:
             cand = self._candidate
             blocks = self._canary_blocks
             t0 = self._window_t0
-        chaos.tick("mid_canary")
+        chaos.tick("mid_canary", gen=cand.gen_id, blocks=blocks)
         starved = time.monotonic() - t0 > self.gate_timeout_s
         if blocks < self.window_blocks and not starved:
             return
@@ -466,7 +466,8 @@ class PromotionController:
         with self._lock:
             cand = self._candidate
         ok = all(c["ok"] for c in checks)
-        chaos.tick("post_gate")
+        chaos.tick("post_gate", gen=cand.gen_id,
+                   verdict="promote" if ok else "demote")
         self._trace = obs_trace.span(
             "promote_gate", self._trace, gen=cand.gen_id,
             verdict="promote" if ok else "demote",

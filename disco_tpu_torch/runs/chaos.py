@@ -46,9 +46,9 @@ crash at the Nth hit, default 1), read once at first :func:`tick`; the same
 variable arms both packages.  The plan is deterministic: same seam, same
 N, same run → same crash point.
 
-The JAX package also records a ``fault`` event and dumps its flight
-recorder when a seam fires; the port has no event log yet, so it only
-raises.
+A seam that fires ticks ``chaos_crashes``, records a ``fault`` event
+(``fault="chaos_crash"``, the hit and the seam's attributes) and dumps the
+armed flight recorder before it raises.
 
 Disabled cost: one module-level ``is None`` check per tick.
 """
@@ -122,9 +122,10 @@ def _maybe_read_env() -> None:
     _PLAN = _Plan(seam.strip(), int(n) if n else 1)
 
 
-def tick(seam: str) -> None:
+def tick(seam: str, **attrs) -> None:
     """Production crash seam: no-op unless chaos is armed for ``seam``, in
-    which case the configured hit raises :class:`ChaosCrash`."""
+    which case the configured hit raises :class:`ChaosCrash` after
+    recording a ``fault`` event (``fault="chaos_crash"``) with ``attrs``."""
     if _PLAN is None:
         _maybe_read_env()
         if _PLAN is None:
@@ -137,6 +138,15 @@ def tick(seam: str) -> None:
         hit = plan.hits
     if hit != plan.after:
         return
+    from disco_tpu_torch.obs import events as _events
+    from disco_tpu_torch.obs import flight as _flight
+    from disco_tpu_torch.obs.metrics import REGISTRY as _REGISTRY
+
+    _REGISTRY.counter("chaos_crashes").inc()
+    _events.record("fault", stage=seam, fault="chaos_crash", hit=hit, **attrs)
+    # the flight ring's last act before the simulated death (no-op unless
+    # armed; the dump is atomic)
+    _flight.auto_dump("chaos_crash", reason=f"seam {seam!r} hit {hit}")
     raise ChaosCrash(seam, hit)
 
 

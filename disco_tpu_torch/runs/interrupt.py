@@ -14,8 +14,8 @@ Handlers install only in the main thread (Python's signal rule); from
 worker threads :class:`GracefulInterrupt` degrades to a pure poll flag that
 :func:`request_stop` can set programmatically (tests, embedders).
 
-The JAX package also records an ``interrupted`` event on the first poll
-after a stop; the port has no event log yet.
+The first poll after a stop ticks ``interrupts`` and records one
+``interrupted`` event (the signal handler itself only sets flags).
 """
 from __future__ import annotations
 
@@ -30,9 +30,12 @@ _active: list["GracefulInterrupt"] = []
 def stop_requested() -> bool:
     """True once a graceful stop was requested anywhere in the process.
     The poll the long-running loops call between work units; False when no
-    :class:`GracefulInterrupt` scope is active."""
+    :class:`GracefulInterrupt` scope is active.  Polling also records the
+    telemetry a signal handler deferred."""
     with _lock:
         scopes = list(_active)
+    for g in scopes:
+        g._flush_telemetry()
     return any(g.stopped for g in scopes)
 
 
@@ -68,11 +71,30 @@ class GracefulInterrupt(contextlib.AbstractContextManager):
         self._prev: dict[int, object] = {}
         self._installed = False
         self._sigint_count = 0
+        self._telemetry_sent = False
 
     def _trip(self, reason: str) -> None:
-        """Programmatic stop (``request_stop``, tests)."""
+        """Programmatic stop (``request_stop``, tests): set the flags and
+        record at once."""
         self.stopped = True
         self.reason = self.reason or reason
+        self._flush_telemetry()
+
+    def _flush_telemetry(self) -> None:
+        """Record the one ``interrupted`` event and ``interrupts`` tick of a
+        stop, once, from normal code (never from the handler).  The sent
+        flag flips under the lock; the event is recorded outside it."""
+        if not self.stopped or self._telemetry_sent:
+            return
+        with _lock:
+            if self._telemetry_sent:
+                return
+            self._telemetry_sent = True
+        from disco_tpu_torch.obs import events as _events
+        from disco_tpu_torch.obs.metrics import REGISTRY as _REGISTRY
+
+        _REGISTRY.counter("interrupts").inc()
+        _events.record("interrupted", reason=self.reason)
 
     def _handler(self, signum, frame):
         # flag-only: a signal handler runs at an arbitrary bytecode boundary,
@@ -93,7 +115,12 @@ class GracefulInterrupt(contextlib.AbstractContextManager):
             self._installed = True
         with _lock:
             _active.append(self)
-        return lambda: self.stopped
+
+        def stopped():
+            self._flush_telemetry()
+            return self.stopped
+
+        return stopped
 
     def __exit__(self, *exc):
         with _lock:
@@ -103,4 +130,5 @@ class GracefulInterrupt(contextlib.AbstractContextManager):
             for sig, prev in self._prev.items():
                 signal.signal(sig, prev)
             self._installed = False
+        self._flush_telemetry()  # a trip no poll observed still records
         return False

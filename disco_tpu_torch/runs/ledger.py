@@ -22,10 +22,9 @@ log can have) is detected and skipped on replay.
 the log and re-checks every done unit against its recorded artifacts —
 digest match (:func:`disco_tpu_torch.io.atomic.file_digest`) when recorded,
 integrity probe otherwise.  A unit whose artifacts are missing or corrupt
-is *requeued* (a ``requeued`` line is appended) and reported as not-done,
-so the driver re-runs it.  Truncated files are never trusted.  (The JAX
-package also ticks a ``units_requeued`` counter and records a ``warning``
-event; the port has no event log yet.)
+is *requeued* (a ``requeued`` line is appended, the ``units_requeued``
+counter ticks, a ``warning`` obs event fires) and reported as not-done, so
+the driver re-runs it.  Truncated files are never trusted.
 
 No reference counterpart: the reference's restartability is existence
 checks per output file (SURVEY.md §5.3).
@@ -162,9 +161,13 @@ class RunLedger:
         one, format probe (:func:`probe_artifact`) when it does not.  Units
         that fail verification are returned in ``requeued`` ({unit: reason})
         and, when ``requeue`` is true, get a ``requeued`` line appended (so
-        the next replay doesn't re-hash them) — corrupt partials are never
+        the next replay doesn't re-hash them), a ``units_requeued`` counter
+        tick and a ``warning`` obs event — corrupt partials are never
         silently trusted.
         """
+        from disco_tpu_torch.obs import events as _events
+        from disco_tpu_torch.obs.metrics import REGISTRY as _REGISTRY
+
         done: set = set()
         requeued: dict[str, str] = {}
         for unit, rec in self.replay().items():
@@ -186,4 +189,6 @@ class RunLedger:
                 requeued[unit] = reason
                 if requeue:
                     self.record(unit, "requeued", reason=reason)
+                _REGISTRY.counter("units_requeued").inc()
+                _events.record("warning", stage="resume", unit=unit, reason=reason)
         return done, requeued

@@ -16,16 +16,19 @@ per-channel ``np.convolve`` loops (``gen_disco/convolve_signals.py:84-99,
   in one copy (``device.to_host``).
 
 The JAX package compiles the factory as one ``counted_jit`` program and
-counts its retraces; eager torch compiles nothing, so the port has no such
-counter.
+counts its retraces; the port compiles nothing, and counts the call
+signatures that would make JAX trace, under the same ``scene_batch`` label
+(``obs.accounting.counted_jit``).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
 
+from disco_tpu_torch.obs.accounting import counted_jit
 from disco_tpu_torch.sim.ism import rir_bucket
 
 #: Coarse rir_len rounding for batch buckets: nearby scene batches share a
@@ -100,19 +103,30 @@ def simulate_scene_batch(batch: SceneBatch, max_order: int = 20,
     Returns a dict of numpy arrays: ``rirs (B,S,M,rir_len)``,
     ``noisy/clean (B,M,L)``, ``mag_noisy (B,F,T)``, ``mask (B,F,T)``.
     """
-    from disco_tpu_torch.core.masks import tf_mask_mag
     from disco_tpu_torch.device import as_device_tensors, to_host
-    from disco_tpu_torch.ops.stft_ops import stft_with_mag
-    from disco_tpu_torch.sim.ism import fft_convolve, shoebox_rirs_batched
 
     if rir_len is None:
         max_order, rir_len = scene_batch_bucket(batch, max_order=max_order,
                                                 fs=fs, quantum=quantum)
-    room_dims, sources, mics, alphas, dry, noise_gains = as_device_tensors(
+    out = _scene_batch_program(*as_device_tensors(
         (batch.room_dims, batch.sources, batch.mics, batch.alphas, batch.dry,
-         batch.noise_gains), device)
-    rirs = shoebox_rirs_batched(room_dims, sources, mics, alphas, max_order=int(max_order),
-                                rir_len=int(rir_len), fs=int(fs))
+         batch.noise_gains), device), max_order=int(max_order), rir_len=int(rir_len),
+        fs=int(fs))
+    return dict(zip(out, to_host(out.values())))
+
+
+@partial(counted_jit, label="scene_batch", static_argnames=("max_order", "rir_len", "fs"))
+def _scene_batch_program(room_dims, sources, mics, alphas, dry, noise_gains,
+                         max_order: int, rir_len: int, fs: int) -> dict:
+    """The factory's work on the device — see :func:`simulate_scene_batch`
+    (the JAX package's one jitted program, whose call signatures the
+    ``scene_batch`` label counts)."""
+    from disco_tpu_torch.core.masks import tf_mask_mag
+    from disco_tpu_torch.ops.stft_ops import stft_with_mag
+    from disco_tpu_torch.sim.ism import fft_convolve, shoebox_rirs_batched
+
+    rirs = shoebox_rirs_batched(room_dims, sources, mics, alphas, max_order=max_order,
+                                rir_len=rir_len, fs=fs)
     # (B, S, M, L): every dry source convolved with its RIRs to every mic
     wet = fft_convolve(dry[:, :, None, :], rirs, out_len=dry.shape[-1])
     clean = wet[:, 0]                                    # (B, M, L)
@@ -123,8 +137,7 @@ def simulate_scene_batch(batch: SceneBatch, max_order: int = 20,
     stack = torch.stack([noisy[:, 0], clean[:, 0], noise[:, 0]])  # (3, B, L)
     _spec, mag = stft_with_mag(stack)                     # (3, B, F, T)
     mask = tf_mask_mag(mag[1], mag[2], mask_type="irm1")  # (B, F, T)
-    out = {"rirs": rirs, "noisy": noisy, "clean": clean, "mag_noisy": mag[0], "mask": mask}
-    return dict(zip(out, to_host(out.values())))
+    return {"rirs": rirs, "noisy": noisy, "clean": clean, "mag_noisy": mag[0], "mask": mask}
 
 
 def synthetic_dry_pair(rng: np.random.Generator, n_samples: int,

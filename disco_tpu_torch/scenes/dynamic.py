@@ -12,15 +12,19 @@ On the device of the call: the K segment RIRs are K × M rows of one
 :func:`disco_tpu_torch.sim.ism.shoebox_rirs_batched`, the K convolutions one
 batched rFFT, and the blend accumulates segment by segment in order, as the
 JAX package's ``lax.scan`` (``unroll=1``) does: the accumulation order is the
-segment order.
+segment order.  The device part's call signatures are counted under the
+JAX package's ``dynamic_scene`` label (``obs.accounting.counted_jit``).
 
 No reference counterpart: the reference corpus is static rooms only
 (``gen_disco/convolve_signals.py``).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
-import torch
+
+from disco_tpu_torch.obs.accounting import counted_jit
 
 
 def piecewise_trajectory(start, end, n_segments: int) -> np.ndarray:
@@ -89,21 +93,40 @@ def dynamic_scene_mixture(room_dim, src_path, mics, alpha, dry, *,
     in one copy.
     """
     from disco_tpu_torch.device import as_device_tensors, to_host
-    from disco_tpu_torch.sim.ism import fft_convolve, shoebox_rirs_batched
 
     src_path = np.asarray(src_path, np.float32)
     K = int(src_path.shape[0])
     if mic_path is None:
         mic_path = np.broadcast_to(np.asarray(mics, np.float32)[None], (K,) + np.shape(mics))
     mic_path = np.ascontiguousarray(mic_path, np.float32)
-    L = int(np.shape(dry)[-1])
-    room, path, mic_path, alphas, dry, weights = as_device_tensors(
-        (np.tile(np.asarray(room_dim, np.float32), (K, 1)), src_path[:, None, :],
-         mic_path, np.full(K, alpha, np.float32), dry,
-         segment_weights(L, K, int(crossfade))), device)
+    out = _dynamic_scene_program(
+        *as_device_tensors((np.asarray(room_dim, np.float32), src_path, mic_path,
+                            np.float32(alpha), dry), device),
+        n_segments=K, crossfade=int(crossfade), max_order=int(max_order),
+        rir_len=int(rir_len), fs=int(fs))
+    mixture, rirs = to_host([out["mixture"], out["rirs"]])
+    return {"mixture": mixture, "rirs": rirs}
+
+
+@partial(counted_jit, label="dynamic_scene",
+         static_argnames=("n_segments", "crossfade", "max_order", "rir_len", "fs"))
+def _dynamic_scene_program(room_dim, src_path, mic_path, alpha, dry, n_segments: int,
+                           crossfade: int, max_order: int, rir_len: int, fs: int) -> dict:
+    """The moving scene's work on the device — see
+    :func:`dynamic_scene_mixture` (the JAX package's one jitted program,
+    whose call signatures the ``dynamic_scene`` label counts)."""
+    import torch
+
+    from disco_tpu_torch.sim.ism import fft_convolve, shoebox_rirs_batched
+
+    K, L = n_segments, int(dry.shape[-1])
+    room, path, alphas, weights = (
+        room_dim[None].expand(K, 3).contiguous(), src_path[:, None, :],
+        alpha.reshape(1).expand(K).contiguous(),
+        torch.as_tensor(segment_weights(L, K, crossfade), device=dry.device))
     # K segment RIRs as K rooms of one source: (K, M, rir_len)
-    rirs = shoebox_rirs_batched(room, path, mic_path, alphas, max_order=int(max_order),
-                                rir_len=int(rir_len), fs=int(fs))[:, 0]
+    rirs = shoebox_rirs_batched(room, path, mic_path, alphas, max_order=max_order,
+                                rir_len=rir_len, fs=fs)[:, 0]
     # Each segment hears the WHOLE dry signal through its frozen room —
     # (K, M, L) — and the blend picks each segment's window.  Convolving
     # full-length (vs per-segment slices) is what makes the crossfade
@@ -112,8 +135,7 @@ def dynamic_scene_mixture(room_dim, src_path, mics, alpha, dry, *,
     out = torch.zeros_like(wet[0])
     for wet_k, w_k in zip(wet, weights):
         out = out + wet_k * w_k[None, :]
-    mixture, rirs = to_host([out, rirs])
-    return {"mixture": mixture, "rirs": rirs}
+    return {"mixture": out, "rirs": rirs}
 
 
 def boundary_jumps(mixture: np.ndarray, n_segments: int) -> np.ndarray:

@@ -18,9 +18,8 @@ shape, reference dnn/data/datasets.py:102-162).  ``batch_fn`` drives
 * **Chaos seam** — ``between_scene_batches`` ticks after each scene
   batch's windows are fully yielded (the factory's clean boundary).
 
-The JAX package also records a ``scene`` event and ticks the
-``scene_batches`` / ``scenes_simulated`` counters; the port has no event
-log yet.
+Observability: one ``scene`` event per simulated batch (stage
+``scenes``) and the ``scene_batches`` / ``scenes_simulated`` counters.
 
 No reference counterpart: the reference pre-generates its corpus to disk
 and trains offline (dnn/utils.py:74-140).
@@ -30,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 
 from disco_tpu_torch.device import resolve_device
+from disco_tpu_torch.obs import events as obs_events
+from disco_tpu_torch.obs.metrics import REGISTRY as obs_registry
 
 #: STFT geometry of the factory's analysis stage (ops.stft_ops convention).
 _N_FFT, _N_HOP = 512, 256
@@ -113,8 +114,16 @@ class SceneStream:
             duration_s=self.duration_s, snr_range=self.snr_range, fs=self.fs,
             setup_overrides=self.setup_overrides, dry_fn=self.dry_fn,
         )
-        return simulate_scene_batch(batch, max_order=self.max_order, fs=self.fs,
-                                    device=self.device)
+        out = simulate_scene_batch(batch, max_order=self.max_order, fs=self.fs,
+                                   device=self.device)
+        obs_registry.counter("scene_batches").inc()
+        obs_registry.counter("scenes_simulated").inc(batch.n_scenes)
+        obs_events.record(
+            "scene", stage="scenes", epoch=int(epoch), index=int(index),
+            n_scenes=batch.n_scenes, scenario=self.scenario,
+            rir_len=int(out["rirs"].shape[-1]), max_order=self.max_order,
+        )
+        return out
 
     # -- windowing -----------------------------------------------------------
     def _windows(self, out: dict, epoch: int, index: int, shuffle: bool = True):
@@ -185,7 +194,8 @@ class SceneStream:
                     # no artifacts: the scenes live only in the yielded
                     # batches, so the done record is the consumption marker
                     ledger.mark_done(unit, n_windows=n)
-                run_chaos.tick("between_scene_batches")
+                run_chaos.tick("between_scene_batches", epoch=int(epoch),
+                               index=int(index))
         finally:
             if own_ledger:
                 ledger.close()

@@ -667,7 +667,7 @@ class Scheduler:
                 continue
             if session.inflight != 0:
                 continue   # mid-flight: not at a boundary, next tick
-            chaos.tick("pre_swap")
+            chaos.tick("pre_swap", session=sid, gen=gen, swap=kind)
             boundary = session.blocks_done
             if self.state_dir is not None:
                 from pathlib import Path

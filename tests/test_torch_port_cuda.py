@@ -853,3 +853,61 @@ def test_generation_staged_on_card_has_the_host_id(cuda, tmp_path):
     assert g.weights_path.read_bytes() == host.weights_path.read_bytes()
     back, _ = GenerationStore(tmp_path / "c").load(g.gen_id)
     assert next(back.parameters()).device.type == "cpu"
+
+
+# ------------------------------------------------------------ observability
+def test_sentinel_reads_a_card_tensor_back_without_a_batched_readback(cuda, tmp_path):
+    """A NaN in a complex card tensor trips one sentinel with its stats and
+    one flight dump; the copy ticks two fences (the JAX package's count for
+    a complex leaf) and leaves ``device_get_batches`` alone."""
+    from disco_tpu_torch import obs
+    from disco_tpu_torch.obs import flight, sentinels
+    from disco_tpu_torch.obs.accounting import device_get_count, fence_count
+
+    Y = torch.ones((2, 3, 5), dtype=torch.complex64, device=cuda)
+    Y[1, 2, 4] = complex(float("nan"), 0.0)
+    g0, f0 = device_get_count(), fence_count()
+    flight.enable(dump_dir=tmp_path / "flight")
+    try:
+        with obs.recording(tmp_path / "log.jsonl"):
+            assert sentinels.check_finite("stft_Y", Y, stage="stft") is False
+    finally:
+        flight.disable()
+    assert (device_get_count() - g0, fence_count() - f0) == (0, 2)
+    (ev,) = [e for e in obs.read_events(tmp_path / "log.jsonl") if e["kind"] == "sentinel"]
+    assert ev["attrs"]["shape"] == [2, 3, 5] and ev["attrs"]["dtype"] == "complex64"
+    assert (ev["attrs"]["n_nonfinite"], ev["attrs"]["n_nan"]) == (1, 1)
+    assert len(list((tmp_path / "flight").glob("flight-*-sentinel.json"))) == 1
+
+
+def test_disabled_seams_add_no_fence_on_the_card(cuda):
+    """With no event sink live the stage spans and sentinels touch no card
+    tensor: no fence, no batched readback, the check passes unread."""
+    from disco_tpu_torch.obs import events, sentinels
+    from disco_tpu_torch.obs.accounting import device_get_count, fence_count
+
+    assert not events.active()
+    Y = torch.full((4, 257, 9), float("nan"), device=cuda)
+    g0, f0 = device_get_count(), fence_count()
+    with events.stage("stft", rir=1):
+        assert sentinels.check_finite("stft_Y", Y, stage="stft") is True
+        assert sentinels.check_finite("masks", (Y, Y), stage="masks") is True
+    assert (device_get_count(), fence_count()) == (g0, f0)
+
+
+def test_tango_gives_a_clip_the_same_bits_in_any_chunk(cuda, rng):
+    """A clip alone and the same clip second in a chunk of two: the same
+    bits from ``tango`` (ROADMAP Queue 3, fault 5: a batched filter product
+    picks its kernel by the batch), so a resumed corpus run rewrites the
+    same files."""
+    from disco_tpu_torch.enhance.tango import oracle_masks, tango
+    from disco_tpu_torch.ops.stft_ops import stft_fused
+
+    x = torch.from_numpy(rng.standard_normal((3, 2, 4, 2, 32768)).astype(np.float32)).to(cuda)
+    spec2, spec1 = stft_fused(x), stft_fused(x[:, 1:].contiguous())
+    m2, m1 = oracle_masks(spec2[1], spec2[2]), oracle_masks(spec1[1], spec1[2])
+    for solver in ("power", "fused"):
+        r2 = tango(spec2[0], spec2[1], spec2[2], m2, m2, solver=solver)
+        r1 = tango(spec1[0], spec1[1], spec1[2], m1, m1, solver=solver)
+        for key in ("yf", "sf", "nf", "z_y"):
+            assert torch.equal(getattr(r2, key)[1:], getattr(r1, key)), (solver, key)

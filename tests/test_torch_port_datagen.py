@@ -23,6 +23,8 @@ the uninterrupted one, at each of its two chaos seams.
 import numpy as np
 import pytest
 
+import disco_tpu.obs as jobs
+import disco_tpu_torch.obs as tobs
 from disco_tpu.core.dsp import stft as jstft
 from disco_tpu.core.masks import tf_mask as jtf_mask
 from disco_tpu.datagen import disco as jdisco
@@ -39,7 +41,8 @@ from disco_tpu_torch.io.audio import read_wav
 from disco_tpu_torch.runs import RunLedger, chaos
 from disco_tpu_torch.sim import InterferentSpeakersSetup as TInterferent
 from disco_tpu_torch.sim import SpeechAndNoiseSetup as TSpeechNoise
-from tests.torch_port_helpers import artifact_paths, max_rel, one_host_thread  # noqa: F401
+from tests.torch_port_helpers import (  # noqa: F401 (one_host_thread: a fixture)
+    artifact_paths, assert_events_match, max_rel, one_host_thread, recorded)
 
 pytestmark = pytest.mark.usefixtures("one_host_thread")
 
@@ -105,8 +108,11 @@ def trees(corpus, tmp_path_factory):
         for pkg, (mod, layout, setup) in PACKAGES.items():
             kw = {"device": "cpu"} if pkg == "port" else {}
             root = tmp_path_factory.mktemp(f"batched_{pkg}")
-            assert run_batched(pkg, corpus, root, ledger=str(root / "ledger.jsonl"), resume=True,
-                               **kw) == [1, 2, 3]
+            done, out[pkg, "events"] = recorded(
+                tobs if pkg == "port" else jobs, root / "events.jsonl",
+                lambda: run_batched(pkg, corpus, root, ledger=str(root / "ledger.jsonl"),
+                                    resume=True, **kw))
+            assert done == [1, 2, 3]
             out[pkg, "batched"] = root / "dataset"
             root = tmp_path_factory.mktemp(f"scenes_{pkg}")
             lay = layout(str(root / "dataset"), "random", "train")
@@ -190,6 +196,32 @@ def test_per_scene_driver_resumes_from_its_ledger(corpus, tmp_path):
         assert tdisco.generate_disco_rirs("random", "test", 1, 2,
                                           signal_setup(TSpeechNoise, corpus, gated=False), lay,
                                           **kw) == want
+
+
+def test_datagen_events_match_jax(trees, corpus, tmp_path):
+    """The batched generator's run_resume and per-chunk scene events, and a
+    resume's temp-litter warning, the same in both packages."""
+    (out, _seen) = trees
+    ours, theirs = out["port", "events"], out["jax", "events"]
+    assert [e["kind"] for e in ours] == ["run_resume", "scene", "scene"]
+    assert_events_match(ours, theirs, ignore=("ledger",))
+    logs = {}
+    for pkg, obs in (("port", tobs), ("jax", jobs)):
+        root = tmp_path / pkg
+        litter = root / "dataset" / "random" / "test" / "x.wav.tmp.123"
+        litter.parent.mkdir(parents=True)
+        litter.write_bytes(b"torn")
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        _, logs[pkg] = recorded(obs, root / "events.jsonl", lambda: PACKAGES[pkg][0]
+                                .generate_disco_rirs_batched(
+                                    "random", "test", 1, 0, signal_setup(PACKAGES[pkg][2], corpus),
+                                    PACKAGES[pkg][1](str(root / "dataset"), "random", "test"),
+                                    rng=np.random.default_rng(5), ledger=str(root / "l.jsonl"),
+                                    resume=True, **BATCHED, **kw))
+        assert not litter.exists()
+    assert [e["kind"] for e in logs["port"]] == ["warning", "run_resume"]
+    assert [len(e["attrs"].get("files", [1])) for e in logs["port"]] == [1, 1]
+    assert_events_match(logs["port"], logs["jax"], ignore=("ledger", "files"))
 
 
 def test_simulate_scene_matches_jax(corpus):

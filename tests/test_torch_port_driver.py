@@ -8,20 +8,26 @@ _mini_corpus``: 4 nodes x 2 mics, 2-s clips, two RIRs), the port with
 Bounds: the same set of relative artifact paths; every metric key within
 ``rtol=2e-4, atol=1e-3`` dB (the bound of tests/test_driver.py:342) and the
 STOI deltas within 1e-4; every WAV, mask and z file within 1e-4 of its
-output scale.  Each JAX driver run is a module-scoped fixture.
+output scale.  Each JAX driver run is a module-scoped fixture, recorded:
+each package's run writes its own event log (``obs.recording``, the
+registry reset first), and the two logs are held to each other — the same
+events but timings, the same deterministic counters.
 """
 import pickle
 
 import numpy as np
 import pytest
 
+import disco_tpu.obs as jobs
+import disco_tpu_torch.obs as tobs
 from disco_tpu.enhance import driver as jdriver
 from disco_tpu.enhance import zexport as jzexport
 from disco_tpu.runs import check as jcheck
 from disco_tpu_torch.enhance import driver as tdriver
 from disco_tpu_torch.enhance import zexport as tzexport
 from tests.torch_port_helpers import (  # noqa: F401 (one_host_thread: a fixture)
-    artifact_errors, artifact_paths, assert_results_close, one_host_thread)
+    artifact_errors, artifact_paths, assert_counters_match, assert_events_match,
+    assert_results_close, one_host_thread, recorded)
 
 TOL = 1e-4
 RIRS, NOISE, SNR, K, C = jcheck.RIRS, jcheck.NOISE, jcheck.SNR_RANGE, jcheck.K, jcheck.C
@@ -45,14 +51,24 @@ def _run(driver, corpus, out, **kw):
 
 
 @pytest.fixture(scope="module")
-def runs(corpus, tmp_path_factory):
-    """{lane: (port results, JAX results, port tree, JAX tree)}."""
+def logged_runs(corpus, tmp_path_factory):
+    """{lane: (port results, JAX results, port tree, JAX tree, port events,
+    JAX events)}, each run under its own package's recorder."""
     out = {}
     for lane, kw in LANES.items():
         trees = tmp_path_factory.mktemp(lane)
-        out[lane] = (_run(tdriver, corpus, trees / "port", **kw),
-                     _run(jdriver, corpus, trees / "jax", **kw), trees / "port", trees / "jax")
+        ours, ev_ours = recorded(tobs, trees / "port.jsonl",
+                                 lambda: _run(tdriver, corpus, trees / "port", **kw))
+        theirs, ev_theirs = recorded(jobs, trees / "jax.jsonl",
+                                     lambda: _run(jdriver, corpus, trees / "jax", **kw))
+        out[lane] = (ours, theirs, trees / "port", trees / "jax", ev_ours, ev_theirs)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(logged_runs):
+    """{lane: (port results, JAX results, port tree, JAX tree)}."""
+    return {lane: r[:4] for lane, r in logged_runs.items()}
 
 
 @pytest.mark.parametrize("lane", list(LANES))
@@ -142,3 +158,41 @@ def test_node_signals_equal_jax(corpus):
     np.testing.assert_array_equal(
         tzexport.load_mixture_signals(tlayout.DatasetLayout(str(corpus), "living", "test"), *args),
         theirs[0])
+
+
+#: the counters both packages count the same on one corpus run
+DRIVER_COUNTERS = ("clips_enhanced", "chunk_readbacks", "chunks_pipelined",
+                   "device_get_batches", "fences", "sentinel_checks", "sentinel_trips",
+                   "jit_recompiles")
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_events_match_jax(logged_runs, lane):
+    """The stage spans (load, enhance, readback, pipeline, score), the
+    clip, jit_trace and counters events of both drivers: the same
+    attributes but timings, main-thread events in order, each clip's as a
+    multiset."""
+    ours, theirs = logged_runs[lane][4:]
+    stages = {e["stage"] for e in ours if e["kind"] == "stage_end"}
+    assert {"chunk_load", "chunk_enhance", "chunk_readback", "chunk_pipeline",
+            "score_persist"} <= stages
+    assert sum(e["kind"] == "clip" for e in ours) == len(RIRS)
+    assert_events_match(ours, theirs)
+    assert_counters_match(ours, theirs, DRIVER_COUNTERS)
+
+
+def test_recording_changes_no_artifact(corpus, runs, tmp_path):
+    """The staged lane with recording and the sentinels off writes the
+    recorded run's tree byte for byte, reads each chunk back once and
+    ticks no sentinel fence."""
+    from disco_tpu_torch.obs.accounting import device_get_count, fence_count
+
+    g0, f0 = device_get_count(), fence_count()
+    checks0 = tobs.REGISTRY.counter("sentinel_checks").value
+    _run(tdriver, corpus, tmp_path)
+    assert (device_get_count() - g0, fence_count() - f0) == (1, 1)
+    assert tobs.REGISTRY.counter("sentinel_checks").value == checks0
+    tree = runs["staged"][2]
+    assert artifact_paths(tmp_path) == artifact_paths(tree)
+    for rel in artifact_paths(tree):
+        assert (tmp_path / rel).read_bytes() == (tree / rel).read_bytes(), rel

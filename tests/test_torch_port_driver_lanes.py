@@ -16,19 +16,24 @@ Scoring skips the first second, so every metric is compared in full.  The
 streaming fault case drops a node and corrupts another (both held from
 the first block on); per-block link loss is left out here, because a lost
 block holds the first block's roundoff-set z past the skipped frames.
+Each case's runs are recorded, each package under its own recorder, and
+the two event logs are held to each other.
 """
 import pickle
 
 import numpy as np
 import pytest
 
+import disco_tpu.obs as jobs
+import disco_tpu_torch.obs as tobs
 from disco_tpu.enhance import driver as jdriver
 from disco_tpu.runs import check as jcheck
 from disco_tpu_torch.enhance import driver as tdriver
 from disco_tpu_torch.enhance.streaming import DEFAULT_UPDATE_EVERY
 from disco_tpu_torch.io.audio import read_wav, write_wav
 from tests.torch_port_helpers import (  # noqa: F401 (one_host_thread: a fixture)
-    artifact_errors, artifact_paths, assert_results_close, one_host_thread)
+    artifact_errors, artifact_paths, assert_counters_match, assert_events_match,
+    assert_results_close, one_host_thread, recorded)
 
 TOL = 1e-4
 QUIET = 1e-3
@@ -56,20 +61,29 @@ def corpora(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def runs(corpora, tmp_path_factory):
-    """{case: (port results, JAX results, port tree, JAX tree)}."""
+def logged_runs(corpora, tmp_path_factory):
+    """{case: (port results, JAX results, port tree, JAX tree, port events,
+    JAX events)}, each package's clips under its own recorder."""
     out = {}
     for case, (corpus, kw, _) in CASES.items():
         trees = tmp_path_factory.mktemp(case)
-        res = {}
-        for name, mod, extra in (("port", tdriver, {"device": "cpu"}),
-                                 ("jax", jdriver, {"save_fig": False})):
-            res[name] = {rir: mod.enhance_rir(str(corpora[corpus]), "living", rir, NOISE,
-                                              snr_range=SNR, out_root=str(trees / name),
-                                              n_nodes=K, mics_per_node=C, **kw, **extra)
-                         for rir in RIRS}
-        out[case] = (res["port"], res["jax"], trees / "port", trees / "jax")
+        res, ev = {}, {}
+        for name, mod, obs, extra in (("port", tdriver, tobs, {"device": "cpu"}),
+                                      ("jax", jdriver, jobs, {"save_fig": False})):
+            res[name], ev[name] = recorded(obs, trees / f"{name}.jsonl", lambda: {
+                rir: mod.enhance_rir(str(corpora[corpus]), "living", rir, NOISE,
+                                     snr_range=SNR, out_root=str(trees / name), n_nodes=K,
+                                     mics_per_node=C, **kw, **extra)
+                for rir in RIRS})
+        out[case] = (res["port"], res["jax"], trees / "port", trees / "jax", ev["port"],
+                     ev["jax"])
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(logged_runs):
+    """{case: (port results, JAX results, port tree, JAX tree)}."""
+    return {case: r[:4] for case, r in logged_runs.items()}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -107,3 +121,29 @@ def test_batched_fault_scenario_matches_jax(corpora, tmp_path):
     assert_results_close(res["port"], res["jax"])
     errs = artifact_errors(trees["port"], trees["jax"])
     assert max(errs.values()) <= TOL, max(errs.items(), key=lambda pe: pe[1])
+
+
+#: the counters both packages count the same on these runs (the signature
+#: counts of the module-level streaming entry point depend on what the
+#: process ran before; tests/test_torch_port_sentinels.py holds them)
+LANE_COUNTERS = ("clips_enhanced", "device_get_batches", "fences", "sentinel_checks",
+                 "sentinel_trips", "faults_injected", "fault_blocks_lost", "degraded_clips")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_events_match_jax(logged_runs, case):
+    """Every clip's stage spans (load_input, stft, masks, mwf, istft,
+    score_persist), sentinels, fault and degraded events, and the
+    counters: the same in both packages but timings.  A ``jit_trace`` of
+    the streaming entry point depends on what the process ran before, so
+    it is left out here."""
+    ours, theirs = ([e for e in events if e["kind"] != "jit_trace"]
+                    for events in logged_runs[case][4:])
+    stages = [e["stage"] for e in ours if e["kind"] == "stage_end"]
+    assert stages == ["load_input", "stft", "masks", "mwf", "istft", "score_persist"] * len(RIRS)
+    if "fault_spec" in CASES[case][1]:
+        assert {e["attrs"]["fault"] for e in ours if e["kind"] == "fault"} == {
+            "node_dropout", "nan_z"}
+        assert sum(e["kind"] == "degraded" for e in ours) == len(RIRS)
+    assert_events_match(ours, theirs)
+    assert_counters_match(ours, theirs, LANE_COUNTERS)

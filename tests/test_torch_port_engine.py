@@ -13,6 +13,7 @@ from disco_tpu_torch.enhance import driver as tdriver
 from disco_tpu_torch.enhance import pipeline as tpipeline
 from disco_tpu_torch.enhance import streaming as tstream
 from disco_tpu_torch.enhance import zexport as tzexport
+from disco_tpu_torch.obs.metrics import REGISTRY
 from disco_tpu_torch.runs import chaos, check, interrupt
 from disco_tpu_torch.runs.ledger import RunLedger, unit_rir
 from tests.torch_port_helpers import one_host_thread  # noqa: F401 (a fixture)
@@ -50,11 +51,11 @@ def reference(corpus, tmp_path_factory):
 def test_engines_write_byte_identical_trees(corpus, reference, tmp_path, pipeline, workers):
     """Two chunks (2 + a remainder of 1): prefetch overlap, one copy per
     chunk vs one per clip, scoring inline vs on workers."""
-    tpipeline.OVERLAP.clear()
+    n0 = REGISTRY.counter("chunks_pipelined").value
     res = _run(corpus, tmp_path, pipeline=pipeline, score_workers=workers)
     assert set(res) == set(RIRS)
     assert _tree(tmp_path) == reference[1]
-    assert len(tpipeline.OVERLAP) == (2 if pipeline else 0)
+    assert REGISTRY.counter("chunks_pipelined").value - n0 == (2 if pipeline else 0)
     for rir in RIRS:
         for k, v in reference[0][rir].items():
             np.testing.assert_array_equal(res[rir][k], v)

@@ -198,15 +198,41 @@ def stream(mod, seed=7, batches_per_epoch=2, **kw):
 
 
 @pytest.fixture(scope="module")
-def epoch0():
+def epoch0(tmp_path_factory):
     """Epoch 0 of both packages' streams (batches of 4 windows), shuffled and
-    in order."""
+    in order, each package's under its own recorder (its events under
+    ``(name, "events")``)."""
+    import disco_tpu.obs as jobs
+    import disco_tpu_torch.obs as tobs
+    from tests.torch_port_helpers import recorded
+
     out = {}
-    for name, mod in (("port", tscenes), ("jax", jscenes)):
+    log = tmp_path_factory.mktemp("stream_events")
+    for name, mod, obs in (("port", tscenes, tobs), ("jax", jscenes, jobs)):
         s = stream(mod)
-        out[name] = list(s.batches(4, epoch=0))
-        out[name, "ordered"] = list(s.batches(4, epoch=0, shuffle=False))
+
+        def both():
+            return list(s.batches(4, epoch=0)), list(s.batches(4, epoch=0, shuffle=False))
+
+        (out[name], out[name, "ordered"]), out[name, "events"] = recorded(
+            obs, log / f"{name}.jsonl", both)
+        out[name, "counters"] = obs.REGISTRY.snapshot()["counters"]
     return out
+
+
+def test_scene_stream_events_match_jax(epoch0):
+    """One ``scene`` event per simulated batch and the scene counters, the
+    same in both packages."""
+    from tests.torch_port_helpers import assert_events_match
+
+    # a jit_trace event depends on what the process ran before: the
+    # signature counts are held in tests/test_torch_port_sentinels.py
+    ours, theirs = ([e for e in epoch0[name, "events"] if e["kind"] != "jit_trace"]
+                    for name in ("port", "jax"))
+    assert [(e["kind"], e["stage"]) for e in ours] == [("scene", "scenes")] * 4
+    assert_events_match(ours, theirs)
+    for key in ("scene_batches", "scenes_simulated"):
+        assert epoch0["port", "counters"][key] == epoch0["jax", "counters"][key] > 0
 
 
 def test_scene_stream_batches_match_jax(monkeypatch, epoch0):

@@ -484,11 +484,14 @@ def test_prefetch_to_device_keeps_order_and_raises_at_the_consumer():
 
 
 def test_host_batch_feed_records_its_overlap():
-    from disco_tpu_torch.enhance import pipeline
+    from disco_tpu_torch.obs.metrics import REGISTRY
 
-    pipeline.OVERLAP.clear()
+    n0 = REGISTRY.counter("chunks_pipelined").value
+    h0 = REGISTRY.histogram("prefetch_stall_ms").count
     got = list(ttr._prefetch_host_batches(lambda: iter([batch(i) for i in range(3)])))
-    assert len(got) == 3 and len(pipeline.OVERLAP) == 3
+    assert len(got) == 3 and REGISTRY.counter("chunks_pipelined").value - n0 == 3
+    assert REGISTRY.histogram("prefetch_stall_ms").count - h0 == 3
+    assert 0.0 <= REGISTRY.gauge("overlap_efficiency").value <= 1.0
     assert all(np.array_equal(a[0], b[0]) for a, b in zip(got, (batch(i) for i in range(3))))
 
 
@@ -540,3 +543,62 @@ def test_dropout_draws_from_the_state_generator():
 
     (a, ga), (b, gb), (c, _) = losses(0), losses(0), losses(1)
     assert a == b and a != c and torch.equal(ga, gb)
+
+
+def _epoch_events(events):
+    return [(e["stage"], e["attrs"]["epoch"], e["attrs"]["steps"], e["attrs"]["val_batches"],
+             e["attrs"]["recompiles"]) for e in events if e["kind"] == "epoch"]
+
+
+def test_fit_events_match_jax(tmp_path):
+    """A two-epoch fit in each package under its own recorder: the same
+    epoch events (steps, val_batches, new signatures: train_step and
+    eval_step once each on epoch 0, none after), losses within the bound of
+    test_fit_matches_jax, the same training counters; an empty epoch
+    records its warning in both.  JAX traces ``train_step`` once more on
+    epoch 0, when its own committed output state first comes back in: the
+    same shapes and dtypes, so not a signature the port counts.  With
+    recording off, an epoch reads nothing back through the batched copy and
+    ticks no fence."""
+    import disco_tpu.obs as jobs
+    import disco_tpu_torch.obs as tobs
+    from tests.torch_port_helpers import recorded
+
+    jtr._STEP_FNS.clear()  # fresh jitted steps: epoch 0 traces both
+    jmodel, jstate, _, _ = pair("crnn")
+    _, jev = recorded(jobs, tmp_path / "j.jsonl", lambda: jtr.fit(
+        jmodel, jstate, EpochBatches(1), EpochBatches(2), 2, save_path=tmp_path / "j",
+        run_name="ev", verbose=False))
+    _, tev = recorded(tobs, tmp_path / "t.jsonl", lambda: port_fit(tmp_path / "t", "ev", 2))
+    assert _epoch_events(tev) == [("train", 0, 2, 2, 2), ("train", 1, 2, 2, 0)]
+    assert _epoch_events(jev) == [("train", 0, 2, 2, 3), ("train", 1, 2, 2, 0)]
+    assert [(e["stage"], e["attrs"]["n_new_programs"]) for e in tev if e["kind"] == "jit_trace"] \
+        == [("train_step", 1), ("eval_step", 1)]
+    assert (jobs.recompile_count("train_step"), jobs.recompile_count("eval_step")) == (2, 1)
+    for key in ("train_loss", "val_loss"):
+        np.testing.assert_allclose([e["attrs"][key] for e in tev if e["kind"] == "epoch"],
+                                   [e["attrs"][key] for e in jev if e["kind"] == "epoch"],
+                                   rtol=1e-5)
+    counters = [obs.REGISTRY.snapshot()["counters"] for obs in (tobs, jobs)]
+    assert [c["train_steps"] for c in counters] == [4, 4]
+
+    empty = lambda: iter(())  # noqa: E731
+    _, _, tmodel, tstate = pair("crnn")
+    warnings = []
+    for name, obs, run in (
+            ("j", jobs, lambda: jtr.fit(jmodel, jstate, empty, EpochBatches(2), 1,
+                                        save_path=tmp_path / "je", run_name="e", verbose=False)),
+            ("t", tobs, lambda: ttr.fit(tmodel, tstate, empty, EpochBatches(2), 1,
+                                        save_path=tmp_path / "te", run_name="e", verbose=False,
+                                        device="cpu"))):
+        _, ev = recorded(obs, tmp_path / f"{name}e.jsonl", run)
+        warnings.append([(e["stage"], e["attrs"]["epoch"], e["attrs"]["reason"]) for e in ev
+                         if e["kind"] == "warning"])
+        assert obs.REGISTRY.snapshot()["counters"]["train_empty_epochs"] == 1
+    assert warnings[0] == warnings[1] and len(warnings[0]) == 1
+
+    from disco_tpu_torch.obs.accounting import device_get_count, fence_count
+
+    g0, f0 = device_get_count(), fence_count()
+    port_fit(tmp_path / "off", "off", 1)
+    assert (device_get_count(), fence_count()) == (g0, f0)

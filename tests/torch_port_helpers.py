@@ -156,3 +156,77 @@ def one_host_thread():
     torch.set_num_threads(n)
     for _, put, old in blas:
         put(old)
+
+
+# ------------------------------------------------------------ observability
+#: attributes that are timings (or derived from them), left out when two
+#: packages' events are compared
+TIMING_KEYS = frozenset({"t", "dur_s", "dur_ms", "overlap_efficiency"})
+
+
+def recorded(obs, path, fn):
+    """``fn()`` under one package's recorder (``obs``: ``disco_tpu.obs`` or
+    ``disco_tpu_torch.obs``) at ``path``, its registry reset first; returns
+    (fn's value, the log read back through that package's reader)."""
+    obs.REGISTRY.reset()
+    with obs.recording(path):
+        value = fn()
+    return value, obs.read_events(path)
+
+
+def _untimed(attrs: dict, ignore=()) -> dict:
+    return {k: v for k, v in attrs.items()
+            if k not in TIMING_KEYS and k not in ignore and not k.endswith(("_ms", "_s"))}
+
+
+def _shape_of(ev: dict, ignore=()):
+    """An event with its float attributes replaced by a marker: what must
+    match exactly; the floats are compared to the metric bounds."""
+    attrs = _untimed(ev["attrs"], ignore)
+    return repr((ev["kind"], ev["stage"],
+                 sorted((k, "<float>" if isinstance(v, float) else v) for k, v in attrs.items())))
+
+
+def _floats(ev: dict, ignore=()) -> list:
+    attrs = _untimed(ev["attrs"], ignore)
+    return [attrs[k] for k in sorted(attrs) if isinstance(attrs[k], float)]
+
+
+def _assert_same_events(ours: list, theirs: list, label: str, ignore=()) -> None:
+    assert [_shape_of(e, ignore) for e in ours] == [_shape_of(e, ignore) for e in theirs], label
+    for a, b in zip(ours, theirs):
+        np.testing.assert_allclose(_floats(a, ignore), _floats(b, ignore), rtol=METRIC_RTOL,
+                                   atol=METRIC_ATOL, equal_nan=True, err_msg=f"{label}: {b}")
+
+
+def assert_events_match(ours: list, theirs: list, ignore=()) -> None:
+    """Two packages' logs of the same run: the events that name no clip (the
+    main thread's) in order, each clip's events (attribute ``rir``, which
+    worker threads record in an order that varies) as a multiset, with the
+    same attributes but timings and ``ignore`` (attributes naming each
+    run's own paths); float attributes within the metric bounds.  The
+    ``counters`` snapshots are left to :func:`assert_counters_match`."""
+    def split(events):
+        events = [e for e in events if e["kind"] != "counters"]
+        main = [e for e in events if "rir" not in e["attrs"]]
+        clips = {}
+        for e in events:
+            if "rir" in e["attrs"]:
+                clips.setdefault(e["attrs"]["rir"], []).append(e)
+        return main, {r: sorted(v, key=lambda e: _shape_of(e, ignore))
+                      for r, v in clips.items()}
+
+    (main_a, clips_a), (main_b, clips_b) = split(ours), split(theirs)
+    _assert_same_events(main_a, main_b, "main-thread events", ignore)
+    assert set(clips_a) == set(clips_b)
+    for rir in clips_b:
+        _assert_same_events(clips_a[rir], clips_b[rir], f"events of clip {rir}", ignore)
+
+
+def assert_counters_match(ours: list, theirs: list, names) -> None:
+    """The last ``counters`` snapshot of each log agrees on ``names``."""
+    def last(events):
+        return next(e["attrs"]["counters"] for e in reversed(events) if e["kind"] == "counters")
+
+    a, b = last(ours), last(theirs)
+    assert {n: a.get(n) for n in names} == {n: b.get(n) for n in names}
