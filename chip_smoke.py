@@ -221,22 +221,45 @@ pass):
    bit-exact on a fresh server; a NaN in the north-star ``Y`` tripping one
    sentinel with its stats and one flight dump, and one ``check_finite``
    of the clean ``Y`` (41 MB) timed by CUDA events with its fences.
+3k. The command line (``disco_tpu_torch.cli``, each ``main(argv)``
+   in-process, the server as a process) at the CLIs' own full width: the
+   DISCO array of 4 nodes x 4 mics at 16 kHz, ISM order 20, 5-10 s
+   talkers, depth cut to 2 RIRs, on phase 3g's synthetic LibriSpeech-shaped
+   talkers under ``build/`` (deleted at the end of the phase).
+   ``disco-gen --dset train --scenario living`` and ``disco-mix``;
+   ``disco-get-z``, ``disco-lists`` and ``disco-train --single_channel``
+   (the canonical CRNN, batch 500, 2 epochs; its checkpoint written);
+   ``disco-tango --rirs 1 2 --solver fused --obs-log`` with the counters
+   set to 0 before and read after, its launches equal to those of the
+   same ``enhance_rirs_batched`` call made directly into another tree and
+   every artifact of the two trees byte-identical, ``disco-obs report`` of
+   its log; ``disco-tango --rir 1 --streaming --solver jacobi-pallas``
+   (the eigensolver launched, the scores finite); ``disco-tango --mods
+   <checkpoint> None --rir 2`` (the step-1 CRNN carries the checkpoint's
+   weights); ``disco-aggregate --json``; ``disco-scenes simulate`` and
+   ``disco-gen-meetit``; ``python -m disco_tpu_torch.cli.serve --unix``
+   with one north-star session (K=8, C=4, blocks of 64 frames,
+   ``jacobi-pallas``) bit-identical to the offline ``streaming_tango``,
+   ``disco-obs slo`` on its socket, and SIGINT draining it to exit 0.
+   Each step's seconds, whether the figures were written and whether
+   ``matplotlib`` and ``yaml`` import here are printed.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
    full 626-frame clip (2 eigensolver launches), each with the counters
    set to 0 before and read after; ``streaming_tango_scan`` bit-identical
    to ``per_block_reference``; the eigensolver bit-identical to its
-   plain version on the matrices of one window; windows 2-9 through the
+   plain version on the matrices of one window; windows 2-4 through the
    plain versions from the state after window 1 within 1e-4 rel-l2 and
-   0.1 dB SI-SDR of the kernels' windows (the first 2 windows from the warm
-   start through the plain versions printed beside the kernels'; cut from 9
-   to make room for phase 3j); the windows' SI-SDR gain at
+   0.1 dB SI-SDR of the kernels' windows (cut from windows 2-9 to make room
+   for phase 3k; the first 2 windows from the warm start through the plain
+   versions printed beside the kernels', cut from 9 to make room for phase
+   3j); the windows' SI-SDR gain at
    node 0 over the noisy reference mic within 0.2 dB of the JAX package's
    on the same windows (``JAX_WINDOWS_GAIN_DB``) after 1, 2 and 3 s; the
    full-clip stream's more than 3 dB after the recursion's first three
    seconds.  The bf16 lane's nine windows (the bf16 STFT kernel): scan
-   bit-identical to the per-block loop, windows 2-9 within 1e-4 rel-l2
+   bit-identical to the per-block loop, windows 2-4 within 1e-4 rel-l2
    of the plain versions, the windows' SI-SDR gains within 0.1 dB of the
    f32 lane's.
 5. CUDA-event times: the offline path on a 16-clip batch in both lanes, the streaming
@@ -284,7 +307,7 @@ import re
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, suppress
 from types import SimpleNamespace
 
 import numpy as np
@@ -317,6 +340,9 @@ CORPUS_TOL = {"gain_db": 3.0, "single": 1e-5, "single_db": 1e-3, "host": 1e-4, "
 CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
+#: phase 4 holds windows 2 .. PLAIN_WINDOWS against the plain versions (~9 s a
+#: window there); the kernels run all N_WINDOWS
+PLAIN_WINDOWS = 4
 #: phase 4: the windows run from the warm start through the plain versions,
 #: beside the kernels' (printed, not held to a bound).  Cut from N_WINDOWS to
 #: 2 to make room for phase 3j: a window of plain versions takes ~9 s on the
@@ -601,9 +627,9 @@ def kernel_counters() -> dict:
 
 
 @contextmanager
-def counted(label: str, expected: dict, out: dict):
+def tally(label: str, out: dict):
     """Set every launch counter to 0, run the body, read the counters into
-    ``out[label]`` and require ``expected`` (a kernel it does not name: 0)."""
+    ``out[label]``."""
     counters = kernel_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -613,7 +639,15 @@ def counted(label: str, expected: dict, out: dict):
     torch.cuda.synchronize()
     out[label] = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
     print(f"launches, {label}: {out[label]}", flush=True)
-    want = {name: expected.get(name, 0) for name in counters}
+
+
+@contextmanager
+def counted(label: str, expected: dict, out: dict):
+    """:func:`tally`, then require ``expected`` (a kernel it does not name:
+    0)."""
+    with tally(label, out):
+        yield
+    want = {name: expected.get(name, 0) for name in kernel_counters()}
     require(out[label] == want, (label, out[label], want))
 
 
@@ -2778,6 +2812,245 @@ def phase3j_gates(d: SimpleNamespace) -> None:
     print(f"phase 3j took {total:.1f} s (legs {json.dumps(seconds)})", flush=True)
 
 
+#: phase 3k: the command line at the CLIs' own full width (the DISCO array
+#: of 4 nodes x 4 mics at 16 kHz, ISM order 20, 5-10 s talkers), depth cut
+#: to 2 RIRs; the server's client session streams the north-star clip
+CLI_ORDER, CLI_DURATION, CLI_RIRS = 20, (5, 10), 2
+
+
+def serve_post_mortem(proc, client, log) -> None:
+    """Print why a served session ended: the frames the client had not read
+    yet (the server's error frame), the server's own output, and the error
+    and eviction events of its log."""
+    import queue
+
+    frames = []
+    with suppress(queue.Empty):
+        while True:
+            item = client._frames.get_nowait()
+            if isinstance(item, dict) and item.get("type") != "enhanced":
+                frames.append(item)
+            elif item is None or isinstance(item, BaseException):
+                frames.append(repr(item))
+    print(f"disco-serve post-mortem: unread frames {frames}", flush=True)
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        out, err = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    print(f"disco-serve post-mortem: exit code {proc.returncode}\n-- stdout\n{out[-8000:]}"
+          f"\n-- stderr\n{err[-8000:]}", flush=True)
+    if log.exists():
+        lines = [ln for ln in log.read_text().splitlines()
+                 if any(w in ln for w in ("error", "evict", "quarantine", "fail"))]
+        print("disco-serve post-mortem: log events\n" + "\n".join(lines[-40:]), flush=True)
+
+
+def cli_serve(d: SimpleNamespace, tmp) -> dict:
+    """``python -m disco_tpu_torch.cli.serve`` as a process on the card: one
+    north-star session (K=8, C=4, blocks of 64 frames, ``jacobi-pallas``)
+    bit-identical to the offline whole-clip ``streaming_tango`` computed
+    here; ``disco-obs slo`` on its socket; SIGINT drains it to exit 0."""
+    import os
+    import signal
+    from pathlib import Path
+
+    from disco_tpu_torch.cli import obs as obs_cli
+    from disco_tpu_torch.device import to_host
+    from disco_tpu_torch.serve import ServeClient
+    from disco_tpu_torch.serve import check as sc
+
+    Yh, mh = to_host([d.Y, d.m])
+    ref = sc.offline_stream(Yh, mh, device=d.dev, update_every=SERVE_U, solver="jacobi-pallas")
+    config = sc.session_config(Yh.shape[-2], n_nodes=K, n_mics=C, block_frames=SERVE_BLOCK,
+                               update_every=SERVE_U, solver="jacobi-pallas")
+    sock, log = tmp / "serve.sock", tmp / "serve.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "disco_tpu_torch.cli.serve", "--unix", str(sock),
+         "--obs-log", str(log), "--state-dir", str(tmp / "serve_state"),
+         "--device", d.dev.type],
+        cwd=Path(__file__).resolve().parent, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while not sock.exists():
+            require(proc.poll() is None, ("disco-serve exited", proc.returncode))
+            require(time.perf_counter() - t0 < 180, "disco-serve did not bind in 180 s")
+            time.sleep(0.1)
+        bound_s = time.perf_counter() - t0
+        cl = ServeClient(str(sock))
+        try:
+            cl.open(config)
+            t1 = time.perf_counter()
+            got = cl.enhance_clip(Yh, mh, mh)
+            stream_s = time.perf_counter() - t1
+            cl.close()
+        except Exception:
+            serve_post_mortem(proc, cl, log)
+            raise
+        cl.shutdown()
+        same = bool(np.array_equal(got, ref))
+        try:
+            verdict = obs_cli.main(["slo", str(sock)])["verdict"]
+        except SystemExit:  # a violated target: the verdict, printed above
+            verdict = "VIOLATED"
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    blocks = -(-Yh.shape[-1] // SERVE_BLOCK)
+    print(f"phase 3k: disco-serve on the card: bound in {bound_s:.1f} s, {blocks} blocks of "
+          f"{SERVE_BLOCK} frames in {stream_s:.2f} s ({cl.reattaches} reattaches), bit-identical "
+          f"to the offline stream {same}, slo verdict {verdict}, exit code {proc.returncode} "
+          f"after SIGINT", flush=True)
+    require(same, "the served stream differs from the offline streaming_tango")
+    require(proc.returncode == 0 and "drained gracefully" in out, ("disco-serve drain", out, err))
+    return {"blocks": blocks, "bit_identical": same, "slo": verdict, "bound_s": bound_s,
+            "stream_s": stream_s, "reattaches": cl.reattaches}
+
+
+def phase3k_command_line(d: SimpleNamespace) -> None:
+    """The reference workflow through the port's CLIs (``main(argv)``
+    in-process, the server as a process) on the card: gen → mix → get-z →
+    lists → train → tango (the corpus with ``--solver fused`` against the
+    direct ``enhance_rirs_batched`` call, byte for byte with equal
+    launches; one clip streaming with the eigensolver; one clip with the
+    trained CRNN) → aggregate, then scenes, gen-meetit and serve."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.cli import (
+        aggregate,
+        gen_disco,
+        gen_meetit,
+        get_z,
+        lists,
+        mix,
+        scenes,
+        tango,
+        train,
+    )
+    from disco_tpu_torch.cli import obs as obs_cli
+    from disco_tpu_torch.enhance.driver import enhance_rirs_batched
+    from disco_tpu_torch.nn.convert import state_dict_from_flax
+    from disco_tpu_torch.nn.serialization import unpackb
+
+    t_phase = time.perf_counter()
+    installed = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "yaml")}
+    print(f"phase 3k: importable on this machine: {json.dumps(installed)}", flush=True)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    seconds, direct = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        print(f"phase 3k: {name} ({seconds[name]:.1f} s)", flush=True)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cli-", dir=build) as tmp:
+        tmp = Path(tmp)
+        sim_corpus(tmp)
+        ds, talkers = str(tmp / "ds"), str(tmp / "talkers")
+        common = ["--scenario", "living", "--noise", "ssn"]
+        rirs = ["--rirs", "1", str(CLI_RIRS)]
+        with tally("3k gen, mix", d.launches):
+            done = step("disco-gen", lambda: gen_disco.main(
+                ["--dset", "train", "--scenario", "living", *rirs, "--dir_out", ds,
+                 "--librispeech", talkers, "--max_order", str(CLI_ORDER),
+                 "--duration", *map(str, CLI_DURATION)]))
+            require(done == list(range(1, CLI_RIRS + 1)), ("disco-gen", done))
+            step("disco-mix", lambda: mix.main([*rirs, *common, "--dir", ds]))
+        with tally("3k get-z, train", d.launches):
+            n = step("disco-get-z", lambda: get_z.main([*rirs, *common, "--dataset", ds]))
+            require(n == CLI_RIRS, ("disco-get-z", n))
+            n_files = ["--n_files", str(CLI_RIRS + 1)]
+            out = step("disco-lists", lambda: lists.main(
+                ["--scene", "living", "--noise", "ssn", *n_files, "--path_data", ds,
+                 "--out", str(tmp / "lists")]))
+            require(len(out) == 12 and len(out[0]) == CLI_RIRS, "disco-lists")
+            run = step("disco-train", lambda: train.main(
+                ["--scene", "living", "--noise", "ssn", *n_files, "--path_data", ds,
+                 "--save_path", str(tmp / "models"), "--n_epochs", "2", "--single_channel"]))
+        ckpt = tmp / "models" / f"{run}_model.msgpack"
+        require(ckpt.exists(), ("the trained checkpoint", ckpt))
+
+        log = tmp / "tango.jsonl"
+        with tally("3k tango --rirs --solver fused", d.launches):
+            res = step("disco-tango --rirs --solver fused", lambda: tango.main(
+                [*rirs, *common, "--dataset", ds, "--solver", "fused",
+                 "--out_root", str(tmp / "res_cli"), "--obs-log", str(log)]))
+        with tally("direct", direct):
+            step("enhance_rirs_batched (direct)", lambda: enhance_rirs_batched(
+                ds, "living", range(1, CLI_RIRS + 1), "ssn", out_root=str(tmp / "res_direct"),
+                solver="fused", bucket=8192, max_batch=16))
+        cli_launches = d.launches["3k tango --rirs --solver fused"]
+        require(cli_launches == direct["direct"] and cli_launches["stft"] > 0
+                and cli_launches["masked_cov"] > 0 and cli_launches["fused_mwf"] > 0,
+                ("CLI vs direct launches", cli_launches, direct["direct"]))
+        tree_cli, tree_direct = _tree(tmp / "res_cli"), _tree(tmp / "res_direct")
+        same = tree_cli == tree_direct
+        figs = sorted(k for k in tree_cli if k.startswith("FIG/"))
+        print(f"phase 3k: disco-tango vs enhance_rirs_batched: {len(tree_cli)} artifacts, "
+              f"byte-identical {same}; figures written: {figs}", flush=True)
+        require(same and len(res) == CLI_RIRS, "the CLI's tree differs from the direct call's")
+        report = step("disco-obs report", lambda: obs_cli.main(["report", str(log)]))
+        require(report["clips"] == CLI_RIRS and report["manifest"]["tool"] == "disco-tango",
+                "disco-obs report of the tango log")
+
+        with tally("3k tango --rir --streaming", d.launches):
+            res = step("disco-tango --rir 1 --streaming --solver jacobi-pallas", lambda: tango.main(
+                ["--rir", "1", *common, "--dataset", ds, "--streaming",
+                 "--solver", "jacobi-pallas", "--out_root", str(tmp / "res_stream")]))
+        require(d.launches["3k tango --rir --streaming"]["eigh_jacobi"] > 0
+                and bool(np.isfinite(res["sdr_cnv"]).all()), "the streaming lane")
+
+        loaded, real = [], tango._load_model
+
+        def recording_load(*args, **kw):
+            loaded.append(real(*args, **kw))
+            return loaded[-1]
+
+        tango._load_model = recording_load
+        try:
+            with tally("3k tango --rir --mods", d.launches):
+                res = step("disco-tango --rir 2 --mods <checkpoint> None", lambda: tango.main(
+                    ["--rir", "2", *common, "--dataset", ds, "--mods", str(ckpt), "None",
+                     "--out_root", str(tmp / "res_crnn")]))
+        finally:
+            tango._load_model = real
+        model = loaded[0]
+        payload = unpackb(ckpt.read_bytes())
+        want = state_dict_from_flax({"params": payload["params"],
+                                     "batch_stats": payload["batch_stats"]}, model)
+        have = model.state_dict()
+        require(loaded[1] is None and all(torch.equal(have[k].cpu(), v.cpu())
+                                          for k, v in want.items())
+                and bool(np.isfinite(res["sdr_cnv"]).all()),
+                "the CRNN lane did not run the trained checkpoint")
+
+        summary = step("disco-aggregate --json", lambda: aggregate.main(
+            [str(tmp / "res_cli" / "OIM"), "--json"]))
+        require(summary["sdr_cnv"]["n"] == 4 * CLI_RIRS, ("disco-aggregate", summary["sdr_cnv"]))
+        with tally("3k scenes, gen-meetit", d.launches):
+            step("disco-scenes simulate --batches 1",
+                 lambda: scenes.main(["simulate", "--batches", "1"]))
+            done = step("disco-gen-meetit --rirs 1 1", lambda: gen_meetit.main(
+                ["--rirs", "1", "1", "--dir_out", str(tmp / "meetit"), "--librispeech", talkers]))
+        require(done == [1], ("disco-gen-meetit", done))
+        step("disco-serve", lambda: cli_serve(d, tmp))
+    total = time.perf_counter() - t_phase
+    print(f"phase 3k took {total:.1f} s (steps {json.dumps(seconds)})", flush=True)
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -2819,19 +3092,20 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
 
     check_scan_vs_per_block(d, "f32")
 
-    # the plain versions from the state after the first window
+    # the plain versions from the state after the first window, on windows
+    # 2 to PLAIN_WINDOWS (cut from 9 to make room for phase 3k)
     with plain_kernels():
-        yp, _ = stream_windows(d, 1, N_WINDOWS, states[0])
+        yp, _ = stream_windows(d, 1, PLAIN_WINDOWS, states[0])
         yc, _ = stream_windows(d, 0, COLD_WINDOWS, None)
     torch.cuda.synchronize()
-    yk = yw[:, LW:]
+    yk = yw[:, LW:PLAIN_WINDOWS * LW]
     err = rel_l2(yk, yp)
     sdr = {}
     for label, out in (("kernels", yk), ("plain", yp)):
-        sdr[label] = si_sdr(d.s_np[0, 0, LW:Lc], out[0].cpu().numpy())
+        sdr[label] = si_sdr(d.s_np[0, 0, LW:PLAIN_WINDOWS * LW], out[0].cpu().numpy())
     cold = [rel_l2(yw[:, w * LW:(w + 1) * LW], yc[:, w * LW:(w + 1) * LW])
             for w in range(COLD_WINDOWS)]
-    print(f"phase 4: windows 2-{N_WINDOWS} from the state after window 1, kernels vs plain "
+    print(f"phase 4: windows 2-{PLAIN_WINDOWS} from the state after window 1, kernels vs plain "
           f"versions: rel-l2 {err:.3e}, SI-SDR node 0 {sdr['kernels']:.4f} vs "
           f"{sdr['plain']:.4f} dB", flush=True)
     print(f"phase 4: the first {COLD_WINDOWS} windows from the warm start, kernels vs plain "
@@ -2889,7 +3163,7 @@ def check_scan_vs_per_block(d: SimpleNamespace, precision: str) -> None:
 def phase4_bf16_windows(d: SimpleNamespace, f32_gains: dict) -> None:
     """The streaming windows in the bf16 lane (the bf16 STFT kernel, the
     bf16 tail accumulation, the eigensolver): scan against the per-block
-    loop bit for bit, windows 2-9 against the plain versions from the state
+    loop bit for bit, windows 2-4 against the plain versions from the state
     after window 1 (within 1e-4 fed the STFT kernel's spectra, within the
     lane's 1e-2 from the signal: see :func:`phase3_bf16_clip`), and the
     windows' SI-SDR gains within 0.1 dB of the f32 lane's."""
@@ -2904,13 +3178,14 @@ def phase4_bf16_windows(d: SimpleNamespace, f32_gains: dict) -> None:
             "non-finite or misshapen bf16 streaming output")
     check_scan_vs_per_block(d, "bf16")
     with plain_kernels(stft=False):
-        yp, _ = stream_windows(d, 1, N_WINDOWS, states[0], "bf16")
+        yp, _ = stream_windows(d, 1, PLAIN_WINDOWS, states[0], "bf16")
     with plain_kernels():
-        yq, _ = stream_windows(d, 1, N_WINDOWS, states[0], "bf16")
+        yq, _ = stream_windows(d, 1, PLAIN_WINDOWS, states[0], "bf16")
     torch.cuda.synchronize()
-    err, err_full = rel_l2(yw[:, LW:], yp), rel_l2(yw[:, LW:], yq)
+    yk = yw[:, LW:PLAIN_WINDOWS * LW]
+    err, err_full = rel_l2(yk, yp), rel_l2(yk, yq)
     gains = sdr_gains(d.s_np[0, 0], d.y_np[0, 0], yw[0].cpu().numpy())
-    print(f"phase 4: bf16 windows 2-{N_WINDOWS} from the state after window 1, kernels vs plain "
+    print(f"phase 4: bf16 windows 2-{PLAIN_WINDOWS} from the state after window 1, kernels vs plain "
           f"versions: fed the STFT kernel's spectra rel-l2 {err:.3e}, from the signal "
           f"{err_full:.3e}; SI-SDR gain at node 0 after t seconds "
           + json.dumps(gains) + " (f32 lane " + json.dumps(f32_gains) + ")", flush=True)
@@ -3370,7 +3645,7 @@ def main() -> int:
                         ("3e", phase3e_corpus), ("3f", phase3f_training),
                         ("3g", phase3g_simulation), ("3h", phase3h_serving),
                         ("3i", phase3i_flywheel), ("3j", phase3j_gates),
-                        ("4", phase4_streaming_path)):
+                        ("3k", phase3k_command_line), ("4", phase4_streaming_path)):
         timed(name, phase, d)
     entries = timed("5", phase5_times, d)
     timed("6", phase6_breakdown, d)

@@ -32,16 +32,23 @@ and ``counters`` events; the batch runners' call signatures
 (``obs.accounting.counted_jit``).  With no event sink live, none of it
 reads a tensor's value.
 
-Left for later slices: the FIG plot (``save_fig=True`` raises; the tools
-slice), ``mesh`` (multi-card, with its ``oracle_masks_batched`` runner) and
-``compile_cache`` (the port compiles nothing at run time; its kernels
-build once into ``build/kernels/<sha256>/``).
+The FIG plot (``save_fig=True``, the default) is the JAX package's: a
+room top view from the clip's validated infos ``.npy``
+(``inference.plot_conf``), drawn under one lock on whichever thread scores
+the clip, best-effort — a figure that cannot be drawn (no matplotlib, no
+infos) is skipped, never fatal — and absent from the ledger's artifacts.
+
+Left for later slices: ``mesh`` (multi-card, with its
+``oracle_masks_batched`` runner) and ``compile_cache`` (the port compiles
+nothing at run time; its kernels build once into
+``build/kernels/<sha256>/``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import pickle
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -74,6 +81,7 @@ from disco_tpu_torch.enhance.zexport import compute_z_signals, load_node_signals
 from disco_tpu_torch.fault import plan_faults
 from disco_tpu_torch.io.atomic import (
     dump_pickle_atomic,
+    probe_npy,
     probe_pickle,
     remove_tmp_litter,
     save_npy_atomic,
@@ -91,6 +99,7 @@ from disco_tpu_torch.runs import interrupt as run_interrupt
 from disco_tpu_torch.runs.ledger import RunLedger, unit_rir
 from disco_tpu_torch.utils.resilience import TRANSPORT_ERRORS, call_with_retries
 
+_FIG_LOCK = threading.Lock()  # see the save_fig block in _persist_and_score
 
 def _record_degraded(fault_plan, streaming: bool = False, **attrs):
     """Record the pipeline's degraded-mode entry for one clip: a
@@ -116,14 +125,6 @@ def _record_degraded(fault_plan, streaming: bool = False, **attrs):
             n_streams_excluded=len(excluded), nodes=excluded,
             nan_nodes=np.flatnonzero(fault_plan.z_nan).tolist(),
             **attrs,
-        )
-
-
-def _check_save_fig(save_fig: bool) -> None:
-    if save_fig:
-        raise NotImplementedError(
-            "save_fig=True draws the room with plot_conf, which comes with the tools slice of "
-            "the port; pass save_fig=False"
         )
 
 
@@ -181,7 +182,9 @@ def _clip_done(out: Path, rir, noise: str) -> bool:
 
 def clip_artifacts(out: Path, rir, noise: str, snr_range, n_nodes: int) -> list:
     """The canonical artifact paths of one enhanced RIR — what the run
-    ledger digests into a ``done`` record and re-verifies on resume."""
+    ledger digests into a ``done`` record and re-verifies on resume.  The
+    best-effort FIG render is deliberately absent (plotting may legally
+    fail)."""
     paths = [
         out / "OIM" / f"results_tango_{rir}_{noise}.p",
         out / "OIM" / f"results_mwf_{rir}_{noise}.p",
@@ -335,11 +338,12 @@ def _clip_host(res, length: int) -> dict:
 
 def _persist_and_score(out: Path, rir: int, noise: str, snr_range, y, s, n, s_dry, n_dry, fs,
                        rnd_snrs, host: dict, T_true: int, n_nodes: int,
-                       bss_filt_len: int = 512):
+                       bss_filt_len: int = 512, *, layout: DatasetLayout, save_fig: bool):
     """Per-RIR second half of the reference main (tango.py:528-639): every
-    metric variant and the WAV/MASK/OIM/STFT-z results tree.  Shared by the
-    single-RIR and batched drivers; host numpy only, so it runs on scoring
-    worker threads.
+    metric variant and the WAV/MASK/OIM/STFT-z/FIG results tree.  Shared by
+    the single-RIR and batched drivers; host numpy only, so it runs on
+    scoring worker threads.  ``save_fig``: draw ``FIG/<rir>.png`` from
+    ``layout``'s infos of the clip, best-effort.
 
     ``host``: the clip's payload on the host (:func:`_clip_host`,
     ``pipeline.fetch_chunk_host`` or ``fetch_chained_host``) — ``td``, the
@@ -398,6 +402,25 @@ def _persist_and_score(out: Path, rir: int, noise: str, snr_range, y, s, n, s_dr
     resultsz = {"snr_in_raw": rnd_snrs, **stack_keys(per_node_mwf)}
     dump_pickle_atomic(out / "OIM" / f"results_tango_{rir}_{noise}.p", results)
     dump_pickle_atomic(out / "OIM" / f"results_mwf_{rir}_{noise}.p", resultsz)
+
+    if save_fig:
+        infos_path = layout.infos(rir)
+        # validated, not just exists(): a truncated infos .npy from a
+        # crashed datagen run would otherwise be trusted here forever
+        if probe_npy(infos_path):
+            try:
+                from disco_tpu_torch.enhance.inference import plot_conf
+
+                # One figure at a time: the OO matplotlib API avoids pyplot's
+                # main-thread requirement, but first-render font-cache builds
+                # and the Agg rasterizer are not re-entrant — scoring may run
+                # on a thread pool (enhance_rirs_batched score_workers).  The
+                # unregistered Figure needs no pyplot close; it is GC'd.
+                with _FIG_LOCK:
+                    fig = plot_conf(np.load(infos_path, allow_pickle=True).item(), return_fig=True)
+                    fig.savefig(out / "FIG" / f"{rir}.png")
+            except Exception:
+                pass  # plotting is best-effort observability, never fatal
     score_stage.close()
     obs_registry.counter("clips_enhanced").inc()
     if obs_events.enabled():
@@ -442,7 +465,7 @@ def enhance_rir(
     mics_per_node: int = 4,
     out_root: str | None = None,
     force: bool = False,
-    save_fig: bool = False,
+    save_fig: bool = True,
     streaming: bool = False,
     bucket: int = 0,
     z_sigs: str = "zs_hat",
@@ -487,14 +510,14 @@ def enhance_rir(
     All writes are atomic, and the idempotency skip validates the existing
     OIM pickles.
 
-    ``save_fig=True`` raises NotImplementedError (the figure comes with the
-    tools slice).  ``device``: ``"cuda"`` when None (RuntimeError without a
-    CUDA device), ``"cpu"`` for the plain versions on the host.
+    ``save_fig``: draw the room top view into ``FIG/<rir>.png`` from the
+    clip's generation infos, best-effort (see the module docstring).
+    ``device``: ``"cuda"`` when None (RuntimeError without a CUDA device),
+    ``"cpu"`` for the plain versions on the host.
 
     Returns the tango results dict, or None when the RIR was already
     processed.
     """
-    _check_save_fig(save_fig)
     if chained:
         _check_chained(streaming, models, fault_spec)
     if solver is None:
@@ -591,7 +614,8 @@ def enhance_rir(
         del res
 
     out_results = _persist_and_score(out, rir, noise, snr_range, y, s, n, s_dry, n_dry, fs,
-                                     rnd_snrs, host, T_true, n_nodes)
+                                     rnd_snrs, host, T_true, n_nodes, layout=layout,
+                                     save_fig=save_fig)
     if ledger is not None:
         ledger.mark_done(unit_rir(rir, noise), clip_artifacts(out, rir, noise, snr_range,
                                                               n_nodes))
@@ -736,7 +760,7 @@ def enhance_rirs_batched(
     mics_per_node: int = 4,
     out_root: str | None = None,
     force: bool = False,
-    save_fig: bool = False,
+    save_fig: bool = True,
     bucket: int = 8192,
     max_batch: int = 16,
     models=(None, None),
@@ -791,13 +815,12 @@ def enhance_rirs_batched(
     ``fault_spec`` are rejected); ``solver=None`` then resolves to
     ``'fused'``, else to ``'power'``.
 
-    ``save_fig=True`` raises NotImplementedError.  ``device``: ``"cuda"``
-    when None (RuntimeError without a CUDA device), ``"cpu"`` for the plain
-    versions on the host.
+    ``save_fig``: as :func:`enhance_rir`, drawn on the scoring workers.
+    ``device``: ``"cuda"`` when None (RuntimeError without a CUDA device),
+    ``"cpu"`` for the plain versions on the host.
 
     Returns {rir: results dict} for the RIRs actually processed.
     """
-    _check_save_fig(save_fig)
     if chained:
         _check_chained(False, models, fault_spec)
     if solver is None:
@@ -946,12 +969,13 @@ def enhance_rirs_batched(
         gives clip i's host payload."""
         futs = []
         for i in range(lc.n_real):
-            rir, out, _layout = lc.chunk[i]
+            rir, out, layout = lc.chunk[i]
             y, s, n, s_dry, n_dry, fs, rnd_snrs = lc.sigs[i]
             _record_degraded(fault_plan, rir=rir)
             L = y.shape[-1]
             score = partial(_persist_and_score, out, rir, noise, snr_range, y, s, n, s_dry,
-                            n_dry, fs, rnd_snrs, host_of(i), n_stft_frames(L), n_nodes)
+                            n_dry, fs, rnd_snrs, host_of(i), n_stft_frames(L), n_nodes,
+                            layout=layout, save_fig=save_fig)
             if score_workers <= 1:
                 all_results[rir] = score_unit(score, rir, out)
             else:

@@ -299,3 +299,22 @@ def vad_mask(ts, n_freq: int, n_frames: int) -> torch.Tensor:
     (n_freq, n_frames) float32 (reference tango.py:216-222)."""
     vad = vad_oracle_batch(torch.as_tensor(ts), win_len=N_FFT, win_hop=N_HOP)
     return vad_to_mask(vad, n_freq, n_frames, hop=N_HOP)
+
+
+def plot_conf(infos, mics_per_node=(4, 4, 4, 4), return_fig=False):
+    """Room top-view plot from saved generation infos (reference
+    utils.py:141-172) — node labels anchored at each node's first mic.
+    Shares the renderer with ``sim.geometry.RoomSetup.plot``
+    (``disco_tpu_torch.utils.plotting.draw_room_topview``).  Returns the
+    matplotlib Figure with ``return_fig=True``, else None (the JAX
+    package's signature)."""
+    from disco_tpu_torch.utils.plotting import draw_room_topview
+
+    cums = np.cumsum([0] + list(mics_per_node))[:-1]
+    node_anchors = np.asarray(infos["mics"])[:2, cums].T  # (n_nodes, 2)
+    f = draw_room_topview(
+        infos["room"]["length"], infos["room"]["width"], infos["mics"],
+        infos["sources"], node_anchors, label_offset=1.05,
+    )
+    if return_fig:
+        return f

@@ -263,8 +263,13 @@ class ServeClient:
                 break
             if item is None or isinstance(item, BaseException):
                 continue
-            if not (item.get("type") == "error"
-                    and item.get("code") == "parked"):
+            if item.get("type") == "error" and item.get("code") == "parked":
+                # a shed notice that reached us behind a failed send: its
+                # back-off hint holds all the same (reattaching at once
+                # would land on the rung that shed us, and be shed again)
+                retry_after_s = max(retry_after_s,
+                                    float(item.get("retry_after_s", 0.0)))
+            else:
                 self._fold(item)
         if self.closed_info is not None:
             # the dead reader's leftovers included the 'closed' frame: the
@@ -335,6 +340,10 @@ class ServeClient:
             except OSError as e:
                 if not self._can_reattach():
                     raise ServeError("io", f"send failed: {e}") from None
+                # the peer closed: let the reader take in what it sent
+                # before closing (a ``parked`` notice and its back-off hint)
+                if self._reader is not None:
+                    self._reader.join(timeout=1.0)
                 self._reattach(f"send failed: {e}")
                 if self.closed_info is not None:
                     return   # the session finished during the drop: the

@@ -64,12 +64,16 @@ class RoomSetup:
         return np.array([self.length, self.width, self.height])
 
     def plot(self):
-        """Top-view Figure of the sampled configuration (the ``plot_room``
-        helper of reference room_setups.py:238-253).  It draws with
-        matplotlib, which comes with the port's tools slice."""
-        raise NotImplementedError(
-            "RoomSetup.plot draws with matplotlib, which comes with the tools slice of "
-            "disco_tpu_torch"
+        """Top-view Figure of the sampled configuration — room outline, node
+        centers, microphones and sources (the ``plot_room`` observability
+        helper of reference room_setups.py:238-253; the from-saved-infos
+        variant is ``disco_tpu_torch.enhance.inference.plot_conf``).  Returns
+        the matplotlib Figure — save with ``fig.savefig(...)``."""
+        from disco_tpu_torch.utils.plotting import draw_room_topview
+
+        return draw_room_topview(
+            self.length, self.width, self.mic_positions, self.source_positions,
+            self.nodes_centers,
         )
 
 

@@ -911,3 +911,37 @@ def test_tango_gives_a_clip_the_same_bits_in_any_chunk(cuda, rng):
         r1 = tango(spec1[0], spec1[1], spec1[2], m1, m1, solver=solver)
         for key in ("yf", "sf", "nf", "z_y"):
             assert torch.equal(getattr(r2, key)[1:], getattr(r1, key)), (solver, key)
+
+
+def test_tango_cli_fused_equals_the_direct_call_on_card(cuda, tmp_path):
+    """``disco-tango --rirs 11001 2 --solver fused`` on the card writes the
+    artifacts of the direct ``enhance_rirs_batched`` call with the CLI's
+    defaults, byte for byte, with the same kernel launches."""
+    from disco_tpu_torch.cli import tango as tango_cli
+    from disco_tpu_torch.enhance.driver import enhance_rirs_batched
+    from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
+    from disco_tpu_torch.runs.check import NOISE, _mini_corpus
+
+    counters = [(stft_ops.stft_kernel, "launches"), (cov_ops.masked_cov_kernel, "launches"),
+                (mwf_ops.fused_mwf_kernel, "launches"), (eigh_ops.eigh_jacobi_kernel, "launches")]
+    root = _mini_corpus(tmp_path / "corpus", mics_per_node=4)
+
+    def launches(fn):
+        before = [getattr(f, a) for f, a in counters]
+        fn()
+        torch.cuda.synchronize()
+        return [getattr(f, a) - b for (f, a), b in zip(counters, before)]
+
+    cli = launches(lambda: tango_cli.main([
+        "--rirs", "11001", "2", "--noise", NOISE, "--dataset", str(root),
+        "--solver", "fused", "--out_root", str(tmp_path / "cli")]))
+    direct = launches(lambda: enhance_rirs_batched(
+        str(root), "living", range(11001, 11003), NOISE, out_root=str(tmp_path / "direct"),
+        solver="fused", bucket=8192, max_batch=16))
+    assert cli == direct and cli[0] >= 1 and cli[2] >= 2
+
+    def tree(r):
+        return {str(p.relative_to(r)): p.read_bytes() for p in sorted(r.rglob("*")) if p.is_file()}
+
+    ours, want = tree(tmp_path / "cli"), tree(tmp_path / "direct")
+    assert len(want) > 40 and ours == want

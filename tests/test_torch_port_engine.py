@@ -199,11 +199,29 @@ def test_chained_refusals_match_jax(corpus, tmp_path, case):
 
 @pytest.mark.parametrize("entry", ["enhance_rir", "enhance_rirs_batched"])
 def test_save_fig_raises(corpus, tmp_path, entry):
-    first = RIRS[0] if entry == "enhance_rir" else [RIRS[0]]
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        getattr(tdriver, entry)(str(corpus), "living", first, NOISE, out_root=str(tmp_path),
-                                save_fig=True, device="cpu")
-    assert not any(tmp_path.iterdir())
+    """``save_fig=True``, the default as in the JAX package, no longer
+    raises: each clip's figure is drawn best-effort from its validated
+    generation infos — ``FIG/<rir>.png`` where infos exist, nothing where
+    they do not (this corpus has none) — and stays out of the ledger's
+    artifacts."""
+    import shutil
+
+    from disco_tpu_torch.io.layout import DatasetLayout
+    from disco_tpu_torch.sim import make_setup
+
+    root = shutil.copytree(corpus, tmp_path / "corpus")
+    room = make_setup("living", rng=np.random.default_rng(2)).create_room_setup()
+    infos = {"room": {"length": room.length, "width": room.width}, "mics": room.mic_positions,
+             "sources": room.source_positions}
+    layout = DatasetLayout(str(root), "living", "test")
+    np.save(layout.ensure_dir(layout.infos(RIRS[0])), infos, allow_pickle=True)
+    first = RIRS[0] if entry == "enhance_rir" else [RIRS[0], RIRS[1]]
+    out = tmp_path / "out"
+    getattr(tdriver, entry)(str(root), "living", first, NOISE, snr_range=SNR, out_root=str(out),
+                            n_nodes=K, mics_per_node=C, device="cpu")
+    assert sorted(p.name for p in (out / "FIG").iterdir()) == [f"{RIRS[0]}.png"]
+    assert (out / "FIG" / f"{RIRS[0]}.png").read_bytes()[:4] == b"\x89PNG"
+    assert not any("FIG" in str(p) for p in tdriver.clip_artifacts(out, RIRS[0], NOISE, SNR, K))
 
 
 @pytest.mark.parametrize("entry", ["enhance_rir", "enhance_rirs_batched", "export_z",

@@ -263,6 +263,46 @@ def test_non_transport_error_evicts_with_a_clean_frame(specs):
     assert srv.crashed is None
 
 
+def test_shed_notice_behind_a_failed_send_keeps_its_back_off(specs, tmp_path):
+    """A session shed while its client is still sending: the server posts
+    the ``parked`` notice with its back-off hint, eats the next block and
+    closes, so the client learns of the shed from a failed send.  The
+    reattach waits out the hint all the same (at once, it would land on
+    the rung that shed it and be shed again, until its reattaches ran
+    out), and the stream then goes on bit for bit."""
+    from disco_tpu_torch.serve import EnhanceServer, ServeClient
+
+    sp, B, back_off = specs[0], sc.BLOCK, 0.5
+    Y, m = sp["Y"], sp["m"]
+    srv = EnhanceServer(max_sessions=2, unix_path=str(tmp_path / "serve.sock"), device="cpu")
+    try:
+        cl = ServeClient(srv.start(), timeout_s=30)
+        try:
+            sid = cl.open(sp["config"])
+            cl.send_block(Y[..., :B], m[..., :B], m[..., :B], seq=0)
+            first = cl.recv_enhanced(0, timeout_s=30)
+            assert srv.scheduler.park(srv.scheduler.get(sid), "shed: overload (test)",
+                                      notice=True, retry_after_s=back_off)
+            deadline = time.monotonic() + 10.0
+            while cl._frames.qsize() == 0:          # the notice reached the client
+                assert time.monotonic() < deadline, "park notice never posted"
+                time.sleep(0.01)
+            cl.send_block(Y[..., B:2 * B], m[..., B:2 * B], m[..., B:2 * B], seq=1)  # eaten
+            cl._reader.join(timeout=10.0)           # the server closed the stream
+            assert not cl._reader.is_alive()
+            t0 = time.monotonic()
+            cl.send_block(Y[..., 2 * B:3 * B], m[..., 2 * B:3 * B], m[..., 2 * B:3 * B], seq=2)
+            waited = time.monotonic() - t0
+            assert cl.reattaches == 1 and waited >= back_off
+            rest = cl.enhance_clip(Y, m, m)
+            cl.close()
+        finally:
+            cl.shutdown()
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(np.concatenate([first, rest], axis=-1), sp["ref"])
+
+
 def test_reference_client_is_served_by_the_port(specs):
     from disco_tpu.serve.client import ServeClient as JClient
     from disco_tpu.serve.session import SessionConfig as JConfig

@@ -185,5 +185,8 @@ def test_geometry_helpers_and_errors():
     with pytest.raises(RuntimeError, match="no valid room configuration"):
         sampler.create_room_setup(max_config_trials=5)
     cfg = tsim.make_setup("random", rng=np.random.default_rng(3)).create_room_setup()
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        cfg.plot()
+    jcfg_ = jsim.make_setup("random", rng=np.random.default_rng(3)).create_room_setup()
+    fig, jfig = cfg.plot(), jcfg_.plot()  # the room top view, as the JAX package draws it
+    assert type(fig).__name__ == "Figure"
+    assert ([line.get_xydata().tolist() for line in fig.axes[0].lines]
+            == [line.get_xydata().tolist() for line in jfig.axes[0].lines])
