@@ -78,8 +78,9 @@ pass):
    through ``enhance_rirs_batched`` with ``max_batch=2``, 4 scoring
    workers and a run ledger, in the staged lane (``solver='power'``, one
    chunk: 1 STFT and 2 covariance launches), recorded with the finiteness
-   sentinels and the flight ring armed, and the chained lane (one chunk:
-   1 STFT, 2 covariance and 2 fused-solve launches): every clip done in
+   sentinels and the flight ring armed, and the chained lane on two clips
+   (one chunk: 1 STFT, 2 covariance and 2
+   fused-solve launches): every clip done in
    the ledger, every artifact valid (``probe_artifact``), the JAX
    package's result schema in float64, every clip's mean sdr_cnv more than
    3 dB over its mean sdr_in_cnv; the staged lane's event log read back
@@ -92,8 +93,9 @@ pass):
    of the output scale and 1e-3 dB of its batched run, and through the
    plain versions on the host (``device='cpu'``) within 1e-4 and 0.01 dB;
    the sequential engine (the same 4 scoring workers), unrecorded, on the
-   two clips byte-identical to the recorded pipelined chunk, with the same
-   launches;
+   driver's mesh lane in a 1-rank NCCL world of its own, on the two clips
+   byte-identical to the recorded pipelined meshless chunk, its scores
+   equal, with the same launches;
    the streaming lane (``solver='jacobi-pallas'``: 1 STFT, 2 eigensolver
    launches) finite and above its input; ``export_z`` of one clip finite.
    Each driver run's parts are timed on the host clock.
@@ -273,23 +275,49 @@ pass):
    oracle entry's ``delta_sdr_512tap`` over 2 dB, every delta finite, the
    CRNN entry printed beside the oracle's, and its STFT and covariance
    kernels launched.
+3m. Multi-GPU (``disco_tpu_torch.parallel``) at world size 1: each mesh
+   lane opens a 1-rank NCCL world of its own and tears it down after it,
+   as a user's run on one card does (the contract pins the card count to
+   1, and NCCL takes one rank a card), and every sharded path runs its
+   collectives on a
+   ``(batch 1, node 1)`` mesh beside its meshless twin, the counters set to
+   0 before each and read after, the twin's launches equal to its own:
+   ``tango_sharded`` on the north-star clip with ``solver='fused'`` and
+   ``cov_impl='auto'`` bit-identical to ``tango``, its ring exchange
+   bit-identical to the ``all_gather`` one, with a ``(K,)`` ``z_mask``
+   dropping node 2 and a NaN frame in node K-3's mixture (its z NaN, the
+   guard excluding it) bit-identical to ``tango(z_mask=...)``, and with
+   ``solver='jacobi-pallas'`` bit-identical; ``tango_frame_sharded`` on a
+   ``(node 1, frame 1)`` mesh within 1e-4 of the output scale of ``tango``
+   (its covariances the einsum: 0 covariance and 2 fused-solve launches);
+   ``tango_batch_sharded`` on phase 3d's 16 distinct clips bit-identical
+   to ``tango`` on the batch; ``fit`` of the canonical CRNN on the 1-rank
+   mesh, 2 epochs over two halves of phase 3f's batch, losses, parameters
+   and checkpoint bytes equal to the meshless fit's; the flywheel gate's
+   data-parallel leg at one rank on three shards of seeded records, in the
+   world the leg opens itself.  Phase 3e's sequential twin runs the
+   driver's mesh lane, and phase 3k runs
+   ``disco-torch-train --data-parallel 1`` (its checkpoint byte-identical
+   to the meshless command's) and ``disco-torch-tango --rirs 1 2 --mesh 1
+   1`` (its tree byte-identical, its launches equal).  The cross-rank
+   exchanges are held on gloo ranks by the CPU tests.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
    full 626-frame clip (2 eigensolver launches), each with the counters
    set to 0 before and read after; ``streaming_tango_scan`` bit-identical
    to ``per_block_reference``; the eigensolver bit-identical to its
-   plain version on the matrices of one window; windows 2-4 through the
+   plain version on the matrices of one window; windows 2-3 through the
    plain versions from the state after window 1 within 1e-4 rel-l2 and
    0.1 dB SI-SDR of the kernels' windows (cut from windows 2-9 to make room
-   for phase 3k; the first 2 windows from the warm start through the plain
-   versions printed beside the kernels', cut from 9 to make room for phase
-   3j); the windows' SI-SDR gain at
+   for phases 3k and 3m; the first window from the warm start through the
+   plain versions printed beside the kernels', cut from 9 to make room for
+   phases 3j and 3m); the windows' SI-SDR gain at
    node 0 over the noisy reference mic within 0.2 dB of the JAX package's
    on the same windows (``JAX_WINDOWS_GAIN_DB``) after 1, 2 and 3 s; the
    full-clip stream's more than 3 dB after the recursion's first three
    seconds.  The bf16 lane's nine windows (the bf16 STFT kernel): scan
-   bit-identical to the per-block loop, windows 2-4 within 1e-4 rel-l2
+   bit-identical to the per-block loop, windows 2-3 within 1e-4 rel-l2
    of the plain versions, the windows' SI-SDR gains within 0.1 dB of the
    f32 lane's.
 5. CUDA-event times: the offline path on a 16-clip batch in both lanes, the streaming
@@ -371,14 +399,14 @@ CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
 #: phase 4 holds windows 2 .. PLAIN_WINDOWS against the plain versions (~9 s a
-#: window there); the kernels run all N_WINDOWS
-PLAIN_WINDOWS = 4
+#: window there; cut from 4 to 3 for phase 3m); the kernels run all N_WINDOWS
+PLAIN_WINDOWS = 3
 #: phase 4: the windows run from the warm start through the plain versions,
 #: beside the kernels' (printed, not held to a bound).  Cut from N_WINDOWS to
-#: 2 to make room for phase 3j: a window of plain versions takes ~9 s on the
-#: card (32 plain eigensolver calls), and the first windows are where the
-#: warm start's roundoff shows
-COLD_WINDOWS = 2
+#: 2 to make room for phase 3j, and to 1 for phase 3m: a window of plain
+#: versions takes ~9 s on the card (32 plain eigensolver calls), and the
+#: first window is where the warm start's roundoff shows most
+COLD_WINDOWS = 1
 BLOCKS_PER_DISPATCH = 16
 STREAM_SDR_FROM_S = 3.0  # the full-clip stream's SI-SDR is read after this many seconds
 #: SI-SDR gain at node 0 after t s of the JAX package's ``streaming_clip_fused``
@@ -1458,22 +1486,34 @@ def phase3e_corpus(d: SimpleNamespace) -> None:
         # (4): the engines on two clips write byte-identical trees: the
         # staged lane's recorded pipelined chunk above against a sequential,
         # unrecorded run with the same scoring workers (scoring is host
-        # numpy; the CPU tests hold inline scoring against the workers)
+        # numpy; the CPU tests hold inline scoring against the workers).
+        # The sequential twin runs the driver's mesh lane on a (batch 1,
+        # node 1) mesh of a 1-rank NCCL world (phase 3m's), so the same
+        # files and scores also hold the mesh lane to the meshless run
+        from disco_tpu_torch.parallel import make_mesh, single_rank_world
+
         t0 = time.perf_counter()
-        with counted("corpus sequential (unrecorded)", lanes["staged"][1], d.launches):
-            batched(tmp / "sequential", rirs[:CORPUS_BATCH], max_batch=CORPUS_BATCH,
-                    pipeline=False, score_workers=CORPUS_WORKERS)
+        with single_rank_world("cuda"), counted(
+                "corpus sequential (unrecorded, 1-rank mesh)", lanes["staged"][1], d.launches):
+            seq = batched(tmp / "sequential", rirs[:CORPUS_BATCH], max_batch=CORPUS_BATCH,
+                          pipeline=False, score_workers=CORPUS_WORKERS,
+                          mesh=make_mesh(device="cuda"))
         seq_tree = _tree(tmp / "sequential")
         pipe_tree = {str(p.relative_to(tmp / "staged")): p.read_bytes()
                      for r in rirs[:CORPUS_BATCH]
                      for p in driver.clip_artifacts(tmp / "staged", r, NOISE, SNR_RANGE, K)}
         same = seq_tree == pipe_tree
-        print(f"phase 3e: sequential engine on {CORPUS_BATCH} clips, unrecorded, vs the staged "
-              f"lane's recorded pipelined chunk ({CORPUS_WORKERS} scoring workers each): "
-              f"{len(seq_tree)} files, trees byte-identical {same}, launches "
-              f"equal {d.launches['corpus sequential (unrecorded)'] == d.launches['corpus staged']}"
-              f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-        require(same and len(seq_tree) == CORPUS_BATCH * (2 + 10 * K), "engine trees differ")
+        scores = set(seq) == set(rirs[:CORPUS_BATCH]) and all(
+            np.array_equal(seq[r][k], results["staged"][r][k]) for r in seq for k in seq[r])
+        seq_launches = d.launches["corpus sequential (unrecorded, 1-rank mesh)"]
+        print(f"phase 3e: sequential engine on the 1-rank mesh on {CORPUS_BATCH} clips, "
+              f"unrecorded, vs the staged lane's recorded pipelined meshless chunk "
+              f"({CORPUS_WORKERS} scoring workers each): {len(seq_tree)} files, trees "
+              f"byte-identical {same}, scores equal {scores}, launches equal "
+              f"{seq_launches == d.launches['corpus staged']} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        require(same and scores and len(seq_tree) == CORPUS_BATCH * (2 + 10 * K),
+                "engine trees differ")
 
         # (5): the streaming lane with the eigensolver kernel
         t0 = time.perf_counter()
@@ -3007,11 +3047,22 @@ def phase3k_command_line(d: SimpleNamespace) -> None:
                 ["--scene", "living", "--noise", "ssn", *n_files, "--path_data", ds,
                  "--out", str(tmp / "lists")]))
             require(len(out) == 12 and len(out[0]) == CLI_RIRS, "disco-lists")
+            train_argv = ["--scene", "living", "--noise", "ssn", *n_files, "--path_data", ds,
+                          "--n_epochs", "2", "--single_channel"]
             run = step("disco-train", lambda: train.main(
-                ["--scene", "living", "--noise", "ssn", *n_files, "--path_data", ds,
-                 "--save_path", str(tmp / "models"), "--n_epochs", "2", "--single_channel"]))
+                train_argv + ["--save_path", str(tmp / "models")]))
         ckpt = tmp / "models" / f"{run}_model.msgpack"
         require(ckpt.exists(), ("the trained checkpoint", ckpt))
+        # phase 3m's CLI twin: --data-parallel 1, in the 1-rank world the
+        # command opens
+        with tally("3k train --data-parallel 1", d.launches):
+            run_dp = step("disco-train --data-parallel 1", lambda: train.main(
+                train_argv + ["--save_path", str(tmp / "models_dp"), "--data-parallel", "1"]))
+        same_ckpt = (tmp / "models_dp" / f"{run_dp}_model.msgpack").read_bytes() == \
+            ckpt.read_bytes()
+        print(f"phase 3m (on phase 3k's tree): disco-train --data-parallel 1 checkpoint "
+              f"byte-identical to the meshless command's {same_ckpt}", flush=True)
+        require(same_ckpt, "disco-train --data-parallel 1 differs from the meshless command")
 
         log = tmp / "tango.jsonl"
         with tally("3k tango --rirs --solver fused", d.launches):
@@ -3032,6 +3083,17 @@ def phase3k_command_line(d: SimpleNamespace) -> None:
         print(f"phase 3k: disco-tango vs enhance_rirs_batched: {len(tree_cli)} artifacts, "
               f"byte-identical {same}; figures written: {figs}", flush=True)
         require(same and len(res) == CLI_RIRS, "the CLI's tree differs from the direct call's")
+        # phase 3m's CLI twin: --mesh 1 1, in the 1-rank world the command
+        # opens
+        with tally("3k tango --rirs --mesh 1 1", d.launches):
+            step("disco-tango --rirs --solver fused --mesh 1 1", lambda: tango.main(
+                [*rirs, *common, "--dataset", ds, "--solver", "fused",
+                 "--out_root", str(tmp / "res_mesh"), "--mesh", "1", "1"]))
+        same_mesh = _tree(tmp / "res_mesh") == tree_cli
+        mesh_launches = d.launches["3k tango --rirs --mesh 1 1"] == cli_launches
+        print(f"phase 3m (on phase 3k's tree): disco-tango --mesh 1 1 vs the meshless command: "
+              f"byte-identical {same_mesh}, launches equal {mesh_launches}", flush=True)
+        require(same_mesh and mesh_launches, "disco-tango --mesh 1 1 differs")
         report = step("disco-obs report", lambda: obs_cli.main(["report", str(log)]))
         require(report["clips"] == CLI_RIRS and report["manifest"]["tool"] == "disco-tango",
                 "disco-obs report of the tango log")
@@ -3217,6 +3279,183 @@ def phase3l_milestones(d: SimpleNamespace) -> None:
     print(f"phase 3l took {total:.1f} s (parts {json.dumps(seconds)})", flush=True)
 
 
+#: phase 3m: the fields of a TangoResult that the sharded paths compute
+MESH_FIELDS = ("yf", "sf", "nf", "z_y", "z_s", "z_n", "zn")
+#: phase 3m: the fit on the 1-rank mesh — windows of phase 3f's batch in two
+#: training batches and one validation batch, two epochs
+MESH_FIT_EPOCHS = 2
+
+
+def _same_result(a, b) -> bool:
+    """Bit for bit, NaN where the other has NaN."""
+    import torch
+
+    return all(torch.equal(torch.nan_to_num(getattr(a, f), nan=0.0),
+                           torch.nan_to_num(getattr(b, f), nan=0.0))
+               and torch.equal(getattr(a, f).isnan(), getattr(b, f).isnan())
+               for f in MESH_FIELDS)
+
+
+def mesh_twin(d: SimpleNamespace, label: str, meshless, sharded, kernels) -> tuple:
+    """Run the meshless call and its sharded twin with the counters set to
+    0 before each and read after; the twin must launch what the meshless
+    call does, and each kernel of ``kernels`` at least once."""
+    import torch
+
+    with tally(f"3m {label} (meshless)", d.launches):
+        want = meshless()
+    with tally(f"3m {label}", d.launches):
+        got = sharded()
+    torch.cuda.synchronize()
+    a, b = d.launches[f"3m {label}"], d.launches[f"3m {label} (meshless)"]
+    require(a == b and all(a[k] > 0 for k in kernels), ("3m launches", label, a, b))
+    return got, want
+
+
+def phase3m_multi_gpu(d: SimpleNamespace) -> None:
+    """Multi-GPU (``disco_tpu_torch.parallel``) at world size 1 on the one
+    card: a 1-rank NCCL world carries a ``(batch 1, node 1)`` mesh, and
+    every sharded path runs its collectives over it and is held against
+    its meshless twin on the north-star clip, launch for launch; the
+    flywheel gate's data-parallel leg then opens and tears down a world of
+    its own.  The cross-rank exchanges are held by the CPU tests on gloo
+    ranks."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from disco_tpu_torch.enhance.tango import oracle_masks, tango
+    from disco_tpu_torch.flywheel import write_shard
+    from disco_tpu_torch.flywheel.check import check_data_parallel
+    from disco_tpu_torch.nn.training import fit
+    from disco_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        single_rank_world,
+        tango_batch_sharded,
+        tango_frame_sharded,
+        tango_sharded,
+    )
+    from disco_tpu_torch.promote.check import tiny_arch
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=build) as tmp:
+        tmp = Path(tmp)
+        with single_rank_world("cuda"):
+            require(dist.get_world_size() == 1 and "nccl" in str(dist.get_backend()),
+                    "phase 3m needs a 1-rank NCCL world")
+            mesh = make_mesh(device="cuda")
+            Y, S, N, m = d.Y, d.S, d.N, d.m
+            checks = {}
+
+            # node-sharded: fused solve and covariance kernels, bit for bit
+            got, want = mesh_twin(
+                d, "tango_sharded fused", lambda: tango(Y, S, N, m, m, solver="fused"),
+                lambda: tango_sharded(Y, S, N, m, m, mesh, solver="fused"),
+                ("masked_cov", "fused_mwf"))
+            checks["node fused"] = _same_result(got, want)
+            ring = tango_sharded(Y, S, N, m, m, mesh, solver="fused", z_exchange="ring")
+            checks["ring = all_gather"] = _same_result(ring, got)
+            del ring, got, want
+            # the fault mask: node 2 dropped, node K - 3's z NaN (a NaN frame
+            # in its mixture makes its step-1 statistics and so its z NaN; the
+            # guard excludes it)
+            bad = K - 3
+            Yf = Y.clone()
+            Yf[bad, :, :, Y.shape[-1] // 2] = float("nan")
+            zm = torch.ones(K, device=d.dev)
+            zm[2] = 0.0
+            got, want = mesh_twin(
+                d, "tango_sharded z_mask",
+                lambda: tango(Yf, S, N, m, m, solver="fused", z_mask=zm),
+                lambda: tango_sharded(Yf, S, N, m, m, mesh, solver="fused", z_mask=zm),
+                ("masked_cov", "fused_mwf"))
+            others = [k for k in range(K) if k != bad]
+            checks["z_mask"] = (_same_result(got, want)
+                                and bool(torch.isfinite(got.yf[others]).all()))
+            del got, want, Yf
+            got, want = mesh_twin(
+                d, "tango_sharded jacobi-pallas",
+                lambda: tango(Y, S, N, m, m, solver="jacobi-pallas"),
+                lambda: tango_sharded(Y, S, N, m, m, mesh, solver="jacobi-pallas"),
+                ("masked_cov", "eigh_jacobi"))
+            checks["node jacobi-pallas"] = _same_result(got, want)
+            del got, want
+
+            # frame-sharded: the einsum covariances (no covariance kernel), the
+            # solve
+            mesh2 = make_mesh_2d(1, 1, device="cuda")
+            with tally("3m tango_frame_sharded", d.launches):
+                frame = tango_frame_sharded(Y, S, N, m, m, mesh2, solver="fused")
+            ref = tango(Y, S, N, m, m, solver="fused")
+            frame_err = max(max_rel(getattr(frame, f), getattr(ref, f)) for f in MESH_FIELDS)
+            fl = d.launches["3m tango_frame_sharded"]
+            checks["frame"] = (frame_err <= TOL["clip"] and fl["masked_cov"] == 0
+                               and fl["fused_mwf"] == 2)
+            del frame, ref
+
+            # batch-sharded: the 16 distinct clips of phase 3d
+            Yb, Sb, Nb = d.crnn_batch
+            Mb = oracle_masks(Sb, Nb, "irm1")
+            got, want = mesh_twin(
+                d, "tango_batch_sharded", lambda: tango(Yb, Sb, Nb, Mb, Mb, solver="fused"),
+                lambda: tango_batch_sharded(Yb, Sb, Nb, Mb, Mb, mesh, solver="fused"),
+                ("masked_cov", "fused_mwf"))
+            checks["batch"] = _same_result(got, want)
+            del got, want, Mb
+            torch.cuda.empty_cache()
+            t_tango = time.perf_counter() - t_phase
+
+            # fit on the 1-rank mesh against the meshless fit: losses,
+            # parameters and checkpoint bytes
+            x0, y0 = (np.asarray(a) for a in d.train["batch"])
+            half = len(x0) // 2
+            train = [(x0[:half], y0[:half]), (x0[half:], y0[half:])]
+            fits = {}
+            for lane, msh in (("meshless", None), ("mesh", mesh)):
+                model, state = canonical_train_state(x0.shape[1], device=d.dev)
+                with tally(f"3m fit {lane}", d.launches):
+                    _, tr, va, _ = fit(model, state, lambda: iter(train),
+                                       lambda: iter(train[:1]), MESH_FIT_EPOCHS,
+                                       save_path=tmp / lane, run_name="m3", verbose=False,
+                                       mesh=msh)
+                fits[lane] = (tr, va, {k: v.clone() for k, v in model.state_dict().items()},
+                              (tmp / lane / "m3_model.msgpack").read_bytes())
+            (tr_a, va_a, sd_a, ck_a), (tr_b, va_b, sd_b, ck_b) = fits["meshless"], fits["mesh"]
+            checks["fit"] = (np.array_equal(tr_a, tr_b) and np.array_equal(va_a, va_b)
+                             and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+                             and ck_a == ck_b)
+        # the flywheel gate's data-parallel leg at one rank, on shards of
+        # seeded records of the served geometry, in the world it opens
+        rng = np.random.default_rng(16)
+        tap = tmp / "tap"
+        tap.mkdir()
+        for i in range(3):
+            def cplx(*shape):
+                return (rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape)).astype(np.complex64)
+            write_shard(tap / f"tap-{i + 1:06d}.shard.msgpack", [
+                {"session": "m3", "seq": 2 * i + j, "t": float(j), "Y": cplx(K, C, 257, 8),
+                 "yf": cplx(K, 257, 8),
+                 "mask_z": rng.uniform(0.05, 0.95, (K, 257, 8)).astype(np.float32),
+                 "mask_w": rng.uniform(0.05, 0.95, (K, 257, 8)).astype(np.float32)}
+                for j in range(2)])
+        failures = []
+        leg = check_data_parallel(failures, tap, tmp, tiny_arch(257, 4), win_len=4, ranks=1,
+                                  device="cuda")
+        checks["flywheel data-parallel leg"] = not failures
+        if failures:
+            print(f"phase 3m: flywheel leg failures {failures}", flush=True)
+    print(f"phase 3m: 1-rank NCCL mesh on the card: {json.dumps(checks)}; frame-sharded "
+          f"within {frame_err:.3e} of scale; flywheel leg {json.dumps(leg)}; "
+          f"{t_tango:.1f} s for the TANGO twins, {time.perf_counter() - t_phase:.1f} s "
+          "in all", flush=True)
+    require(all(checks.values()), ("phase 3m", checks))
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -3329,7 +3568,7 @@ def check_scan_vs_per_block(d: SimpleNamespace, precision: str) -> None:
 def phase4_bf16_windows(d: SimpleNamespace, f32_gains: dict) -> None:
     """The streaming windows in the bf16 lane (the bf16 STFT kernel, the
     bf16 tail accumulation, the eigensolver): scan against the per-block
-    loop bit for bit, windows 2-4 against the plain versions from the state
+    loop bit for bit, windows 2-3 against the plain versions from the state
     after window 1 (within 1e-4 fed the STFT kernel's spectra, within the
     lane's 1e-2 from the signal: see :func:`phase3_bf16_clip`), and the
     windows' SI-SDR gains within 0.1 dB of the f32 lane's."""
@@ -3812,7 +4051,7 @@ def main() -> int:
                         ("3g", phase3g_simulation), ("3h", phase3h_serving),
                         ("3i", phase3i_flywheel), ("3j", phase3j_gates),
                         ("3k", phase3k_command_line), ("3l", phase3l_milestones),
-                        ("4", phase4_streaming_path)):
+                        ("3m", phase3m_multi_gpu), ("4", phase4_streaming_path)):
         timed(name, phase, d)
     entries = timed("5", phase5_times, d)
     timed("6", phase6_breakdown, d)

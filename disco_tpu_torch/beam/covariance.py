@@ -7,11 +7,26 @@ from __future__ import annotations
 import torch
 
 
-def frame_mean_covariance(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+def frame_mean_covariance(a: torch.Tensor, b: torch.Tensor | None = None,
+                          group=None) -> torch.Tensor:
     """Frame-averaged spatial covariance: (..., C, F, T) ->
-    (..., F, C, C) ``mean_t a[..., c, f, t] conj(b[..., d, f, t])``."""
+    (..., F, C, C) ``mean_t a[..., c, f, t] conj(b[..., d, f, t])``.
+
+    ``group``: when the frame axis is sharded over the ranks of a process
+    group (sequence parallelism, ``parallel.tango_frame_sharded``), the
+    local frame sums and the frame count are ``all_reduce``d (SUM) over it,
+    so every shard gets the global mean; None leaves the arithmetic as it
+    is."""
     b = a if b is None else b
-    return torch.einsum("...cft,...dft->...fcd", a, b.conj()) / a.shape[-1]
+    if group is None:
+        return torch.einsum("...cft,...dft->...fcd", a, b.conj()) / a.shape[-1]
+    import torch.distributed as dist
+
+    cov = torch.einsum("...cft,...dft->...fcd", a, b.conj()).contiguous()
+    dist.all_reduce(torch.view_as_real(cov) if cov.is_complex() else cov, group=group)
+    count = torch.tensor(a.shape[-1], dtype=torch.int64, device=a.device)
+    dist.all_reduce(count, group=group)
+    return cov / int(count)
 
 
 def masked_covariances(y: torch.Tensor, mask: torch.Tensor):

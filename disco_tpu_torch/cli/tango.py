@@ -7,10 +7,13 @@ the 'None'-string convention).  ``--rir`` runs ``enhance.driver.enhance_rir``
 (staged, ``--chained`` or ``--streaming``), ``--rirs`` the corpus engine
 ``enhance_rirs_batched``, each on ``--device``.
 
-The JAX parser's flags all parse.  Two have no machinery in the port:
-``--mesh`` (multi-GPU, ROADMAP Queue 1 item 5) exits naming it, and
-``--compile-cache`` is accepted and does nothing (the port compiles
-nothing at run time; its one build cache is ``nvcc``'s, under
+The JAX parser's flags all parse.  ``--mesh BATCH NODE`` runs the corpus
+engine on a ``(batch, node)`` mesh of ``torch.distributed`` ranks
+(``disco_tpu_torch.parallel``): one rank in this process (``--mesh 1 1``),
+or several launched by ``torchrun --nproc_per_node N``, which
+``distributed_init`` picks up; it refuses what the JAX CLI refuses, with
+its messages.  ``--compile-cache`` is accepted and does nothing (the port
+compiles nothing at run time; its one build cache is ``nvcc``'s, under
 ``build/kernels/``).  ``--cov_impl xla`` and ``--stft_impl xla`` name the
 plain versions, which never run on a CUDA tensor (``ops.resolve``): on the
 card they exit naming the flag.
@@ -37,10 +40,6 @@ from disco_tpu_torch.cli.common import (
 from disco_tpu_torch.device import resolve_device
 
 _POLICIES = ["None", "local", "distant", "compressed", "use_oracle_refs", "use_oracle_zs"]
-
-#: the refusal of the flags that need more than one device
-MULTI_GPU = ("needs multi-GPU, which the port does not have yet (ROADMAP Queue 1, item 5); "
-             "it runs on one device")
 
 
 def build_parser():
@@ -106,8 +105,9 @@ def build_parser():
                         "accumulators; the rounding points of ops/resolve.py)")
     p.add_argument("--mesh", nargs=2, type=int, default=None, metavar=("BATCH", "NODE"),
                    help="--rirs mode only: run each chunk on a (BATCH, NODE) "
-                        "device mesh — not ported yet (multi-GPU, ROADMAP "
-                        "Queue 1 item 5): the port exits naming it")
+                        "mesh of torch.distributed ranks (clips over BATCH, "
+                        "nodes over NODE; launch BATCH x NODE > 1 ranks with "
+                        "torchrun); BATCH must divide --batch_size")
     add_fault_args(p)
     add_ledger_arg(p, "clip", default_hint="<out_root or results>/"
                    "ledger_<scenario>_<sav_dir>_<noise>.jsonl")
@@ -237,6 +237,33 @@ def check_impl_flags(args, device) -> None:
             )
 
 
+def check_mesh(args, device) -> None:
+    """``--mesh BATCH NODE``: join the ranks' world when torchrun started
+    this process, then the JAX CLI's checks with its messages (the
+    world's ranks are the devices)."""
+    from disco_tpu_torch.parallel import distributed_init
+    from disco_tpu_torch.parallel.multihost import world_size
+
+    distributed_init(device=device.type)
+    n_batch, n_node = args.mesh
+    n_dev = world_size()
+    if n_batch * n_node > n_dev:
+        raise SystemExit(
+            f"--mesh {n_batch} {n_node} needs {n_batch * n_node} devices; "
+            f"{n_dev} available"
+        )
+    if args.batch_size % n_batch:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must be divisible by the mesh "
+            f"batch axis ({n_batch})"
+        )
+    if 4 % n_node:  # the DISCO array has 4 nodes (tango.py:30)
+        raise SystemExit(f"the 4-node array is not divisible over {n_node} mesh nodes")
+    if n_batch * n_node < n_dev:
+        raise SystemExit(f"--mesh {n_batch} {n_node} names {n_batch * n_node} ranks; the "
+                         f"torch.distributed world has {n_dev}")
+
+
 def main(argv=None):
     """``disco-tango`` console entry point."""
     args = build_parser().parse_args(argv)
@@ -247,7 +274,7 @@ def main(argv=None):
     if args.mesh is not None and args.rirs is None:
         raise SystemExit("--mesh needs batched corpus mode (--rirs)")
     if args.mesh is not None:
-        raise SystemExit(f"--mesh {MULTI_GPU}")
+        check_mesh(args, device)
     check_impl_flags(args, device)
     args.fault_spec = resolve_fault_spec(args)
     args.ledger = resolve_ledger(args)
@@ -287,8 +314,14 @@ def _run(args, policy, device):
         if args.streaming:
             raise SystemExit("--streaming needs per-RIR mode (--rir)")
         from disco_tpu_torch.enhance.driver import enhance_rirs_batched
+        from disco_tpu_torch.parallel import make_mesh, single_rank_world
 
-        with trace_cm:
+        with trace_cm, (single_rank_world(device.type) if args.mesh is not None
+                        else contextlib.nullcontext()):
+            mesh = None
+            if args.mesh is not None:
+                mesh = make_mesh(n_batch=args.mesh[0], n_node=args.mesh[1],
+                                 device=device.type)
             results = enhance_rirs_batched(
                 args.dataset, args.scenario, range(args.rirs[0], args.rirs[0] + args.rirs[1]),
                 args.noise, save_dir=args.sav_dir, snr_range=tuple(args.snr),
@@ -300,7 +333,7 @@ def _run(args, policy, device):
                 chained=args.chained,
                 fault_spec=args.fault_spec,
                 ledger=args.ledger, resume=args.resume,
-                pipeline=not args.no_pipeline, device=device,
+                pipeline=not args.no_pipeline, device=device, mesh=mesh,
             )
         print(f"{len(results)} RIRs enhanced (batched)")
         return results

@@ -8,8 +8,12 @@ hard-coded hyperparameters train.py:66-85), on the port's training stack
 best-checkpoint gating, early stop and resume; checkpoints are the JAX
 package's msgpack files).
 
-``--data-parallel`` 0 or 1 trains on one device, as the JAX CLI's 1-device
-mesh does; more devices exit naming multi-GPU (ROADMAP Queue 1, item 5)."""
+``--data-parallel N`` trains on a ``(batch N, node 1)`` mesh of
+``torch.distributed`` ranks (``disco_tpu_torch.parallel``; the
+data-parallel lane of ``fit``): N = 1 is one rank in this process, as the
+JAX CLI's 1-device mesh; N > 1 ranks are launched by ``torchrun
+--nproc_per_node N``, which ``distributed_init`` picks up, and rank 0
+writes the checkpoints.  0 (the default) trains without a mesh."""
 from __future__ import annotations
 
 import argparse
@@ -62,9 +66,10 @@ def build_parser():
                         "(default: the tapped block length; must fit "
                         "inside one block)")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="shard the batch axis over N devices — 0 or 1 trains "
-                        "on one device; N > 1 needs multi-GPU, not ported yet "
-                        "(ROADMAP Queue 1 item 5): the port exits naming it")
+                   help="shard the batch axis over an N-rank mesh "
+                        "(torch.distributed; launch N > 1 ranks with torchrun): "
+                        "state replicated, each rank steps on its slice of the "
+                        "batch; 0 = no mesh.  1 is the one-rank mesh")
     p.add_argument("--precision", default="f32", choices=["f32", "bf16"],
                    help="training compute lane: 'bf16' arms mixed precision — "
                         "bf16 apply-time params and activations, float32 "
@@ -89,10 +94,8 @@ def main(argv=None):
     """``disco-train`` console entry point."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.data_parallel > 1:
-        from disco_tpu_torch.cli.tango import MULTI_GPU
-
-        raise SystemExit(f"--data-parallel {args.data_parallel} {MULTI_GPU}")
+    if args.data_parallel:
+        check_data_parallel(args, device)
     with obs_session(args, tool="disco-train"):
         preflight = run_preflight(args)
         from disco_tpu_torch import obs as _obs
@@ -114,6 +117,44 @@ def main(argv=None):
             # a corrupt/truncated --weights checkpoint is a clean CLI error
             # naming the path, never a raw msgpack traceback
             raise SystemExit(f"--weights: {e}")
+
+
+def check_data_parallel(args, device) -> None:
+    """``--data-parallel N``: join the ranks' world when torchrun started
+    this process, then refuse a world that is not N ranks or a batch that
+    does not divide over them (the messages of ``disco-torch-tango
+    --mesh``)."""
+    from disco_tpu_torch.parallel import distributed_init
+    from disco_tpu_torch.parallel.multihost import world_size
+
+    distributed_init(device=device.type)
+    n, n_dev = args.data_parallel, world_size()
+    if n > n_dev:
+        raise SystemExit(f"--data-parallel {n} needs {n} devices; {n_dev} available")
+    if n < n_dev:
+        raise SystemExit(f"--data-parallel {n} names {n} ranks; the torch.distributed world "
+                         f"has {n_dev}")
+    batch = args.batch_size or TrainConfig().batch_size
+    if batch % n:
+        raise SystemExit(f"--batch_size {batch} must be divisible by the mesh batch axis ({n})")
+    if n > 1 and args.shards is not None and args.ledger is not None:
+        # every rank's shard stream would append to the one dataset ledger
+        raise SystemExit("--ledger with --shards trains on one rank: the dataset ledger has "
+                         "one writer (drop --ledger or use --data-parallel 1)")
+
+
+def _mesh_lane(args, device):
+    """(context, mesh) of ``--data-parallel``: the 1-rank world this
+    process makes for N = 1 (a torchrun world is kept), and the
+    ``(batch N, node 1)`` mesh made inside it; (null context, None) at 0."""
+    import contextlib
+
+    if not args.data_parallel:
+        return contextlib.nullcontext(), lambda: None
+    from disco_tpu_torch.parallel import make_mesh, single_rank_world
+
+    return single_rank_world(device.type), lambda: make_mesh(
+        n_node=1, n_batch=args.data_parallel, device=device.type)
 
 
 def _build(arch: dict, seed: int, device, rnn: bool = False):
@@ -171,21 +212,24 @@ def _run_shards(args, device):
                          f"of {win_len} frames")
     state = create_train_state(model, tx, first[0], seed=args.seed)
 
-    state, train_losses, val_losses, run_name = fit(
-        model, state,
-        ds.batch_fn(batch, shuffle=True, ledger=args.ledger),
-        ds.batch_fn(batch, shuffle=False),
-        n_epochs=args.n_epochs,
-        save_path=args.save_path,
-        output_frames=cfg.output_frames,
-        resume_from=none_str(args.weights),
-        patience=cfg.early_stop_patience,
-        ledger=args.ledger,
-        precision=args.precision,
-        promote_dir=args.promote_dir,
-        promote_arch=arch if args.promote_dir else None,
-        device=device,
-    )
+    world, mesh_of = _mesh_lane(args, device)
+    with world:
+        state, train_losses, val_losses, run_name = fit(
+            model, state,
+            ds.batch_fn(batch, shuffle=True, ledger=args.ledger),
+            ds.batch_fn(batch, shuffle=False),
+            n_epochs=args.n_epochs,
+            save_path=args.save_path,
+            output_frames=cfg.output_frames,
+            resume_from=none_str(args.weights),
+            patience=cfg.early_stop_patience,
+            ledger=args.ledger,
+            precision=args.precision,
+            promote_dir=args.promote_dir,
+            promote_arch=arch if args.promote_dir else None,
+            device=device,
+            mesh=mesh_of(),
+        )
     print(f"run {run_name}: best val loss {np.nanmin(val_losses):.6f}")
     return run_name
 
@@ -257,7 +301,8 @@ def _run(args, device):
     from disco_tpu_torch.obs.metrics import trace_to
 
     trace_cm = trace_to(args.trace_dir) if args.trace_dir else contextlib.nullcontext()
-    with trace_cm:
+    world, mesh_of = _mesh_lane(args, device)
+    with trace_cm, world:
         state, train_losses, val_losses, run_name = fit(
             model, state,
             subset_batches(train_idx, shuffle=True),
@@ -271,6 +316,7 @@ def _run(args, device):
             promote_dir=args.promote_dir,
             promote_arch=arch if args.promote_dir else None,
             device=device,
+            mesh=mesh_of(),
         )
     print(f"run {run_name}: best val loss {np.nanmin(val_losses):.6f}")
     return run_name

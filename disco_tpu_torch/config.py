@@ -113,11 +113,13 @@ class CorpusConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh axes of the node-sharded pipeline (SURVEY.md §2.9).  The
-    port runs on one device; the fields are kept so the JAX package's files
-    load unchanged."""
+    """Mesh dims of the sharded pipelines (SURVEY.md §2.9): ``n_node``
+    ranks over the nodes, ``n_batch`` over clips, ``n_frame`` over STFT
+    frames.  ``disco_tpu_torch.parallel.mesh_from_config`` builds the
+    ``torch.distributed`` DeviceMesh it describes over a world of that many
+    ranks (one process a card)."""
 
-    n_node: int | None = None  # None -> all local devices
+    n_node: int | None = None  # None -> every rank the other dims leave
     n_batch: int = 1
     n_frame: int = 1  # sequence-parallel frame-axis shards
 

@@ -38,10 +38,17 @@ room top view from the clip's validated infos ``.npy``
 the clip, best-effort — a figure that cannot be drawn (no matplotlib, no
 infos) is skipped, never fatal — and absent from the ledger's artifacts.
 
-Left for later slices: ``mesh`` (multi-card, with its
-``oracle_masks_batched`` runner) and ``compile_cache`` (the port compiles
-nothing at run time; its kernels build once into
-``build/kernels/<sha256>/``).
+Multi-card (``mesh``, a ``(batch, node)`` mesh of ``disco_tpu_torch.
+parallel``): every rank runs :func:`enhance_rirs_batched` with the same
+arguments (SPMD), loads the same chunks, enhances its clips and nodes
+through ``parallel.tango_batch_sharded`` (the oracle masks by the
+``oracle_masks_batched`` runner; with oracle masks a rank transforms only
+its own nodes), and the chunk's result is gathered to rank 0, which alone
+scores, writes the artifacts and the run ledger and returns the results
+(the other ranks return ``{}``).  The metrics are
+the meshless run's.  ``compile_cache`` is not carried over: the port
+compiles nothing at run time; its kernels build once into
+``build/kernels/<sha256>/``.
 """
 from __future__ import annotations
 
@@ -694,7 +701,7 @@ def _batched_masks(Yb, Sb, Nb, models, mask_type, mu, n_nodes, z_sigs, device=No
 def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str = "local",
                        solver: str = "power", cov_impl: str = "auto", precision: str = "f32",
                        z_mask_arr=None, z_nan_arr=None, chained: bool = False,
-                       stft_impl: str = "auto", device=None):
+                       stft_impl: str = "auto", device=None, mesh=None, n_nodes: int = 4):
     """The per-chunk batch runners of :func:`enhance_rirs_batched`:
     ``(run_batch, run_batch_with_masks)`` over (B, K, C, F, T) STFT stacks
     (oracle masks of ``mask_type`` computed from S and N vs masks passed
@@ -705,6 +712,11 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
     time-domain stacks — STFT, oracle masks, both MWF steps and the six
     scoring ISTFTs; the fault masks are rejected there.
 
+    With a ``mesh`` the runners take this rank's (B_loc, K_loc, C, F, T)
+    shard and route through ``parallel.tango_batch_sharded`` (the oracle
+    masks counted as ``oracle_masks_batched``); ``chained`` and
+    ``precision='bf16'`` are refused there, as in the JAX package.
+
     The JAX package donates the STFT stacks to its jitted runners; here the
     driver drops its references to them once a runner returns.  Each runner
     counts its call signatures under the JAX package's label
@@ -713,6 +725,11 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
     """
     dev = resolve_device(device)
     if chained:
+        if mesh is not None:
+            raise ValueError(
+                "chained batch runners are a single-device lane; mesh runs "
+                "stay on the staged STFT-stack runners"
+            )
         if z_mask_arr is not None or z_nan_arr is not None:
             raise ValueError(
                 "chained batch runners have no z-exchange host seam; run "
@@ -728,6 +745,10 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
                 device=dev)
 
         return run_batch_chained, None
+    if mesh is not None:
+        return _mesh_runners(mesh, mask_type=mask_type, mu=mu, policy=policy, solver=solver,
+                             cov_impl=cov_impl, precision=precision, z_mask_arr=z_mask_arr,
+                             z_nan_arr=z_nan_arr, n_nodes=n_nodes)
 
     def batch_tango(Yb, Sb, Nb, Mz, Mw):
         return tango(Yb, Sb, Nb, Mz, Mw, mu=mu, policy=policy, mask_type=mask_type,
@@ -742,6 +763,36 @@ def make_batch_runners(*, mask_type: str = "irm1", mu: float = 1.0, policy: str 
     def run_batch(Yb, Sb, Nb):
         m = oracle_masks(Sb, Nb, mask_type)
         return batch_tango(Yb, Sb, Nb, m, m)
+
+    return run_batch, run_batch_with_masks
+
+
+def _mesh_runners(mesh, *, mask_type, mu, policy, solver, cov_impl, precision, z_mask_arr,
+                  z_nan_arr, n_nodes):
+    """The runners of the mesh lane (:func:`make_batch_runners`)."""
+    from disco_tpu_torch.ops.resolve import resolve_precision
+    from disco_tpu_torch.parallel import tango_batch_sharded
+
+    if resolve_precision(precision) != "f32":
+        raise ValueError("precision='bf16' is a single-device lane; mesh runs are f32")
+    oracle_mask_fn = obs_accounting.counted_jit(
+        partial(oracle_masks, mask_type=mask_type), label="oracle_masks_batched")
+
+    def run_batch_with_masks(Yb, Sb, Nb, Mz, Mw):
+        zmb = znb = None
+        if z_mask_arr is not None:
+            B = Yb.shape[0]
+            zm = torch.as_tensor(z_mask_arr, dtype=torch.float32, device=Yb.device)
+            zmb = zm.expand((B,) + tuple(zm.shape))
+            if z_nan_arr is not None:
+                znb = torch.as_tensor(z_nan_arr, device=Yb.device).expand(B, n_nodes)
+        return tango_batch_sharded(Yb, Sb, Nb, Mz, Mw, mesh, mu=mu, policy=policy,
+                                   mask_type=mask_type, solver=solver, cov_impl=cov_impl,
+                                   z_mask_b=zmb, z_nan_b=znb)
+
+    def run_batch(Yb, Sb, Nb):
+        Mb = oracle_mask_fn(Sb, Nb)
+        return run_batch_with_masks(Yb, Sb, Nb, Mb, Mb)
 
     return run_batch, run_batch_with_masks
 
@@ -776,6 +827,7 @@ def enhance_rirs_batched(
     resume: bool = False,
     pipeline: bool = True,
     device=None,
+    mesh=None,
 ):
     """Corpus-scale enhancement: many RIRs per launch.
 
@@ -819,13 +871,46 @@ def enhance_rirs_batched(
     ``device``: ``"cuda"`` when None (RuntimeError without a CUDA device),
     ``"cpu"`` for the plain versions on the host.
 
+    ``mesh``: optional ``(batch, node)`` mesh (``parallel.make_mesh``) — a
+    collective call: every rank of the mesh runs it with the same
+    arguments, and each chunk runs as ``parallel.tango_batch_sharded``
+    over the ranks (clips over ``batch``, nodes over ``node``); the device
+    is the mesh's.  ``max_batch`` must divide over the ``batch`` dim and
+    ``n_nodes`` over ``node``; a tail chunk keeps the full batch.  Rank 0
+    alone scores, writes and keeps the ledger; it returns the results, the
+    other ranks ``{}``.  ``chained`` and ``precision='bf16'`` are refused.
+    The metrics are the meshless run's (module docstring).
+
     Returns {rir: results dict} for the RIRs actually processed.
     """
     if chained:
+        if mesh is not None:
+            raise ValueError(
+                "chained=True is a single-device lane; mesh runs stay on "
+                "the staged STFT-stack runners"
+            )
         _check_chained(False, models, fault_spec)
     if solver is None:
         solver = "fused" if chained else "power"
-    dev = resolve_device(device)
+    writer, lanes = True, None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        import torch.distributed as dist
+
+        from disco_tpu_torch.parallel.mesh import dim_size, mesh_device
+
+        dev = mesh_device(mesh)
+        n_b, n_k = dim_size(mesh, "batch"), dim_size(mesh, "node")
+        if max_batch % n_b:
+            raise ValueError(f"max_batch {max_batch} must be divisible by the mesh batch "
+                             f"axis ({n_b})")
+        if n_nodes % n_k:
+            raise ValueError(f"the {n_nodes}-node array is not divisible over {n_k} mesh nodes")
+        writer = dist.get_rank() == 0
+        lanes = (mesh.get_local_rank("batch"), n_b, mesh.get_local_rank("node"), n_k)
+        if not writer:
+            ledger = None
 
     fault_plan = None
     z_mask_arr = z_nan_arr = None
@@ -844,7 +929,7 @@ def enhance_rirs_batched(
 
     if ledger is not None and not isinstance(ledger, RunLedger):
         ledger = RunLedger(ledger)
-    if resume:
+    if resume and writer:
         # a real crash (process death) can leave abandoned *.tmp.<pid>
         # partial writes; sweep them before probing
         litter = [p for root_ in sorted({str(out_of(r)) for r in rirs})
@@ -871,7 +956,7 @@ def enhance_rirs_batched(
     # index pass: group pending RIRs by bucketed length, reading one channel
     # per clip to learn its length
     groups: dict[int, list] = {}
-    for rir in rirs:
+    for rir in rirs if writer else ():
         out = out_of(rir)
         if not force:
             if unit_rir(rir, noise) in ledger_done:
@@ -893,11 +978,25 @@ def enhance_rirs_batched(
         L = len(read_wav(probe)[0])
         groups.setdefault(bucket_length(L, bucket) if bucket else L, []).append(
             (rir, out, layout))
+    if mesh is not None:
+        # every rank runs rank 0's work list, chunk for chunk
+        plan = [groups]
+        dist.broadcast_object_list(plan, src=0)
+        groups = plan[0]
+
+    def stop_now() -> bool:
+        """A graceful stop on any rank stops every rank between chunks."""
+        stop = run_interrupt.stop_requested()
+        if mesh is None:
+            return stop
+        flag = torch.tensor(int(stop), device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     run_batch, run_batch_with_masks = make_batch_runners(
         mask_type=mask_type, mu=mu, policy=policy, solver=solver, cov_impl=cov_impl,
         precision=precision, z_mask_arr=z_mask_arr, z_nan_arr=z_nan_arr, chained=chained,
-        stft_impl=stft_impl, device=dev)
+        stft_impl=stft_impl, device=dev, mesh=mesh, n_nodes=n_nodes)
 
     # one entry per (bucket, chunk) launch, bucket then offset order
     work_items = [(Lp, items[start:start + max_batch]) for Lp, items in groups.items()
@@ -937,9 +1036,11 @@ def enhance_rirs_batched(
             ss.append(np.pad(s, pad))
             ns.append(np.pad(n, pad))
         # a remainder chunk pads to the next power of two by repeating its
-        # first clip
+        # first clip; a mesh run keeps the full batch, which divides over
+        # the mesh's batch dim
         n_real = len(ys)
-        tail = min(max_batch, 1 << max(n_real - 1, 0).bit_length())
+        tail = max_batch if mesh is not None else min(
+            max_batch, 1 << max(n_real - 1, 0).bit_length())
         while len(ys) < tail:
             ys.append(ys[0])
             ss.append(ss[0])
@@ -953,16 +1054,39 @@ def enhance_rirs_batched(
         run_chaos.tick("pre_dispatch", bucket=lc.bucket, n_clips=lc.n_real)
         with obs_events.stage("chunk_enhance", n_clips=lc.n_real, bucket=lc.bucket,
                               batch=len(lc.ys)):
-            x = torch.stack([torch.as_tensor(a, device=dev) for a in (lc.ys, lc.ss, lc.ns)])
+            stacks = (lc.ys, lc.ss, lc.ns)
+            oracle = models == (None, None)
+            if lanes is not None:
+                # this rank's clips, and its nodes when the masks are the
+                # oracle's (the CRNN's step-2 masks read every node's z)
+                b, n_b, k, n_k = lanes
+                per, per_k = len(lc.ys) // n_b, n_nodes // n_k
+                stacks = tuple(a[b * per:(b + 1) * per] for a in stacks)
+                if oracle:
+                    stacks = tuple(a[:, k * per_k:(k + 1) * per_k] for a in stacks)
+            x = torch.stack([torch.as_tensor(a, device=dev) for a in stacks])
             if chained:
                 return run_batch(x[0], x[1], x[2])
             spec = stft_fused(x, impl=stft_impl, precision=precision)
             del x
-            if models == (None, None):
-                return run_batch(spec[0], spec[1], spec[2])
-            Mz, Mw = _batched_masks(spec[0], spec[1], spec[2], models, mask_type, mu, n_nodes,
-                                    z_sigs, device=dev, step1=_step1_2d(mu))
-            return run_batch_with_masks(spec[0], spec[1], spec[2], Mz, Mw)
+            if oracle:
+                Mz = Mw = None
+            else:
+                Mz, Mw = _batched_masks(spec[0], spec[1], spec[2], models, mask_type, mu,
+                                        n_nodes, z_sigs, device=dev, step1=_step1_2d(mu))
+                if lanes is not None:
+                    # this rank's nodes: views, in the STFT's own memory
+                    # layout (the meshless run's operands, cut)
+                    spec = spec[:, :, k * per_k:(k + 1) * per_k]
+                    Mz, Mw = (a[:, k * per_k:(k + 1) * per_k] for a in (Mz, Mw))
+            res = (run_batch(spec[0], spec[1], spec[2]) if Mz is None
+                   else run_batch_with_masks(spec[0], spec[1], spec[2], Mz, Mw))
+            if lanes is None:
+                return res
+            from disco_tpu_torch.parallel import gather_result
+
+            # rank 0 alone scores: the chunk's result is assembled there
+            return gather_result(res, mesh, dst=0)
 
     def submit_scoring(lc, host_of):
         """Queue (or run inline) one chunk's per-clip scoring; ``host_of(i)``
@@ -992,22 +1116,26 @@ def enhance_rirs_batched(
     stopping = False  # graceful interruption: wind down between chunks
     with ThreadPoolExecutor(max_workers=max(score_workers, 1)) as ex:
         if pipeline:
-            prefetcher = ChunkPrefetcher(work_items, load_chunk,
-                                         stop_requested=run_interrupt.stop_requested)
+            # a mesh run's loader never stops on its own: the ranks agree on
+            # the stop between chunks
+            prefetcher = ChunkPrefetcher(
+                work_items, load_chunk,
+                stop_requested=run_interrupt.stop_requested if mesh is None else (lambda: False))
             n_done_chunks = 0
             try:
                 for lc, stall_s in prefetcher:
-                    if run_interrupt.stop_requested():
+                    if stop_now():
                         stopping = True
                         break  # graceful stop: in-flight scoring drains below
                     t0 = time.perf_counter()
                     with obs_events.stage("chunk_pipeline", n_clips=lc.n_real, bucket=lc.bucket,
                                           stall_ms=round(stall_s * 1e3, 3)):
                         res_b = dispatch_chunk(lc)
-                        host_of = host_payload(
-                            res_b, lc, fetch_chained_host if chained else fetch_chunk_host)
-                        del res_b
-                        submit_scoring(lc, host_of)
+                        if writer:
+                            host_of = host_payload(
+                                res_b, lc, fetch_chained_host if chained else fetch_chunk_host)
+                            del res_b
+                            submit_scoring(lc, host_of)
                     note_chunk_overlap(stall_s, time.perf_counter() - t0)
                     n_done_chunks += 1
                 # the prefetcher may be the one that saw the stop: the loop
@@ -1018,11 +1146,13 @@ def enhance_rirs_batched(
                 prefetcher.close()
         else:
             for Lp, chunk in work_items:
-                if run_interrupt.stop_requested():
+                if stop_now():
                     stopping = True
                     break
                 lc = load_chunk(Lp, chunk)
                 res_b = dispatch_chunk(lc)
+                if not writer:
+                    continue
                 if chained:
                     host_of = host_payload(res_b, lc, fetch_chained_host)
                 else:

@@ -37,6 +37,13 @@ which decouples it from the GEVD, so the surviving channels solve the
 subset problem; with every link down a node falls back to its local MWF.
 With ``z_mask=None`` and ``z_nan=None`` the fault-free path runs
 unchanged.
+
+The steps run on a rank's shard under ``disco_tpu_torch.parallel``:
+``tango_step2`` takes the (..., K') node indices of the shard's nodes,
+and both steps take a ``frame_group`` (the JAX package's ``frame_axis``):
+with one, each covariance is a frame sum ``all_reduce``d over the group's
+ranks, by the materializing einsum.  Without one every result is what it
+was.
 """
 from __future__ import annotations
 
@@ -84,22 +91,32 @@ def oracle_masks(S: torch.Tensor, N: torch.Tensor, mask_type: str = "irm1", ref_
     return tf_mask(S[..., ref_mic, :, :], N[..., ref_mic, :, :], mask_type)
 
 
-def _masked_cov_pair(X, mask, cov_impl: str = "auto", precision: str = "f32"):
+def _masked_cov_pair(X, mask, cov_impl: str = "auto", precision: str = "f32",
+                     frame_group=None):
     """(Rss, Rnn) of ``mask * X`` / ``(1 - mask) * X`` — the shared
     mask -> covariance stage of both steps, through the ``cov_impl`` seam
     (``ops.cov_ops.masked_covariances_fused``).  ``mask`` is (..., F, T)
-    shared or (..., C, F, T) per-channel."""
-    return masked_covariances_fused(X, mask, impl=cov_impl, precision=precision)
+    shared or (..., C, F, T) per-channel.  With a ``frame_group``
+    (sequence parallelism) the masked copies are made and their frame sums
+    ``all_reduce``d (:func:`frame_mean_covariance`), as the JAX package's
+    ``frame_axis`` path does: no covariance kernel runs there."""
+    if frame_group is None:
+        return masked_covariances_fused(X, mask, impl=cov_impl, precision=precision)
+    m = mask[..., None, :, :] if mask.ndim == X.ndim - 1 else mask
+    return (frame_mean_covariance(m * X, group=frame_group),
+            frame_mean_covariance((1.0 - m) * X, group=frame_group))
 
 
 # ------------------------------------------------------------------ step 1
-def _step1_covariances(Y, S, N, mask_z, oracle_stats: bool, cov_impl: str, precision: str):
+def _step1_covariances(Y, S, N, mask_z, oracle_stats: bool, cov_impl: str, precision: str,
+                       frame_group=None):
     """The covariance stage of step 1: (..., F, C, C) (Rss, Rnn) pencils
     from the masked mixture, or from the oracle S/N under ``oracle_stats``
     (reference tango.py:326-349)."""
     if oracle_stats:
-        return frame_mean_covariance(S), frame_mean_covariance(N)
-    return _masked_cov_pair(Y, mask_z, cov_impl, precision)
+        return (frame_mean_covariance(S, group=frame_group),
+                frame_mean_covariance(N, group=frame_group))
+    return _masked_cov_pair(Y, mask_z, cov_impl, precision, frame_group)
 
 
 def _apply(w, X):
@@ -133,20 +150,24 @@ def _step1_apply(w, t1, Y, S, N, ref_mic: int = 0):
 
 
 def tango_step1(Y, S, N, mask_z, mu: float = 1.0, oracle_stats: bool = False, ref_mic: int = 0,
-                solver: str = "power", cov_impl: str = "auto", precision: str = "f32"):
+                solver: str = "power", cov_impl: str = "auto", precision: str = "f32",
+                frame_group=None):
     """Step 1: local rank-1 GEVD-MWF -> compressed signals, for every node
     of the leading axes at once (reference tango.py:326-377).
 
     Args:
       Y, S, N: (..., C, F, T) complex STFTs of mixture / speech / noise.
       mask_z: (..., F, T) step-1 mask at the reference mic.
+      frame_group: the process group the frame axis is sharded over
+        (sequence parallelism; the JAX package's ``frame_axis``), or None.
 
     Returns:
       dict of (..., F, T): z_y/z_s/z_n/zn and the t1-projected references
       z_t1_s/z_t1_n.
     """
     precision = check_canonical_precision(precision)
-    Rss, Rnn = _step1_covariances(Y, S, N, mask_z, oracle_stats, cov_impl, precision)
+    Rss, Rnn = _step1_covariances(Y, S, N, mask_z, oracle_stats, cov_impl, precision,
+                                  frame_group)
     w, t1 = rank1_gevd(Rss, Rnn, mu=mu, solver=solver, precision=precision)
     return _step1_apply(w, t1, Y, S, N, ref_mic)
 
@@ -182,11 +203,19 @@ def finite_z_guard(z_y):
     return fin.all(dim=-1).all(dim=-1).to(z_y.real.dtype)
 
 
-def _z_stats(policy: Policy, all_z, all_S_ref, all_N_ref, mask_type: str):
+def _z_stats(policy: Policy, all_z, all_masks_w, all_S_ref, all_N_ref, mask_type: str):
     """Speech / noise statistic streams of the exchanged z under the
-    policies that substitute other signals for them (tango.py:401-411):
-    (..., K, F, T) each, indexed by source node."""
+    policies that substitute other signals for them (tango.py:401-411), and
+    under 'none' and 'distant' when the frame axis is sharded (their folded
+    covariances then give way to these): (..., K, F, T) each, indexed by
+    source node."""
     z_y = all_z["z_y"]
+    if policy is None or policy == "none":
+        # unmasked z for the speech stats, zn for the noise (tango.py:421-424)
+        return z_y, all_z["zn"]
+    if policy == "distant":
+        # each z_j masked with its producer's own mask (tango.py:398-400)
+        return all_masks_w * z_y, (1.0 - all_masks_w) * z_y
     if policy == "compressed":
         # a mask estimated on the compressed signal itself
         mc = tf_mask(all_z["z_s"], all_z["z_n"], mask_type)
@@ -201,7 +230,7 @@ def _z_stats(policy: Policy, all_z, all_S_ref, all_N_ref, mask_type: str):
 def tango_step2(Y, S, N, mask_w_k, k, all_z, all_masks_w, all_S_ref, all_N_ref,
                 mu: float = 1.0, policy: Policy = "local", ref_mic: int = 0,
                 mask_type: str = "irm1", solver: str = "power", cov_impl: str = "auto",
-                precision: str = "f32", z_avail=None):
+                precision: str = "f32", z_avail=None, frame_group=None):
     """Step 2: global rank-1 GEVD-MWF on ``[y_k ‖ z_{j!=k}]`` (reference
     tango.py:380-455).
 
@@ -219,6 +248,11 @@ def tango_step2(Y, S, N, mask_w_k, k, all_z, all_masks_w, all_S_ref, all_N_ref,
         consumer sees them: (..., K) for an int ``k``, (..., K', K) for a
         sequence (1 = arrived intact).  Unavailable channels are excluded
         from the MWF (module docstring); None is the fault-free path.
+      frame_group: the process group the frame axis is sharded over, or
+        None.  With one, every covariance is a frame sum ``all_reduce``d
+        over it, and 'none' and 'distant' give up their folded
+        covariances for the materializing ones, as the JAX package's
+        ``frame_axis`` path does.
 
     Returns:
       (yf, sf, nf): filtered mixture / speech / noise, (F, T) / (..., K', F, T).
@@ -246,15 +280,16 @@ def tango_step2(Y, S, N, mask_w_k, k, all_z, all_masks_w, all_S_ref, all_N_ref,
 
     in_y = torch.cat([Y, sel(all_z["z_y"])], dim=-3)  # (..., C+K-1, F, T)
     m_c = mask_w_k[..., None, :, :].expand(mask_w_k.shape[:-2] + (C,) + mask_w_k.shape[-2:])
+    fold_ok = frame_group is None  # sequence parallelism keeps the all_reduce path
     if policy == "local":
         # node k's own mask on every stacked channel (tango.py:418-420)
-        Rss, Rnn = _masked_cov_pair(in_y, mask_w_k, cov_impl, precision)
-    elif policy == "distant":
+        Rss, Rnn = _masked_cov_pair(in_y, mask_w_k, cov_impl, precision, frame_group)
+    elif policy == "distant" and fold_ok:
         # producer masks on the z channels, the consumer mask on the local
         # mics (tango.py:398-400): one per-channel mask stack
         chan_mask = torch.cat([m_c, take(all_masks_w)], dim=-3)
         Rss, Rnn = _masked_cov_pair(in_y, chan_mask, cov_impl, precision)
-    elif policy in (None, "none"):
+    elif policy in (None, "none") and fold_ok:
         # unmasked z for the speech stats, zn = y_ref - z for the noise
         # stats (tango.py:421-424): two single-covariance folds
         ones = torch.ones(m_c.shape[:-3] + (K - 1,) + m_c.shape[-2:],
@@ -264,10 +299,11 @@ def tango_step2(Y, S, N, mask_w_k, k, all_z, all_masks_w, all_S_ref, all_N_ref,
         Rnn = weighted_cov_folded(in_zn, torch.cat([1.0 - m_c, ones], dim=-3), precision)
     else:
         # other signals in place of z: the materializing covariances
-        zs_stat, zn_stat = _z_stats(policy, all_z, all_S_ref, all_N_ref, mask_type)
+        zs_stat, zn_stat = _z_stats(policy, all_z, all_masks_w, all_S_ref, all_N_ref, mask_type)
         m = mask_w_k[..., None, :, :]
-        Rss = frame_mean_covariance(torch.cat([m * Y, sel(zs_stat)], dim=-3))
-        Rnn = frame_mean_covariance(torch.cat([(1.0 - m) * Y, sel(zn_stat)], dim=-3))
+        Rss = frame_mean_covariance(torch.cat([m * Y, sel(zs_stat)], dim=-3), group=frame_group)
+        Rnn = frame_mean_covariance(torch.cat([(1.0 - m) * Y, sel(zn_stat)], dim=-3),
+                                    group=frame_group)
     if z_avail is not None:
         Rnn = _regularize_excluded(Rnn, C, a_oth[..., None, :])
     w, _ = rank1_gevd(Rss, Rnn, mu=mu, solver=solver, precision=precision)  # (..., F, D)

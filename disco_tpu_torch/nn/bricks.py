@@ -21,6 +21,8 @@ fields exist only because jit statics must hash; the port needs none.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -168,6 +170,52 @@ class RNN(nn.Module):
         return x
 
 
+#: (process group, ranks) of the data-parallel step running on this thread
+#: (:func:`global_batch_statistics`), or None
+_BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar("batch_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_statistics(group, n_ranks: int):
+    """Inside the body, BatchNorm in training mode normalizes by the
+    statistics of the GLOBAL batch, split in equal slices over the
+    ``n_ranks`` ranks of ``group`` (:func:`flax_batch_norm`), as the JAX
+    package's data-parallel step does: its GSPMD program is the one-device
+    program over the whole batch."""
+    token = _BATCH_GROUP.set((group, int(n_ranks)))
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce(SUM)`` over a process group with its adjoint: the
+    gradient of a sum over ranks is the sum over ranks of the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A differentiable ``all_reduce(SUM)`` of ``x`` over ``group``."""
+    return _AllReduceSum.apply(x, group)
+
+
 def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """flax's ``nn.BatchNorm(momentum=0.9)`` on (B, C, H, W) with ``bn``'s
     parameters and running statistics: in training mode the batch's
@@ -178,11 +226,23 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     ``running_var`` with the unbiased variance, n/(n-1) times flax's.  In
     eval mode the running statistics normalize.  The arithmetic is float32
     whatever ``x``'s dtype (flax's float32 reductions; the bf16 lane's
-    statistics stay float32), and the result takes ``x``'s dtype."""
+    statistics stay float32), and the result takes ``x``'s dtype.
+
+    Under :func:`global_batch_statistics` with more than one rank, ``x`` is
+    this rank's slice of the global batch: the slice's mean and mean square
+    over 1/n of the batch are summed over the ranks by a differentiable
+    ``all_reduce``, so the normalization, its gradient and the running
+    statistics are the global batch's on every rank.  With one rank, or
+    outside it, the arithmetic is the one above."""
     xf = x.float()
     if bn.training:
         mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        msq = (xf * xf).mean((0, 2, 3))
+        lane = _BATCH_GROUP.get()
+        if lane is not None and lane[1] > 1:
+            group, n_ranks = lane
+            mean, msq = all_reduce_sum(torch.stack([mean, msq]) / n_ranks, group).unbind(0)
+        var = torch.clamp(msq - mean * mean, min=0.0)
         with torch.no_grad():
             m = 1.0 - bn.momentum  # flax's momentum
             bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)

@@ -24,15 +24,22 @@ for RMSprop, nested as ``{'0': {}, '1': <that>}`` behind
 the other (:mod:`.serialization` reads and writes them without msgpack or
 flax).
 
-Not carried over:
+Data parallelism (``mesh``, a :class:`~torch.distributed.device_mesh.
+DeviceMesh` with a ``batch`` dim; ``parallel.make_mesh``): every rank holds
+the same state (:func:`replicate_to_mesh`), is given the same global batch
+and steps on its slice of it; BatchNorm normalizes by the global batch's
+statistics (``bricks.global_batch_statistics``), dropout draws the global
+batch's mask and each rank takes its rows, and the gradients are summed
+over the ranks before the optimizer clips them, so each step is the
+one-process step on the global batch up to the order of its sums (and bit
+for bit at one rank).  Only rank 0 writes checkpoints, loss files and the
+ledger.
 
-* the JAX package memoizes its jitted step pair and offers
-  ``clear_step_fn_caches``; both exist against jit retraces, and an eager
-  step has nothing to retrace (each ``make_step_fns`` pair counts its own
-  call signatures under the ``train_step``/``eval_step`` labels,
-  ``obs.accounting.counted_jit``);
-* ``mesh`` (data-parallel steps) comes with multi-GPU (ROADMAP Queue 1,
-  item 5) and raises ``NotImplementedError``.
+Not carried over: the JAX package memoizes its jitted step pair and offers
+``clear_step_fn_caches``; both exist against jit retraces, and an eager
+step has nothing to retrace (each ``make_step_fns`` pair counts its own
+call signatures under the ``train_step``/``eval_step`` labels,
+``obs.accounting.counted_jit``).
 
 ``fit`` records the JAX package's telemetry: the ``train_steps`` counter,
 the ``train_loss``/``val_loss`` gauges, ``train_empty_epochs`` with its
@@ -68,6 +75,7 @@ from torch import nn
 from torch.func import functional_call
 
 from disco_tpu_torch.device import check_module_device, prefetch_to_device, resolve_device
+from disco_tpu_torch.nn.bricks import global_batch_statistics
 from disco_tpu_torch.nn.convert import (
     flax_absent,
     flax_from_state_dict,
@@ -155,6 +163,113 @@ def deterministic_cudnn():
         cudnn.deterministic, cudnn.benchmark = before
 
 
+def replicate_to_mesh(state: TrainState, mesh) -> TrainState:
+    """Make every rank's ``state`` rank 0's — parameters, BatchNorm
+    statistics, the optimizer's ``nu``, the step count and the dropout
+    generator, broadcast over the world — then verify it: a digest of the
+    whole state, gathered from every rank, must be one value.  The
+    data-parallel step keeps the replicas equal from there (counterpart of
+    the JAX package's ``replicate_to_mesh``; reference: none)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from disco_tpu_torch.parallel.mesh import mesh_device
+
+    mesh_device(mesh)
+    model, opt = state.model, state.optimizer
+    for p in model.parameters():
+        if "nu" not in opt.state[p]:
+            opt.state[p]["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    tensors = ([p.data for p in model.parameters()] + list(model.buffers())
+               + [opt.state[p]["nu"] for p in model.parameters()])
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src=0)
+    gen = state.generator.get_state() if state.generator is not None else None
+    meta = [int(state.step), None if gen is None else gen.numpy().tobytes()]
+    dist.broadcast_object_list(meta, src=0)
+    state.step = meta[0]
+    if meta[1] is not None:
+        state.generator.set_state(torch.frombuffer(bytearray(meta[1]), dtype=torch.uint8))
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    digest.update(repr(meta).encode())
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, digest.hexdigest())
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"replicate_to_mesh: the ranks' states differ after the broadcast "
+                           f"({len(set(seen))} distinct digests)")
+    return state
+
+
+def _batch_lane(mesh):
+    """(group, ranks, this rank's place) of a data-parallel mesh's batch
+    dim; ValueError without one, RuntimeError unless the world is the
+    mesh's."""
+    from disco_tpu_torch.parallel.mesh import dim_size, mesh_device
+
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh (parallel.make_mesh); "
+                        f"got {type(mesh).__name__}")
+    if "batch" not in names:
+        raise ValueError(f"data-parallel training needs a mesh with a 'batch' axis; got axes "
+                         f"{names}")
+    mesh_device(mesh)
+    return mesh.get_group("batch"), dim_size(mesh, "batch"), mesh.get_local_rank("batch")
+
+
+def _all_reduce_grads(params, group) -> None:
+    """Sum the gradients over ``group`` in one flat ``all_reduce``."""
+    import torch.distributed as dist
+
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view_as(g))
+
+
+@contextlib.contextmanager
+def _global_dropout(model: nn.Module, n: int, lo: int, hi: int):
+    """Each active ``nn.Dropout`` of ``model`` draws the mask of the GLOBAL
+    batch of ``n`` rows (from the same generator state on every rank) and
+    applies its rows ``[lo, hi)`` to this rank's slice, as the JAX
+    package's data-parallel step does; a rank never draws a mask of its own
+    shape."""
+    import torch.nn.functional as F
+
+    patched = [m for m in model.modules() if isinstance(m, nn.Dropout) and m.p > 0]
+
+    def ones_laid_out_as(x):
+        # the global batch's ones in x's memory order: dropout fills its mask
+        # in memory order (``empty_like`` keeps the strides), and a GRU's
+        # batch-first output is a transposed (time, batch, features) buffer
+        order = sorted(range(x.ndim), key=lambda d: -x.stride(d))
+        shape = (n,) + tuple(x.shape[1:])
+        buf = torch.ones([shape[d] for d in order], dtype=x.dtype, device=x.device)
+        return buf.permute([order.index(d) for d in range(x.ndim)])
+
+    def forward_of(m):
+        def forward(x):
+            if not m.training:
+                return x
+            return x * F.dropout(ones_laid_out_as(x), m.p, True)[lo:hi]
+        return forward
+
+    for m in patched:
+        m.forward = forward_of(m)
+    try:
+        yield
+    finally:
+        for m in patched:
+            del m.forward
+
+
 @contextlib.contextmanager
 def _dropout_seeded(state: TrainState, dev: torch.device, active: bool):
     """Seed torch's generator of ``dev`` from the state's generator for one
@@ -195,11 +310,18 @@ def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
 
     The gradients of the rows flax does not have (:func:`~disco_tpu_torch.
     nn.convert.flax_absent`) are zeroed before the update, so those rows
-    stay 0.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 5).
+    stay 0.
+
+    ``mesh``: the data-parallel lane (module docstring) — a collective
+    step: every rank of the mesh calls it with the same global batch and
+    the same state (:func:`replicate_to_mesh`) and steps on its slice; the
+    batch must divide over the mesh's ``batch`` dim, or the step raises.
+    Each rank's slice loss is weighted by its share of the batch, the
+    weighted gradients are summed over the ranks before
+    ``clip_by_global_norm`` sees them, and the loss returned is the global
+    one.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
-                                  "ROADMAP Queue 1, item 5")
+    lane = None if mesh is None else _batch_lane(mesh)
     precision = resolve_precision(precision)
     in_bounds, out_bounds = model.loss_frames(output_frames)
     n_freq = n_freq or model.input_shape[-1]
@@ -222,31 +344,61 @@ def make_step_fns(model: nn.Module, output_frames="all", n_freq=None, mesh=None,
             _x_for_loss(x, in_bounds, n_freq),
         )
 
+    def rank_slice(x, y):
+        """This rank's rows of the global batch, its share of the batch, and
+        the sharing contexts of its forward."""
+        if lane is None:
+            return x, y, None, contextlib.nullcontext()
+        group, n_ranks, r = lane
+        n = x.shape[0]
+        if n % n_ranks:
+            raise ValueError(f"a batch of {n} does not divide over the mesh's 'batch' dim "
+                             f"({n_ranks} ranks)")
+        per = n // n_ranks
+        lo, hi = r * per, (r + 1) * per
+        shared = contextlib.ExitStack()
+        shared.enter_context(global_batch_statistics(group, n_ranks))
+        if dropout and n_ranks > 1:
+            shared.enter_context(_global_dropout(model, n, lo, hi))
+        return x[lo:hi], y[lo:hi], per / n, shared
+
+    def global_loss(loss, share):
+        import torch.distributed as dist
+
+        loss = loss.detach() * share
+        dist.all_reduce(loss, group=lane[0])
+        return loss
+
     @counted_jit(label="train_step")
     def train_step(state: TrainState, x, y):
         dev = next(iter(params.values())).device
         x, y = _as_tensor(x, dev), _as_tensor(y, dev)
+        x, y, share, shared = rank_slice(x, y)
         model.train()
         with deterministic_cudnn():
-            with _dropout_seeded(state, dev, dropout):
+            with _dropout_seeded(state, dev, dropout), shared:
                 loss = loss_of(x, y)
             state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            (loss if share is None else loss * share).backward()
+            if lane is not None:
+                _all_reduce_grads(params.values(), lane[0])
             with torch.no_grad():
                 for p, rows in absent:
                     if p.grad is not None:
                         p.grad[rows] = 0.0
             state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, loss.detach() if share is None else global_loss(loss, share)
 
     @counted_jit(label="eval_step")
     def eval_step(state: TrainState, x, y):
         dev = next(iter(params.values())).device
         x, y = _as_tensor(x, dev), _as_tensor(y, dev)
+        x, y, share, _ = rank_slice(x, y)
         model.eval()
         with torch.no_grad(), deterministic_cudnn():
-            return loss_of(x, y)
+            loss = loss_of(x, y)
+        return loss if share is None else global_loss(loss, share)
 
     return train_step, eval_step
 
@@ -495,17 +647,21 @@ def fit(
     live publish seam — every improved checkpoint is also staged as a weight
     generation (:func:`publish_checkpoint`) after its epoch's ledger record
     lands; a refusal is recorded as a ``promotion`` event and training goes
-    on.  ``mesh`` is not ported yet (ROADMAP Queue 1, item 5) and raises
-    ``NotImplementedError``.
+    on.
+
+    ``mesh``: the data-parallel lane (:func:`make_step_fns`) — every rank
+    of the mesh calls ``fit`` with the same arguments and batch sources;
+    the state is made rank 0's first (:func:`replicate_to_mesh`), every
+    batch must divide over the mesh's ``batch`` dim, a graceful stop on any
+    rank stops all of them between epochs, and rank 0 alone writes the loss
+    files, the checkpoints and the ledger and publishes.  Every rank
+    returns the same losses.
     """
     from disco_tpu_torch.io.atomic import file_digest, savez_atomic
     from disco_tpu_torch.runs import chaos as run_chaos
     from disco_tpu_torch.runs import interrupt as run_interrupt
     from disco_tpu_torch.runs.ledger import RunLedger, unit_epoch
 
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh) comes with multi-GPU: "
-                                  "ROADMAP Queue 1, item 5")
     if promote_dir is not None and promote_arch is None:
         raise ValueError("fit(promote_dir=...) needs promote_arch (the build_crnn "
                          "kwargs) to stage generations with")
@@ -513,9 +669,18 @@ def fit(
     check_module_device(model, dev)
     if state.model is not model:
         raise ValueError("state is not the training state of model")
+    writer = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        _batch_lane(mesh)
+        writer = dist.get_rank() == 0
+        if not writer:
+            ledger, promote_dir, verbose = None, None, False
     if ledger is not None and not isinstance(ledger, RunLedger):
         ledger = RunLedger(ledger)
-    train_step, eval_step = make_step_fns(model, output_frames, precision=precision)
+    train_step, eval_step = make_step_fns(model, output_frames, mesh=mesh,
+                                          precision=precision)
     save_dir = Path(save_path)
     save_dir.mkdir(parents=True, exist_ok=True)
 
@@ -529,6 +694,21 @@ def fit(
         first_epoch = 0
         train_losses, val_losses = np.zeros(n_epochs), np.zeros(n_epochs)
         run_name = run_name or get_model_name()
+    if mesh is not None:
+        # data-parallel invariant: every rank starts from rank 0's state
+        # (and rank 0's run name)
+        state = replicate_to_mesh(state, mesh)
+        named = [run_name]
+        dist.broadcast_object_list(named, src=0)
+        run_name = named[0]
+
+    def stop_requested() -> bool:
+        stop = run_interrupt.stop_requested()
+        if mesh is None:
+            return stop
+        flag = torch.tensor(int(stop), device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     for cb in (train_batches, val_batches):
         hook = getattr(cb, "set_start_epoch", None)
@@ -544,7 +724,7 @@ def fit(
     recompiles0 = fit_recompiles()
     interrupted = False
     for epoch in range(first_epoch, first_epoch + n_epochs):
-        if run_interrupt.stop_requested():
+        if stop_requested():
             interrupted = True
             break  # graceful stop between epochs: all on disk, resumable
         if ledger is not None:
@@ -595,10 +775,14 @@ def fit(
         if verbose:
             print(f"epoch {epoch}\tTrain\t{train_losses[epoch]:.6f}\t"
                   f"Val\t{val_losses[epoch]:.6f}")
-        losses_path = savez_atomic(save_dir / f"{run_name}_losses.npz",
-                                   train_loss=train_losses, val_loss=val_losses)
         ckpt_path = save_dir / f"{run_name}_model.msgpack"
         improved = gate.save_model_query(val_losses[epoch])
+        if not writer:
+            if gate.early_stop_query():
+                break
+            continue
+        losses_path = savez_atomic(save_dir / f"{run_name}_losses.npz",
+                                   train_loss=train_losses, val_loss=val_losses)
         if improved:
             save_checkpoint(ckpt_path, state, train_losses, val_losses,
                             epochs_done=int(epoch) + 1)

@@ -44,12 +44,20 @@ its per-generation oracle (:func:`gen_oracle`): per-block
 :func:`~disco_tpu_torch.promote.lane.block_masks` under the generation
 each block ran under, chained block by block through ``streaming_tango``
 with the state carried — the calls the server makes, one at a time, on the
-same device.  The JAX package's check also counts ``fault`` events of the
-chaos seams; the port's chaos harness records none yet (ROADMAP Queue 1,
-item 3).
+same device.
+
+:func:`main` runs legs 1-4 as a command (``python -m
+disco_tpu_torch.promote.check``, on ``cuda`` unless given ``--device
+cpu``) and reads its event log back with the JAX gate's checks: the
+staged, promoted, canary and rollback events, exactly 2 ``crashed``
+rollback events, and one ``fault`` event with ``fault="chaos_crash"`` (the
+chaos harness records it, ``runs/chaos.py``) for each crash injected.
 """
 from __future__ import annotations
 
+import json
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -801,3 +809,96 @@ def check_model_sessions(failures: list, root, clips, configs, arch: dict, varia
             "seconds": pacer.seconds, "latency_ms": pacer.latency_ms, "ticks": ticks,
             "batched_readbacks": gets, "served_launches": served, "oracle_launches": oracle,
             "tap": tap_stats, "records": len(records), "incumbent": inc.gen_id, "store": store}
+
+
+# -- the command ------------------------------------------------------------
+def event_log_failures(events: list, crashes: int) -> list:
+    """The JAX gate's event-log checks (``disco_tpu/promote/check.py:
+    691-720``), letter for letter; ``crashes``: the chaos crashes the legs
+    injected."""
+    failures = []
+
+    def count(kind, action):
+        return sum(1 for e in events if e["kind"] == kind
+                   and e["attrs"].get("action") == action)
+
+    if not count("promotion", "staged"):
+        failures.append("event log missing the watch-dir staged event")
+    if count("promotion", "promoted") < 2:
+        failures.append("event log missing promoted events (clean + "
+                        "post-crash promotion)")
+    if not count("canary", "assign") or not count("canary", "swap"):
+        failures.append("event log missing canary assign/swap events")
+    if not count("rollback", "begin") or not count("rollback", "done"):
+        failures.append("event log missing the demotion begin/done events")
+    if count("rollback", "resume") < 1:
+        failures.append("event log missing the crash-resume rollback "
+                        "event")
+    if count("rollback", "crashed") != 2:
+        failures.append(
+            f"event log carries {count('rollback', 'crashed')} "
+            "controller-crash events, expected 2 (mid_canary + post_gate)")
+    chaos_events = [e for e in events if e["kind"] == "fault"
+                    and e["attrs"].get("fault") == "chaos_crash"]
+    if len(chaos_events) != crashes:
+        failures.append(
+            f"event log carries {len(chaos_events)} chaos_crash events, "
+            f"expected {crashes}")
+    return failures
+
+
+def main(argv=None) -> int:
+    """Run the promotion gate (the port's ``make promote-check``): legs 1-4
+    on ``--device`` (``cuda`` by default; RuntimeError without a GPU) at
+    the checks' tiny size, then the event log read back; exit 1 on a
+    failure, else print one JSON line."""
+    import argparse
+
+    from disco_tpu_torch import obs
+    from disco_tpu_torch.device import resolve_device
+
+    ap = argparse.ArgumentParser(prog="python -m disco_tpu_torch.promote.check",
+                                 description="the live weight-promotion gate")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    dev = resolve_device(ap.parse_args(argv).device)
+    failures: list[str] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        obs_log = tmp / "promote_check.jsonl"
+        with obs.recording(obs_log):
+            obs.write_manifest(tool="promote-check")
+            clips = [scene(71 + i, 14, device=dev) for i in range(2)]
+            F = clips[0].shape[-2]
+            configs = [model_config(F), model_config(F, solver="fused")]
+            arch = tiny_arch(F)
+            variables = seeded_variables(arch, 1)
+            rollback = check_rollback(failures, tmp / "rollback", clips, configs, arch,
+                                      variables, device=dev)
+            promote = check_promote(failures, tmp / "promote", clips, configs, arch,
+                                    variables, device=dev)
+            chaos_stats = check_pre_swap(failures, tmp / "pre_swap", clips, configs, arch,
+                                         variables, device=dev)
+            ctl_stats = check_controller_crash(failures, tmp / "controller", clips[0],
+                                               configs[0], arch, variables, device=dev)
+            obs.record("counters", **obs.REGISTRY.snapshot())
+        events = obs.read_events(obs_log)
+        crashes = chaos_stats["crashes_injected"] + ctl_stats["crashes_injected"]
+        failures.extend(event_log_failures(events, crashes))
+    if failures:
+        for f in failures:
+            print(f"promote-check FAIL: {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({
+        "promote_check": "ok",
+        "rollback_blocks": rollback["blocks"],
+        "promote_blocks": promote["blocks"],
+        "canary_window": WINDOW,
+        "blocks_before_crash": chaos_stats["blocks_before_crash"],
+        "crashes_injected": crashes,
+        "device": dev.type,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -32,14 +32,20 @@ the tap manifest replayed with no digest drift, and the serve SLO green in
 every sample taken while the trainer ran.  A leg's recovery is bounded in
 paced rounds, never by the wall clock.
 
-The CPU tests run a few legs at a tiny size; ``chip_smoke.py`` runs legs at
-the north-star width with the canonical CRNN.  The JAX gate also counts the
-chaos seams' ``fault`` events, which the port's chaos harness does not
-record yet (ROADMAP Queue 1, item 3).
+The CPU tests run the campaign at a tiny size; ``chip_smoke.py`` runs legs
+at the north-star width with the canonical CRNN.  :func:`main` runs the
+whole campaign as a command (``python -m disco_tpu_torch.runs.endure``, on
+``cuda`` unless given ``--device cpu``) and reads its event log back with
+the JAX gate's checks: generation-published and promoted events reaching
+:data:`MIN_GENERATIONS`, the trainer's ``run_resume`` event, and one
+``fault`` event with ``fault="chaos_crash"`` (recorded by the chaos
+harness, ``runs/chaos.py``) for each crash injected.
 """
 from __future__ import annotations
 
 import json
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -354,3 +360,85 @@ def campaign_end_asserts(failures: list, stats: dict, *,
     elif stats["slo_breaches"]:
         failures.append(f"the SLO was breached in {stats['slo_breaches']}/"
                         f"{stats['slo_samples']} samples while training ran")
+
+
+# -- the command ------------------------------------------------------------
+def event_log_failures(events: list, crashes: int, *,
+                       min_generations: int = MIN_GENERATIONS) -> list:
+    """The JAX gate's event-log checks (``disco_tpu/runs/endure.py:
+    518-545``), letter for letter; ``crashes``: the crashes the campaign
+    injected."""
+    failures = []
+
+    def count(kind, action=None):
+        return sum(1 for e in events if e["kind"] == kind
+                   and (action is None
+                        or e["attrs"].get("action") == action))
+
+    if count("generation", "published") < min_generations:
+        failures.append(
+            f"event log carries {count('generation', 'published')} "
+            f"generation-published events, need >= {min_generations}")
+    if count("promotion", "promoted") < min_generations:
+        failures.append(
+            f"event log carries {count('promotion', 'promoted')} "
+            f"promoted events, need >= {min_generations}")
+    if count("run_resume") < 1:
+        failures.append("event log missing the trainer's run_resume "
+                        "event (ledger resume never happened)")
+    n_crash_ev = sum(1 for e in events if e["kind"] == "fault"
+                     and e["attrs"].get("fault") == "chaos_crash")
+    if n_crash_ev != crashes:
+        failures.append(f"event log carries {n_crash_ev} chaos_crash "
+                        f"events, expected {crashes}")
+    return failures
+
+
+def main(argv=None) -> int:
+    """Run the endurance gate (the port's ``make endure-check``): the whole
+    campaign of :data:`SEAM_LEGS` on ``--device`` (``cuda`` by default;
+    RuntimeError without a GPU) at the checks' tiny size, then the event
+    log read back; exit 1 on a failure, else print one JSON line."""
+    import argparse
+
+    from disco_tpu_torch import obs
+    from disco_tpu_torch.device import resolve_device
+    from disco_tpu_torch.promote import check as pc
+
+    ap = argparse.ArgumentParser(prog="python -m disco_tpu_torch.runs.endure",
+                                 description="the continuous-flywheel endurance gate")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    dev = resolve_device(ap.parse_args(argv).device)
+    failures: list[str] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        obs_log = tmp / "endure_check.jsonl"
+        with obs.recording(obs_log):
+            obs.write_manifest(tool="endure-check")
+            clips = [pc.scene(131 + i, 24, device=dev) for i in range(len(SEAM_LEGS))]
+            F = clips[0].shape[-2]
+            arch = pc.tiny_arch(F)
+            stats = campaign(failures, tmp / "campaign", lambda leg: clips[leg],
+                             pc.model_config(F), arch, pc.seeded_variables(arch, 6), device=dev)
+            campaign_end_asserts(failures, stats)
+            obs.record("counters", **obs.REGISTRY.snapshot())
+        events = obs.read_events(obs_log)
+        failures.extend(event_log_failures(events, stats["crashes"]))
+    if failures:
+        for f in failures:
+            print(f"endure-check FAIL: {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({
+        "endure_check": "ok",
+        "legs": len(SEAM_LEGS),
+        "crash_seams": [s for s in SEAM_LEGS if s],
+        "crashes_injected": stats["crashes"],
+        "min_generations": MIN_GENERATIONS,
+        "canary_window": WINDOW,
+        "device": dev.type,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

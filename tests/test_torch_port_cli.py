@@ -497,14 +497,15 @@ def test_obs_trace_of_a_jax_log(tmp_path, capsys):
 
 def test_refusals(trees, tmp_path):
     """Flags whose machinery the port does not have parse and exit naming
-    it; ``xla`` impls exit naming the flag only on the card; without
-    ``--device`` a command on this CUDA-less host raises."""
+    it; the mesh flags refuse a world too small for them with the JAX
+    CLI's message; ``xla`` impls exit naming the flag only on the card;
+    without ``--device`` a command on this CUDA-less host raises."""
     root = str(trees["mix"][0])
-    with pytest.raises(SystemExit, match=r"--mesh needs multi-GPU.*Queue 1, item 5"):
-        ttango.main(["--rirs", "1", "1", "--dataset", root, "--mesh", "1", "1"] + CPU)
+    with pytest.raises(SystemExit, match=r"^--mesh 2 2 needs 4 devices; 1 available$"):
+        ttango.main(["--rirs", "1", "1", "--dataset", root, "--mesh", "2", "2"] + CPU)
     with pytest.raises(SystemExit, match=r"--mesh needs batched corpus mode"):
         ttango.main(["--rir", "1", "--dataset", root, "--mesh", "1", "1"] + CPU)
-    with pytest.raises(SystemExit, match=r"--data-parallel 2 needs multi-GPU"):
+    with pytest.raises(SystemExit, match=r"^--data-parallel 2 needs 2 devices; 1 available$"):
         ttrain.main(["--data-parallel", "2"] + CPU)
     for cmd in (["compare", "a.json", "b.json"], ["roofline", "a.json"]):
         with pytest.raises(SystemExit, match="ROADMAP Queue 1"):

@@ -226,9 +226,16 @@ def test_bf16_lane_keeps_f32_masters_and_matches_jax():
 
 
 def test_steps_refuse_a_mesh():
+    """The data-parallel lane takes a DeviceMesh with a 'batch' dim of the
+    world it runs in, nothing else."""
+    from disco_tpu_torch.parallel import make_mesh_2d, single_rank_world
+
     _, _, tmodel, _ = pair("crnn")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttr.make_step_fns(tmodel, "all", mesh=object())
+    with single_rank_world("cpu"):
+        with pytest.raises(ValueError, match="'batch' axis"):
+            ttr.make_step_fns(tmodel, "all", mesh=make_mesh_2d(1, 1, device="cpu"))
 
 
 # -------------------------------------------------- gate and names
@@ -426,7 +433,7 @@ def test_fit_device_rule_and_unported_options(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttr.fit(tmodel, tstate, EpochBatches(1), EpochBatches(2), 1, save_path=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttr.fit(tmodel, tstate, EpochBatches(1), EpochBatches(2), 1, save_path=tmp_path,
                 device="cpu", mesh=object())
 
