@@ -301,6 +301,19 @@ pass):
    to the meshless command's) and ``disco-torch-tango --rirs 1 2 --mesh 1
    1`` (its tree byte-identical, its launches equal).  The cross-rank
    exchanges are held on gloo ranks by the CPU tests.
+   Phase 3n: the cost model, the fingerprints and the roofline on the
+   card.  Every program of ``analysis.trace.programs`` runs on real CUDA
+   tensors at the catalog's shapes under the recorder and is held to its
+   committed golden (traced for the card on fake tensors): its kernel ops
+   and their counts, equal to the launch counters' deltas; its output
+   signature; its host syncs; its float64 tensors on the device, each by
+   operator, dtype and shape, those of the golden (only ``scene_batch``
+   has any).  The north-star 16-clip offline batch is held
+   to its fake trace made here.  Each stage of the headline workload
+   (``analysis.meter.stages``: 16 clips x 8 nodes x 4 mics x 10 s) is
+   timed with CUDA events (median of 5) and joined with the meter's stage
+   costs into the roofline against the card's peaks (``obs.roofline``),
+   printed before the result.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -323,8 +336,10 @@ pass):
 5. CUDA-event times: the offline path on a 16-clip batch in both lanes, the streaming
    window's latency, and per kernel the kernel, its plain version and
    (where one exists) one PyTorch library call computing the same
-   function, beside the bound from this run's shapes and the H100 SXM
-   data-sheet peaks; the eigensolver both at the full-clip stream's
+   function, beside the bound from this run's shapes (the cost model's
+   declared cost of each kernel op and its boundary bytes,
+   ``analysis.meter.costmodel``) and the H100 SXM data-sheet peaks
+   (``obs.roofline``); the eigensolver both at the full-clip stream's
    batch and at the streaming window's (2056 matrices, C=4 and C=11), the
    covariances and the fused solve both at one clip's launches and at the
    16-clip batch's, in both lanes; beside each kernel's events (which
@@ -375,9 +390,6 @@ K, C = 8, 4              # nodes, mics per node (the north-star scene)
 DUR_S = 10.0
 NOISE_SCALE = 0.5
 BATCH = 16               # clips per timed batch
-PEAK_FP32 = 67e12        # H100 SXM, FP32 outside the tensor cores (data sheet)
-PEAK_BF16 = 989e12       # H100 SXM, dense bf16 on the tensor cores (data sheet)
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth (data sheet)
 TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "clip": 1e-4,
        "stream": 1e-4, "stream_sdr_db": 0.1, "sdr_gain_db": 3.0, "witness_db": 0.2,
        "bf16_lane": 1e-2, "crnn_host": 1e-4, "crnn_route": 1e-5, "crnn_batch": 1e-5,
@@ -475,66 +487,15 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, str]:
-    """(least time in ms, what bounds it) at the data-sheet peaks: the
-    operations' (float32 outside the tensor cores unless ``peak`` says
-    otherwise) and the memory's."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, bf16: bool = False) -> tuple[float, str]:
+    """(least time in ms, what bounds it) at the card's data-sheet peaks
+    (``obs.roofline``): the operations' (float32 outside the tensor cores,
+    or dense bf16 on them) and the memory's."""
+    from disco_tpu_torch.obs import roofline
+
+    peak = roofline.PEAK_BF16 if bf16 else roofline.PEAK_FP32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / roofline.PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def stft_cost(rows: int, length: int, n_fft: int = 512, hop: int = 256):
-    """(operations, bytes) of a centered real STFT with magnitudes: per
-    frame the window, one real FFT (2.5 n log2 n operations, half those of
-    a complex radix-2 FFT) and the magnitude; the signal read once, the
-    complex spectrum and the magnitude written once."""
-    n_freq = n_fft // 2 + 1
-    frames = rows * (1 + length // hop)
-    flops = frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 4 * n_freq)
-    nbytes = rows * length * 4 + frames * n_freq * 12
-    return flops, nbytes
-
-
-def stft_bf16_cost(rows: int, length: int, n_fft: int = 512, hop: int = 256):
-    """(operations, bytes) of the bf16 lane's STFT as the DFT product it
-    is: per frame the window, the (n_fft x 2 n_freq) product (2 operations
-    a multiply-add) and the magnitude; the bytes of :func:`stft_cost`."""
-    n_freq = n_fft // 2 + 1
-    frames = rows * (1 + length // hop)
-    flops = frames * (n_fft + 2 * n_fft * 2 * n_freq + 4 * n_freq)
-    return flops, stft_cost(rows, length, n_fft, hop)[1]
-
-
-def cov_cost(batch: int, D: int, F: int, T: int, chan: bool):
-    pairs = D * (D + 1) // 2
-    per_t = pairs * (14 + (6 if chan else 0)) + (0 if chan else 5)
-    flops = batch * F * T * per_t
-    nbytes = batch * F * T * (D * 8 + (D if chan else 1) * 4) + 2 * batch * F * D * D * 8
-    return flops, nbytes
-
-
-def mwf_cost(n: int, C: int, sweeps: int):
-    """Float operations of the fused solve's chain per pencil, times n."""
-    f = 3 * C * C + 2 * C + 6                                  # traces, scale
-    for j in range(C):                                           # Cholesky
-        f += 4 * j + 3 + (C - 1 - j) * (8 * j + 2)
-    f += sum(C * (8 * i + 2) for i in range(C))                  # B = L^-1 Rss
-    f += sum(C * (8 * i + 3) for i in range(C)) + 4 * C * C      # M, re-hermitize
-    f += sweeps * (C * (C - 1) // 2) * (48 * C + 20)             # Jacobi
-    f += C + 2 + sum(8 * (C - 1 - i) + 2 for i in range(C))      # max, clip, back-sub
-    f += 6 + 12 * C                                              # filter formation
-    nbytes = n * (2 * C * C * 8 + 4 + 2 * C * 8)
-    return n * f, nbytes
-
-
-def eigh_cost(n: int, C: int, sweeps: int, complex_in: bool = True):
-    """(operations, bytes) of ``n`` fixed-sweep Jacobi eigensolves: 48 C + 20
-    float operations per rotation (the rotation's own ~20, then 16 per
-    element of two rows, two columns and two V columns); each matrix read
-    once, its diagonal and V written once."""
-    flops = n * sweeps * (C * (C - 1) // 2) * (48 * C + 20)
-    width = 8 if complex_in else 4
-    return flops, n * (C * C * width + C * 4 + C * C * width)
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -2179,6 +2140,7 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
 
     import torch
 
+    from disco_tpu_torch.analysis.meter.costmodel import kernel_cost
     from disco_tpu_torch.datagen import disco
     from disco_tpu_torch.datagen.disco import generate_disco_rirs_batched, get_wavs_list
     from disco_tpu_torch.datagen.meetit import (get_masks, load_meetit_sample,
@@ -2323,7 +2285,7 @@ def phase3g_simulation(d: SimpleNamespace) -> None:
         # plain version, torch.stft and its bound
         x = torch.as_tensor(np.stack([out["noisy"][:, 0], out["clean"][:, 0],
                                       out["noisy"][:, 0] - out["clean"][:, 0]]), device="cuda")
-        fl, nbytes = stft_cost(3 * B, x.shape[-1])
+        fl, nbytes = kernel_cost(lambda a: stft_kernel(a, with_mag=True), x)
         b_ms, b_by = bound(fl, nbytes)
         win = hann_periodic(512, device="cuda")
         d.scene_stft_x = x   # phase 5 reads its device time
@@ -3456,6 +3418,113 @@ def phase3m_multi_gpu(d: SimpleNamespace) -> None:
     require(all(checks.values()), ("phase 3m", checks))
 
 
+#: phase 3n: kernel op -> the launch counters of its kernel (f32, bf16)
+KERNEL_OPS = {"disco_torch::stft": ("stft",), "disco_torch::stft_bf16": ("stft_bf16",),
+              "disco_torch::masked_cov": ("masked_cov", "masked_cov_bf16"),
+              "disco_torch::fused_mwf": ("fused_mwf", "fused_mwf_bf16"),
+              "disco_torch::eigh_jacobi": ("eigh_jacobi",)}
+#: phase 3n: stage timings, CUDA events, the median of this many runs
+STAGE_RUNS = 5
+
+
+def held_to_fake_trace(d: SimpleNamespace, label: str, golden: dict, trace) -> dict:
+    """A program's run on the card under the recorder, held to its fake
+    trace on what does not move with the torch version (its kernel ops,
+    equal to the launch counters' deltas; its output signature; its host
+    syncs; its float64 tensors on the device, those of the golden)."""
+    from disco_tpu_torch.analysis.trace import fingerprint as fpm
+
+    fp = fpm.fingerprint_trace(trace)
+    counts = d.launches[label]
+    launched = {op: sum(counts[c] for c in cs) for op, cs in KERNEL_OPS.items()
+                if sum(counts[c] for c in cs)}
+    require(launched == fp["kernel_ops"], (label, "launches vs kernel ops", launched,
+                                           fp["kernel_ops"]))
+    diffs = fpm.portable_diff(golden, fp)
+    require(not diffs, (label, diffs))
+    return fp
+
+
+def phase3n_programs(d: SimpleNamespace) -> None:
+    """The cost model, the program fingerprints and the roofline on the
+    card: every catalog program of ``analysis.trace.programs`` run on real
+    CUDA tensors under the recorder and held to its committed golden (made
+    on fake tensors for the card); the north-star 16-clip offline batch
+    held to its fake trace, made here; each stage of the headline workload
+    timed with CUDA events and joined with the meter's stage costs into the
+    roofline."""
+    import torch
+
+    from disco_tpu_torch.analysis.meter.stages import (
+        HEADLINE,
+        STAGE_KEYS,
+        offline_stage_costs,
+        stage_programs,
+    )
+    from disco_tpu_torch.analysis.trace import fingerprint as fpm
+    from disco_tpu_torch.analysis.trace.check import load_golden
+    from disco_tpu_torch.analysis.trace.programs import PROGRAMS
+    from disco_tpu_torch.enhance.fused import tango_clip_fused
+    from disco_tpu_torch.obs import roofline
+
+    t_phase = time.perf_counter()
+    for name, spec in PROGRAMS.items():
+        label = f"3n {name}"
+        with tally(label, d.launches):
+            trace = fpm.trace_real(spec, "cuda")
+        fp = held_to_fake_trace(d, label, load_golden(name), trace)
+        print(f"phase 3n: {name} on the card: {fp['n_ops']} ops, kernels {fp['kernel_ops']}, "
+              f"host syncs {fp['host_syncs']}, out {fp['out_avals'][:2]}, device float64 "
+              f"{len(fp['f64'])}", flush=True)
+
+    # the north-star batch: 16 clips x 8 nodes x 4 mics x 10 s
+    yb, sb, nb = batch_clips(d)
+
+    def batch(y, s, n):
+        return tango_clip_fused(y, s, n, solver="fused")
+
+    structs = tuple(fpm.Struct(tuple(a.shape), a.dtype) for a in (yb, sb, nb))
+    fake = fpm.fingerprint_trace(fpm.trace_program(lambda dev: (batch, structs, {}), "cuda"))
+    with tally("3n north-star batch", d.launches):
+        rec, out = fpm.record(batch, (yb, sb, nb))
+    trace = fpm.Trace(rec.events, [rec.info(t) for t in (yb, sb, nb)], [rec.info(out)],
+                      traced="real-cuda", device="cuda")
+    fp = held_to_fake_trace(d, "3n north-star batch", fake, trace)
+    print(f"phase 3n: the 16-clip batch on the card held to its fake trace: kernels "
+          f"{fp['kernel_ops']}, out {fp['out_avals']}, host syncs {fp['host_syncs']}, device "
+          f"float64 {len(fp['f64'])}", flush=True)
+    del rec, out, trace
+
+    # each stage of the headline workload, timed, then joined with its cost
+    progs = stage_programs(HEADLINE)
+    with torch.no_grad():
+        spec, mag = progs["stft_x3"][0](yb, sb, nb)
+        masks = progs["masks"][0](mag[1], mag[2])
+        steps = (spec[0], spec[1], spec[2], masks)
+        yf = progs["tango_full"][0](*steps)
+        inputs = {"stft_x3": (yb, sb, nb), "masks": (mag[1], mag[2]),
+                  "step1_local_mwf": steps, "step1_fused_mwf": steps, "tango_full": steps,
+                  "istft": (yf,), "full_pipeline": (yb, sb, nb), "chained_clip": (yb, sb, nb)}
+        stage_ms = {}
+        for name, args in inputs.items():
+            fn = progs[name][0]
+            fn(*args)   # warm-up
+            runs = sorted(time_ms(lambda: fn(*args), reps=1, warmup=0)
+                          for _ in range(STAGE_RUNS))
+            stage_ms[name] = runs[STAGE_RUNS // 2]
+    del spec, mag, masks, steps, yf, inputs
+    stage_ms["step2_exchange_mwf"] = stage_ms.pop("tango_full") - stage_ms["step1_local_mwf"]
+    w = HEADLINE
+    record = {"metric": "stage_ms", "stage_ms": {k: stage_ms[k] for k in STAGE_KEYS},
+              "workload": {"batch": w.batch, "dur_s": w.dur_s, "fs": w.fs,
+                           "n_nodes": w.n_nodes, "mics_per_node": w.mics_per_node}}
+    result = roofline.stage_verdicts(record, costs=offline_stage_costs(HEADLINE))
+    print(roofline.render(result), flush=True)
+    print("phase 3n: roofline " + json.dumps(result), flush=True)
+    require(len(result["rows"]) == len(STAGE_KEYS), ("roofline rows", result["rows"]))
+    print(f"phase 3n took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -3626,9 +3695,9 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     and its library call, with the bound of this run's shapes."""
     import torch
 
+    from disco_tpu_torch.analysis.meter.costmodel import kernel_cost
     from disco_tpu_torch.enhance.fused import tango_clip_fused
     from disco_tpu_torch.ops import cov_ops, eigh_ops, mwf_ops, stft_ops
-    from disco_tpu_torch.ops.eigh_ops import default_sweeps
 
     yb, sb, nb = batch_clips(d)
     audio_s = BATCH * K * DUR_S
@@ -3664,7 +3733,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     rows = d.x.reshape(-1, d.L)
 
     entries = []
-    fl, nbytes = stft_cost(rows.shape[0], d.L)
+    fl, nbytes = kernel_cost(lambda a: stft_ops.stft_kernel(a, with_mag=True), d.x)
     b_ms, b_by = bound(fl, nbytes)
     entries.append({
         "name": "stft", "route": "cuda", "source": "disco_tpu_torch/csrc/stft.cu",
@@ -3681,8 +3750,8 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     # the bf16 lane's tensor-core DFT; its library call is one cuBLAS GEMM,
     # torch.matmul of the bf16 windowed frames and the bf16 [cos | sin]
     # table, whose output is bf16
-    fl, nbytes = stft_bf16_cost(rows.shape[0], d.L)
-    b_ms, b_by = bound(fl, nbytes, PEAK_BF16)
+    fl, nbytes = kernel_cost(lambda a: stft_ops.stft_bf16_kernel(a, with_mag=True), d.x)
+    b_ms, b_by = bound(fl, nbytes, bf16=True)
     frames = torch.nn.functional.pad(rows, (256, 256), mode="reflect").unfold(-1, 512, 256)
     frames16 = (frames * win).to(torch.bfloat16)
     table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
@@ -3706,7 +3775,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     # bf16 lane its plain version and the cuBLAS bf16 GEMM on the same rows
     xb = d.x[None].expand(BATCH, *d.x.shape).contiguous()
     rows_b = xb.reshape(-1, d.L)
-    fl, nbytes = stft_cost(rows_b.shape[0], d.L)
+    fl, nbytes = kernel_cost(lambda a: stft_ops.stft_kernel(a, with_mag=True), xb)
     entries[0]["batch_launches"] = [{
         "shape": f"batch {tuple(xb.shape)}",
         "ms": time_ms(lambda: stft_ops.stft_kernel(xb, with_mag=True), reps=10),
@@ -3718,7 +3787,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     }]
     # the f32 STFT kernel at phase 3g's scene-batch stack: its device time
     xs = d.scene_stft_x
-    fl, nbytes = stft_cost(xs.shape[0] * xs.shape[1], xs.shape[-1])
+    fl, nbytes = kernel_cost(lambda a: stft_ops.stft_kernel(a, with_mag=True), xs)
     entries[0]["batch_launches"].append({
         "shape": f"scene batch {tuple(xs.shape)}",
         "ms": time_ms(lambda: stft_ops.stft_kernel(xs, with_mag=True), reps=20),
@@ -3726,7 +3795,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
                                "stft_rfft_kernel", reps=20),
         "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes})
     del d.scene_stft_x
-    fl, nbytes = stft_bf16_cost(rows_b.shape[0], d.L)
+    fl, nbytes = kernel_cost(lambda a: stft_ops.stft_bf16_kernel(a, with_mag=True), xb)
     frames16 = (torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256)
                 * win).to(torch.bfloat16)
     table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
@@ -3741,7 +3810,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "library_ms": time_ms(lambda: torch.matmul(frames16, table16), reps=10),
         "library_call": f"torch.matmul(bf16 {tuple(frames16.shape)}, bf16 (512, 514)) -> bf16 "
                         "(cuBLAS)",
-        "bound_ms": bound(fl, nbytes, PEAK_BF16)[0], "flops": fl, "bytes": nbytes,
+        "bound_ms": bound(fl, nbytes, bf16=True)[0], "flops": fl, "bytes": nbytes,
     }]
     for e in entries[:2]:
         for row in e["batch_launches"]:
@@ -3749,9 +3818,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     del xb, rows_b, frames16, table16
 
     def cov_times(label, yy, mm, plain_reps, precision):
-        lead, (D, F, T) = yy.shape[:-3], yy.shape[-3:]
-        chan = mm.ndim == yy.ndim
-        fl, nbytes = cov_cost(math.prod(lead), D, F, T, chan)
+        fl, nbytes = kernel_cost(lambda a, b: cov_ops.masked_cov_kernel(a, b, precision), yy, mm)
         lib = (library_cov(yy, mm) if precision == "f32" else
                lambda: cov_ops.masked_covariances_folded(yy, mm, precision="bf16"))
         return {
@@ -3766,8 +3833,12 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         }
 
     def mwf_times(label, Rss, Rnn, mu, plain_reps, precision):
-        D = Rss.shape[-1]
-        fl, nbytes = mwf_cost(Rss[..., 0, 0].numel(), D, default_sweeps(D))
+        if isinstance(mu, torch.Tensor):
+            fl, nbytes = kernel_cost(lambda a, b, m: mwf_ops.fused_mwf_kernel(
+                a, b, mu=m, precision=precision), Rss, Rnn, mu)
+        else:
+            fl, nbytes = kernel_cost(lambda a, b: mwf_ops.fused_mwf_kernel(
+                a, b, mu=mu, precision=precision), Rss, Rnn)
         return {
             "shape": f"{label} {tuple(Rss.shape)}",
             "ms": time_ms(lambda: mwf_ops.fused_mwf_kernel(Rss, Rnn, mu=mu, precision=precision),
@@ -3804,8 +3875,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
             print(f"phase 5: {e['name']}: " + json.dumps(row), flush=True)
 
     def eigh_times(label, A, reps, plain_reps):
-        D = A.shape[-1]
-        fl, nbytes = eigh_cost(A[..., 0, 0].numel(), D, default_sweeps(D))
+        fl, nbytes = kernel_cost(eigh_ops.eigh_jacobi_kernel, A)
         lib_ms, lib_chunk = library_eigh_ms(A)
         return {
             "shape": f"{label} {tuple(A.shape)}",
@@ -4051,7 +4121,8 @@ def main() -> int:
                         ("3g", phase3g_simulation), ("3h", phase3h_serving),
                         ("3i", phase3i_flywheel), ("3j", phase3j_gates),
                         ("3k", phase3k_command_line), ("3l", phase3l_milestones),
-                        ("3m", phase3m_multi_gpu), ("4", phase4_streaming_path)):
+                        ("3m", phase3m_multi_gpu), ("3n", phase3n_programs),
+                        ("4", phase4_streaming_path)):
         timed(name, phase, d)
     entries = timed("5", phase5_times, d)
     timed("6", phase6_breakdown, d)

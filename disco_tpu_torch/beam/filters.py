@@ -22,7 +22,7 @@ import re
 import torch
 
 from disco_tpu_torch.core.mathx import FLOAT64_EPS
-from disco_tpu_torch.device import resolve_device
+from disco_tpu_torch.device import padded_batch, resolve_device
 from disco_tpu_torch.solver_spec import FUSED_IMPLS, RANK1_SOLVERS, parse_solver_spec  # noqa: F401
 
 # Eigenvalue clamp range of the reference (internal_formulas.py:6-7,59-62)
@@ -115,11 +115,15 @@ def _fixed_batches(fn, *mats, size: int = EIGH_BATCH):
     flat = [a.reshape(-1, n, n) for a in mats]
     m = flat[0].shape[0]
     pad = (-m) % size
-    if pad:
-        eye = torch.eye(n, dtype=mats[0].dtype, device=mats[0].device).expand(pad, n, n)
-        flat = [torch.cat([a, eye]) for a in flat]
-    parts = [fn(*chunk) for chunk in zip(*(a.split(size) for a in flat))]
-    return tuple(torch.cat(outs)[:m].reshape(lead + outs[0].shape[1:]) for outs in zip(*parts))
+    # the padding is work the function does not need: a cost model counts
+    # the batches' operators at the share of their rows that are the caller's
+    with padded_batch(m, m + pad):
+        if pad:
+            eye = torch.eye(n, dtype=mats[0].dtype, device=mats[0].device).expand(pad, n, n)
+            flat = [torch.cat([a, eye]) for a in flat]
+        parts = [fn(*chunk) for chunk in zip(*(a.split(size) for a in flat))]
+        return tuple(torch.cat(outs)[:m].reshape(lead + outs[0].shape[1:])
+                     for outs in zip(*parts))
 
 
 def _eigh_batches(A: torch.Tensor):

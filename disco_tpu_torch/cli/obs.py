@@ -27,11 +27,12 @@ Subcommands:
   (``--serve-p95-ms``, ``--queue-wait-p95-ms``, ``--max-drop-rate``,
   ``--max-evict-rate``); exits nonzero on violation.
 
-``compare`` and ``roofline`` parse as in the JAX package and exit naming
-what they wait for: ``compare`` diffs the records of a benchmark, which the
-port does not have yet, and ``roofline`` needs the static cost model of
-``analysis.meter``, which is not ported.  No subcommand touches a device;
-``--device`` is checked as in every port CLI.
+``roofline`` joins a record's measured ``stage_ms`` with the port's cost
+model (``analysis.meter``, traced for the card on fake tensors) against
+the card's peaks (``obs.roofline``).  ``compare`` parses as in the JAX
+package and exits naming what it waits for: it diffs the records of a
+benchmark, which the port does not have yet.  No subcommand touches a
+device; ``--device`` is checked as in every port CLI.
 """
 from __future__ import annotations
 
@@ -615,11 +616,50 @@ def cmd_slo(args):
     return verdict
 
 
-#: what ``compare`` and ``roofline`` wait for
+#: what ``compare`` waits for
 NOT_PORTED = {
     "compare": "diffs the records of a benchmark, and the port has no benchmark yet",
-    "roofline": "needs the static cost model of analysis.meter, which is not ported",
 }
+
+
+def load_bench_record(path) -> dict:
+    """A record from any of its on-disk shapes: a wrapper with a ``parsed``
+    field, a raw one-line JSON record, or an event log whose
+    ``bench_result`` event carries it (the JAX CLI's loader)."""
+    path = Path(path)
+    text = path.read_text()
+    try:
+        d = json.loads(text)
+        if isinstance(d, dict) and "kind" in d and "attrs" in d:
+            d = None  # a single-line event log parses as JSON too
+    except json.JSONDecodeError:
+        d = None
+    if d is None:
+        for e in reversed(read_events(path, validate=False)):
+            if e.get("kind") == "bench_result":
+                return e["attrs"]
+        raise SystemExit(f"{path}: neither a bench JSON nor an event log with a bench_result")
+    if isinstance(d, dict) and "parsed" in d:
+        d = d["parsed"]
+    if not isinstance(d, dict) or "metric" not in d:
+        raise SystemExit(f"{path}: not a bench record (no 'metric' field)")
+    return d
+
+
+def cmd_roofline(args):
+    """``disco-torch-obs roofline``: the per-stage roofline table of one
+    record, its stages costed at the record's workload (traced for the
+    card on fake tensors; nothing runs on a device)."""
+    from disco_tpu_torch.obs import roofline
+
+    record = load_bench_record(args.record)
+    result = roofline.stage_verdicts(
+        record,
+        peak_tflops=args.peak_tflops if args.peak_tflops is not None else roofline.PEAK_TFLOPS,
+        peak_gbps=args.peak_gbps if args.peak_gbps is not None else roofline.PEAK_GBPS,
+    )
+    print(json.dumps(result, indent=2) if args.format == "json" else roofline.render(result))
+    return result
 
 
 def main(argv=None):
@@ -636,6 +676,8 @@ def main(argv=None):
         return cmd_top(args)
     if args.cmd == "slo":
         return cmd_slo(args)
+    if args.cmd == "roofline":
+        return cmd_roofline(args)
     raise SystemExit(f"disco-obs {args.cmd} {NOT_PORTED[args.cmd]} "
                      "(ROADMAP Queue 1); run it with the JAX package's disco-obs")
 

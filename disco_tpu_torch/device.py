@@ -7,6 +7,8 @@ tensors it is given, and its entry points resolve that device here.
 from __future__ import annotations
 
 import collections
+import contextvars
+import functools
 import queue as queue_mod
 import threading
 
@@ -23,17 +25,71 @@ def resolve_device(device=None) -> torch.device:
     Raises RuntimeError when CUDA is requested (explicitly or by default)
     and no CUDA device exists — the port never falls back to the CPU on its
     own; callers that want the plain versions on the host pass
-    ``device="cpu"``.
+    ``device="cpu"``.  Under a ``FakeTensorMode`` (a program traced for the
+    card, ``analysis.trace``) CUDA is ``cuda:0`` and needs no card.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    if dev.type == "cuda" and tracing_for_card():
+        return torch.device("cuda", 0 if dev.index is None else dev.index)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "disco_tpu_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch versions on the host"
         )
     return dev
+
+
+def tracing_for_card() -> bool:
+    """True inside a ``FakeTensorMode``: tensors are shapes only, and a
+    ``cuda`` tensor needs no card."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def device_cache(maxsize: int = 8):
+    """``functools.lru_cache`` for a builder of tables on a device, bypassed
+    while tracing for the card (:func:`tracing_for_card`): a fake tensor
+    never enters the cache, where a real card would be served it later, and
+    every trace records the making of the tables it reads."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            return fn(*args, **kwargs) if tracing_for_card() else cached(*args, **kwargs)
+
+        call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
+        return call
+
+    return wrap
+
+
+_useful_share = contextvars.ContextVar("useful_share", default=1.0)
+
+
+def useful_share() -> float:
+    """The share of the rows being computed that are the caller's: below 1
+    inside :class:`padded_batch`, else 1.  A cost model reading the program
+    (``analysis.meter``) counts an operator's work and traffic at this share,
+    so the padding costs nothing and the function's work is what is left."""
+    return _useful_share.get()
+
+
+class padded_batch:
+    """The span in which ``useful`` rows, padded to ``total``, are computed
+    (:func:`useful_share`)."""
+
+    __slots__ = ("share", "token")
+
+    def __init__(self, useful: int, total: int):
+        self.share = useful / total if total else 1.0
+
+    def __enter__(self):
+        self.token = _useful_share.set(self.share)
+
+    def __exit__(self, *exc):
+        _useful_share.reset(self.token)
 
 
 def as_device_tensors(arrays, device=None) -> list:

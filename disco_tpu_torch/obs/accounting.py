@@ -138,7 +138,9 @@ def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
 
     Usable bare or as ``@counted_jit(label=..., static_argnames=(...))``;
     the wrapper returns what ``fun`` returns, and ``__wrapped__`` is
-    ``fun``.
+    ``fun``.  ``clear_cache()`` forgets the signatures seen, as
+    ``clear_cache`` empties a jitted function's cache (the retrace-budget
+    workload of ``analysis.trace.budgets`` starts from it).
     """
     if fun is None:
         return functools.partial(counted_jit, label=label, static_argnames=static_argnames)
@@ -165,4 +167,9 @@ def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
             _events.record("jit_trace", stage=name, n_new_programs=1, cache_size=n)
         return fun(*args, **kwargs)
 
+    def clear_cache() -> None:
+        with lock:
+            seen.clear()
+
+    wrapper.clear_cache = clear_cache
     return wrapper

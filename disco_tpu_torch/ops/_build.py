@@ -18,6 +18,12 @@ library with a plain C interface, bound with ``ctypes``:
 Every C entry point takes ``c_void_p`` pointers and stream and ``c_int``
 sizes, launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+
+Each kernel is one torch op, ``torch.ops.disco_torch.<name>``
+(:func:`kernel_op`): its CUDA implementation launches the kernel, its CPU
+implementation runs the kernel's plain version, and its fake
+implementation gives the shapes and dtypes of its outputs, so a program
+traced for the card or recorded on it shows each launch as one op.
 """
 from __future__ import annotations
 
@@ -56,6 +62,10 @@ SIGNATURES = {
 }
 
 _lib = None
+
+#: the namespace of the kernels' torch ops (``torch.ops.disco_torch``)
+OP_NAMESPACE = "disco_torch"
+_op_library = None
 
 
 def source_digest() -> str:
@@ -170,3 +180,25 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_op(schema: str, cuda, cpu, fake):
+    """Define the op ``torch.ops.disco_torch.<name>`` of ``schema``
+    (``"name(Tensor x, int n) -> Tensor"``): ``cuda`` is its CUDA
+    implementation (the launch), ``cpu`` its CPU implementation (the plain
+    version), ``fake`` its fake implementation (output shapes and dtypes
+    for tracing).  Returns the op.  The ops are defined with the low-level
+    ``torch.library`` API: ``torch.library.custom_op``'s Python layers cost
+    ~25 µs more a call on an H100's host (``exp/custom_op_host_cost.py``),
+    which a host-bound streaming window pays per launch."""
+    import torch
+
+    global _op_library
+    if _op_library is None:
+        _op_library = torch.library.Library(OP_NAMESPACE, "FRAGMENT")
+    name = schema.split("(", 1)[0]
+    _op_library.define(schema)
+    _op_library.impl(name, cuda, "CUDA")
+    _op_library.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake, lib=_op_library)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name)

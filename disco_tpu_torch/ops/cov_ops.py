@@ -191,27 +191,10 @@ def outer_acc_bf16(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...tfc,...tfd->...fcd", wb * xb, xb.conj())
 
 
-def masked_cov_kernel(y: torch.Tensor, mask: torch.Tensor, precision: str = "f32"):
-    """The covariance kernel's wrapper (port of ``masked_cov_pallas``): ``y``
-    (..., C, F, T) complex64 and ``mask`` (..., F, T) or (..., C, F, T) ->
-    ``(Rss, Rnn)``, each (..., F, C, C) complex64.
-
-    A CUDA tensor launches ``csrc/cov.cu``, its bf16 instance under
-    ``precision='bf16'`` (counted in ``masked_cov_kernel.launches`` and
-    ``masked_cov_kernel.launches_bf16``); a CPU tensor runs
-    :func:`masked_covariances_plain`.
-    """
-    bf16 = resolve_precision(precision) == "bf16"
-    if y.device.type == "cpu":
-        return masked_covariances_plain(y, mask, precision)
-    if y.device.type != "cuda" or mask.device != y.device:
-        raise ValueError(f"masked_cov_kernel: spectra on {y.device}, mask on {mask.device}; "
-                         "expected both on one CUDA device (or the CPU)")
-    if y.dtype != torch.complex64:
-        raise TypeError(f"masked_cov_kernel: expected complex64 spectra, got {y.dtype}")
+def _masked_cov_launch(y: torch.Tensor, mask: torch.Tensor, bf16: bool):
+    """One launch of ``csrc/cov.cu`` (its bf16 instance under ``bf16``) on
+    CUDA tensors."""
     *lead, C, F, T = y.shape
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"masked_cov_kernel: {C} channels; the kernel takes 1..{MAX_CHANNELS}")
     chan = mask.ndim == y.ndim
     mshape = tuple(lead) + ((C,) if chan else ()) + (F, T)
     m = mask.to(torch.float32).expand(mshape).contiguous()
@@ -228,6 +211,45 @@ def masked_cov_kernel(y: torch.Tensor, mask: torch.Tensor, precision: str = "f32
     else:
         masked_cov_kernel.launches += 1
     return rss, rnn
+
+
+def _masked_cov_fake(y, mask, bf16):
+    *lead, C, F, _ = y.shape
+    rss = y.new_empty(tuple(lead) + (F, C, C), dtype=torch.complex64)
+    return rss, torch.empty_like(rss)
+
+
+#: the covariance kernel as a named op: ``csrc/cov.cu`` on a CUDA tensor,
+#: :func:`masked_covariances_plain` on a CPU tensor
+_masked_cov_op = _build.kernel_op(
+    "masked_cov(Tensor y, Tensor mask, bool bf16) -> (Tensor, Tensor)",
+    cuda=_masked_cov_launch,
+    cpu=lambda y, mask, bf16: masked_covariances_plain(y, mask, "bf16" if bf16 else "f32"),
+    fake=_masked_cov_fake)
+
+
+def masked_cov_kernel(y: torch.Tensor, mask: torch.Tensor, precision: str = "f32"):
+    """The covariance kernel's wrapper (port of ``masked_cov_pallas``): ``y``
+    (..., C, F, T) complex64 and ``mask`` (..., F, T) or (..., C, F, T) ->
+    ``(Rss, Rnn)``, each (..., F, C, C) complex64.
+
+    One call of the op ``disco_torch::masked_cov``: a CUDA tensor launches
+    ``csrc/cov.cu``, its bf16 instance under ``precision='bf16'`` (counted
+    in ``masked_cov_kernel.launches`` and ``masked_cov_kernel.launches_bf16``);
+    a CPU tensor runs :func:`masked_covariances_plain`.
+    """
+    bf16 = resolve_precision(precision) == "bf16"
+    if y.device.type not in ("cpu", "cuda") or mask.device != y.device:
+        raise ValueError(f"masked_cov_kernel: spectra on {y.device}, mask on {mask.device}; "
+                         "expected both on one CUDA device (or the CPU)")
+    if y.device.type == "cuda":
+        if y.dtype != torch.complex64:
+            raise TypeError(f"masked_cov_kernel: expected complex64 spectra, got {y.dtype}")
+        C = y.shape[-3]
+        if not 1 <= C <= MAX_CHANNELS:
+            raise ValueError(f"masked_cov_kernel: {C} channels; the kernel takes "
+                             f"1..{MAX_CHANNELS}")
+    return _masked_cov_op(y, mask, bf16)
 
 
 masked_cov_kernel.launches = 0

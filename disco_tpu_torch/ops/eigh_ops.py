@@ -130,28 +130,9 @@ def eigh_jacobi(A: torch.Tensor, sweeps: int | None = None):
     return _sort_eigpairs(*eigh_jacobi_unsorted(A, sweeps))
 
 
-def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int | None = None):
-    """The eigensolver kernel's wrapper (port of ``eigh_jacobi_pallas``'s
-    ``pallas_call``): (..., C, C) Hermitian complex64 or float32 -> (the
-    unsorted diagonal (..., C) float32, V (..., C, C) in the input's type).
-
-    A CUDA tensor launches ``csrc/eigh.cu`` (counted in
-    ``eigh_jacobi_kernel.launches``); a CPU tensor runs
-    :func:`eigh_jacobi_unsorted`.
-    """
-    if A.device.type == "cpu":
-        return eigh_jacobi_unsorted(A, sweeps)
-    if A.device.type != "cuda":
-        raise ValueError(f"eigh_jacobi_kernel: unsupported device {A.device}; "
-                         "expected 'cuda' or 'cpu'")
+def _eigh_launch(A: torch.Tensor, sweeps: int):
+    """One launch of ``csrc/eigh.cu`` on a CUDA tensor."""
     C = A.shape[-1]
-    if A.ndim < 2 or A.shape[-2] != C or not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"eigh_jacobi_kernel: matrices {tuple(A.shape[-2:])}; the kernel "
-                         f"takes square matrices up to {MAX_CHANNELS}x{MAX_CHANNELS}")
-    if sweeps is None:
-        sweeps = default_sweeps(C)
-    if sweeps < 0:
-        raise ValueError(f"eigh_jacobi_kernel: sweeps must be >= 0, got {sweeps}")
     complex_in = A.is_complex()
     a = A.to(torch.complex64 if complex_in else torch.float32).contiguous()
     bs = A.shape[:-2]
@@ -164,6 +145,41 @@ def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int | None = None):
     _build.check(rc, "disco_eigh_jacobi")
     eigh_jacobi_kernel.launches += 1
     return lam, V
+
+
+def _eigh_fake(A, sweeps):
+    dtype = torch.complex64 if A.is_complex() else torch.float32
+    return A.new_empty(A.shape[:-1], dtype=torch.float32), A.new_empty(A.shape, dtype=dtype)
+
+
+#: the eigensolver kernel as a named op: ``csrc/eigh.cu`` on a CUDA tensor,
+#: :func:`eigh_jacobi_unsorted` on a CPU tensor
+_eigh_op = _build.kernel_op("eigh_jacobi(Tensor A, int sweeps) -> (Tensor, Tensor)",
+                            cuda=_eigh_launch, cpu=eigh_jacobi_unsorted, fake=_eigh_fake)
+
+
+def eigh_jacobi_kernel(A: torch.Tensor, sweeps: int | None = None):
+    """The eigensolver kernel's wrapper (port of ``eigh_jacobi_pallas``'s
+    ``pallas_call``): (..., C, C) Hermitian complex64 or float32 -> (the
+    unsorted diagonal (..., C) float32, V (..., C, C) in the input's type).
+
+    One call of the op ``disco_torch::eigh_jacobi``: a CUDA tensor launches
+    ``csrc/eigh.cu`` (counted in ``eigh_jacobi_kernel.launches``); a CPU
+    tensor runs :func:`eigh_jacobi_unsorted`.
+    """
+    C = A.shape[-1]
+    if sweeps is None:
+        sweeps = default_sweeps(C)
+    if A.device.type != "cpu":
+        if A.device.type != "cuda":
+            raise ValueError(f"eigh_jacobi_kernel: unsupported device {A.device}; "
+                             "expected 'cuda' or 'cpu'")
+        if A.ndim < 2 or A.shape[-2] != C or not 1 <= C <= MAX_CHANNELS:
+            raise ValueError(f"eigh_jacobi_kernel: matrices {tuple(A.shape[-2:])}; the kernel "
+                             f"takes square matrices up to {MAX_CHANNELS}x{MAX_CHANNELS}")
+        if sweeps < 0:
+            raise ValueError(f"eigh_jacobi_kernel: sweeps must be >= 0, got {sweeps}")
+    return _eigh_op(A, sweeps)
 
 
 eigh_jacobi_kernel.launches = 0

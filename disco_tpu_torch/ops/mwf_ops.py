@@ -185,40 +185,21 @@ def fused_mwf_plain(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | 
     return W.reshape(bs + (C,)), t1.reshape(bs + (C,))
 
 
-def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None,
-                     precision: str = "f32"):
-    """The fused-solve kernel's wrapper (port of ``fused_mwf_pallas``):
-    (..., C, C) pencils and a scalar or per-pencil ``mu`` -> (W, t1), each
-    (..., C) complex64, unsanitized.
-
-    A CUDA tensor launches ``csrc/mwf.cu``, its bf16 instances under
-    ``precision='bf16'`` (counted in ``fused_mwf_kernel.launches`` and
-    ``fused_mwf_kernel.launches_bf16``); a CPU tensor runs
-    :func:`fused_mwf_plain`.
-    """
-    bf16 = resolve_precision(precision) == "bf16"
-    if Rss.device.type == "cpu":
-        return fused_mwf_plain(Rss, Rnn, mu, sweeps, precision)
-    if Rss.device.type != "cuda" or Rnn.device != Rss.device:
-        raise ValueError(f"fused_mwf_kernel: pencils on {Rss.device} and {Rnn.device}; "
-                         "expected both on one CUDA device (or the CPU)")
-    if Rss.shape != Rnn.shape:
-        raise ValueError(f"fused_mwf_kernel: Rss {tuple(Rss.shape)} vs Rnn {tuple(Rnn.shape)}")
+def _fused_mwf_launch(Rss: torch.Tensor, Rnn: torch.Tensor, mu: torch.Tensor | None,
+                      mu_value: float, sweeps: int, bf16: bool):
+    """One launch of ``csrc/mwf.cu`` (its bf16 instances under ``bf16``) on
+    CUDA tensors.  ``mu`` is None for a scalar ``mu_value``, else one value
+    on the device or one per pencil (:func:`_mu_argument`)."""
     C = Rss.shape[-1]
-    if not 1 <= C <= MAX_CHANNELS or Rss.shape[-2] != C:
-        raise ValueError(f"fused_mwf_kernel: pencils {tuple(Rss.shape[-2:])}; the kernel "
-                         f"takes square pencils up to {MAX_CHANNELS}x{MAX_CHANNELS}")
-    if sweeps is None:
-        sweeps = default_sweeps(C)
     bs = Rss.shape[:-2]
     # each the input itself when it is contiguous complex64 already
     rss = Rss.to(torch.complex64).contiguous()
     rnn = Rnn.to(torch.complex64).contiguous()
-    mu_t, mu_stride, mu_value = _mu_argument(mu, bs, Rss.device)
     W = torch.empty(bs + (C,), dtype=torch.complex64, device=Rss.device)
     t1 = torch.empty_like(W)
     lib = _build.load()
-    mu_ptr = None if mu_t is None else mu_t.data_ptr()
+    mu_ptr = None if mu is None else mu.data_ptr()
+    mu_stride = 0 if mu is None or mu.numel() == 1 else 1
     rc = lib.disco_fused_mwf(rss.data_ptr(), rnn.data_ptr(), mu_ptr, mu_stride, mu_value,
                              W.data_ptr(), t1.data_ptr(), math.prod(bs), C, sweeps, ROTATION_EPS,
                              DIAG_LOADING, _LAM_FLOOR, EIG_CEIL, int(bf16),
@@ -229,6 +210,55 @@ def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int |
     else:
         fused_mwf_kernel.launches += 1
     return W, t1
+
+
+def _fused_mwf_fake(Rss, Rnn, mu, mu_value, sweeps, bf16):
+    W = Rss.new_empty(Rss.shape[:-1], dtype=torch.complex64)
+    return W, torch.empty_like(W)
+
+
+#: the fused-solve kernel as a named op: ``csrc/mwf.cu`` on a CUDA tensor,
+#: :func:`fused_mwf_plain` on a CPU tensor
+_fused_mwf_op = _build.kernel_op(
+    "fused_mwf(Tensor Rss, Tensor Rnn, Tensor? mu, float mu_value, int sweeps, bool bf16) "
+    "-> (Tensor, Tensor)",
+    cuda=_fused_mwf_launch,
+    cpu=lambda Rss, Rnn, mu, mu_value, sweeps, bf16: fused_mwf_plain(
+        Rss, Rnn, mu_value if mu is None else mu, sweeps, "bf16" if bf16 else "f32"),
+    fake=_fused_mwf_fake)
+
+
+def fused_mwf_kernel(Rss: torch.Tensor, Rnn: torch.Tensor, mu=1.0, sweeps: int | None = None,
+                     precision: str = "f32"):
+    """The fused-solve kernel's wrapper (port of ``fused_mwf_pallas``):
+    (..., C, C) pencils and a scalar or per-pencil ``mu`` -> (W, t1), each
+    (..., C) complex64, unsanitized.
+
+    One call of the op ``disco_torch::fused_mwf``: a CUDA tensor launches
+    ``csrc/mwf.cu``, its bf16 instances under ``precision='bf16'`` (counted
+    in ``fused_mwf_kernel.launches`` and ``fused_mwf_kernel.launches_bf16``);
+    a CPU tensor runs :func:`fused_mwf_plain`.
+    """
+    bf16 = resolve_precision(precision) == "bf16"
+    C = Rss.shape[-1]
+    if sweeps is None:
+        sweeps = default_sweeps(C)
+    if Rss.device.type not in ("cpu", "cuda") or Rnn.device != Rss.device:
+        raise ValueError(f"fused_mwf_kernel: pencils on {Rss.device} and {Rnn.device}; "
+                         "expected both on one CUDA device (or the CPU)")
+    if Rss.device.type == "cpu":
+        # a tensor mu joins the pencils' device, as on the card (_mu_argument)
+        if isinstance(mu, torch.Tensor) or np.ndim(mu) > 0:
+            return _fused_mwf_op(Rss, Rnn, torch.as_tensor(mu, device=Rss.device), 0.0, sweeps,
+                                 bf16)
+        return _fused_mwf_op(Rss, Rnn, None, float(mu), sweeps, bf16)
+    if Rss.shape != Rnn.shape:
+        raise ValueError(f"fused_mwf_kernel: Rss {tuple(Rss.shape)} vs Rnn {tuple(Rnn.shape)}")
+    if not 1 <= C <= MAX_CHANNELS or Rss.shape[-2] != C:
+        raise ValueError(f"fused_mwf_kernel: pencils {tuple(Rss.shape[-2:])}; the kernel "
+                         f"takes square pencils up to {MAX_CHANNELS}x{MAX_CHANNELS}")
+    mu_t, _stride, mu_value = _mu_argument(mu, Rss.shape[:-2], Rss.device)
+    return _fused_mwf_op(Rss, Rnn, mu_t, mu_value, sweeps, bf16)
 
 
 fused_mwf_kernel.launches = 0

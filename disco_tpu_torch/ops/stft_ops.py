@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from disco_tpu_torch.core.dsp import N_FFT, N_HOP, hann_periodic, ola_finish
+from disco_tpu_torch.device import device_cache
 from disco_tpu_torch.ops import _build
 from disco_tpu_torch.ops.resolve import bf16_round, check_impl, resolve_precision
 
@@ -91,7 +92,7 @@ def idft_matrices(n_fft: int = N_FFT):
     return A, B
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache()
 def _tables(n_fft: int, device: str, precision: str = "f32"):
     """(window, Dre, Dim) on ``device``, contiguous float32; the tables
     rounded to bf16 under ``precision='bf16'``."""
@@ -116,7 +117,7 @@ def chunk_starts(n_fft: int = N_FFT) -> np.ndarray:
     return (n_fft // 2) * (c & 1) + BF16_CHUNK * (c >> 1)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache()
 def dft_fragments(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
     """The bf16 DFT tables of bins 0 .. n_fft/2 - 1 in the order
     ``csrc/stft_bf16.cu`` copies them into its shared-memory ring, each
@@ -142,7 +143,7 @@ def dft_fragments(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
     return frag.to(torch.bfloat16).contiguous().to(device)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache()
 def nyquist_table(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
     """(2, n_fft) float32: the bf16 cos and sin tables of bin n_fft/2, which
     ``csrc/stft_bf16.cu`` sums on the CUDA cores."""
@@ -150,7 +151,7 @@ def nyquist_table(n_fft: int = N_FFT, device: str = "cpu") -> torch.Tensor:
     return torch.stack([dre[:, -1], dim[:, -1]]).contiguous().to(device)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache()
 def _fft_tables(n_fft: int, device: str):
     """(window, tw, post) on ``device``: what the kernel is handed."""
     tw, post = rfft_tables(n_fft)
@@ -190,45 +191,91 @@ def stft_matmul(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag:
     return spec, torch.sqrt(re * re + im * im).reshape(shape)
 
 
-def _kernel_rows(x: torch.Tensor, n_fft: int, hop: int, name: str):
-    """The checks of both STFT kernels' wrappers; (rows (B, L) contiguous,
-    batch shape, n_freq, T)."""
+def _check_kernel_input(x: torch.Tensor, n_fft: int, hop: int, name: str) -> None:
+    """The checks of both STFT kernels' wrappers: raise unless ``x`` is a
+    float32 CUDA tensor of more than n_fft/2 samples and the size is the
+    kernels' 512/256."""
     _require_cuda_f32(x, name)
     if (n_fft, hop) != (KERNEL_N_FFT, KERNEL_HOP):
         raise ValueError(f"{name}: the kernel computes the {KERNEL_N_FFT}/{KERNEL_HOP} "
                          f"STFT; got n_fft={n_fft}, hop={hop}")
-    bs, L = x.shape[:-1], x.shape[-1]
-    if L <= n_fft // 2:
+    if x.shape[-1] <= n_fft // 2:
         raise ValueError(f"centered STFT needs more than {n_fft // 2} samples "
-                         f"(reflect padding); got {L}")
-    return x.reshape(-1, L).contiguous(), bs, n_fft // 2 + 1, 1 + L // hop
+                         f"(reflect padding); got {x.shape[-1]}")
+
+
+def _stft_launch(x: torch.Tensor, n_fft: int, hop: int, with_mag: bool, bf16: bool) -> list:
+    """One launch of ``csrc/stft.cu`` (``csrc/stft_bf16.cu`` under ``bf16``)
+    on a CUDA tensor the wrapper has checked (:func:`_check_kernel_input`):
+    [spec] or [spec, mag]."""
+    bs, L = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, L).contiguous()
+    B, n_freq, T = rows.shape[0], n_fft // 2 + 1, 1 + L // hop
+    spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
+    mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
+    lib = _build.load()
+    if bf16:
+        win = hann_periodic(n_fft, device=x.device)
+        rc = lib.disco_stft_bf16(rows.data_ptr(), win.data_ptr(),
+                                 dft_fragments(n_fft, str(x.device)).data_ptr(),
+                                 nyquist_table(n_fft, str(x.device)).data_ptr(), spec.data_ptr(),
+                                 None if mag is None else mag.data_ptr(), B, L, n_fft, hop, T,
+                                 _build.stream_handle(x.device))
+        _build.check(rc, "disco_stft_bf16")
+        stft_bf16_kernel.launches += 1
+    else:
+        win, tw, post = _fft_tables(n_fft, str(x.device))
+        rc = lib.disco_stft(rows.data_ptr(), win.data_ptr(), tw.data_ptr(), post.data_ptr(),
+                            spec.data_ptr(), None if mag is None else mag.data_ptr(),
+                            B, L, n_fft, hop, T, _build.stream_handle(x.device))
+        _build.check(rc, "disco_stft")
+        stft_kernel.launches += 1
+    out = [spec.reshape(bs + (n_freq, T))]
+    return out if mag is None else out + [mag.reshape(bs + (n_freq, T))]
+
+
+def _stft_fake(x, n_fft, hop, with_mag):
+    shape = x.shape[:-1] + (n_fft // 2 + 1, 1 + x.shape[-1] // hop)
+    spec = x.new_empty(shape, dtype=torch.complex64)
+    return [spec, x.new_empty(shape, dtype=torch.float32)] if with_mag else [spec]
+
+
+def _stft_plain(x, n_fft, hop, with_mag, precision):
+    out = stft_matmul(x, n_fft, hop, with_mag, precision=precision)
+    return list(out) if with_mag else [out]
+
+
+#: the f32 and bf16 STFT kernels as named ops: ``csrc/stft.cu`` /
+#: ``csrc/stft_bf16.cu`` on a CUDA tensor, :func:`stft_matmul` on a CPU tensor
+_stft_op = _build.kernel_op(
+    "stft(Tensor x, int n_fft, int hop, bool with_mag) -> Tensor[]",
+    cuda=lambda x, n_fft, hop, with_mag: _stft_launch(x, n_fft, hop, with_mag, bf16=False),
+    cpu=lambda x, n_fft, hop, with_mag: _stft_plain(x, n_fft, hop, with_mag, "f32"),
+    fake=_stft_fake)
+_stft_bf16_op = _build.kernel_op(
+    "stft_bf16(Tensor x, int n_fft, int hop, bool with_mag) -> Tensor[]",
+    cuda=lambda x, n_fft, hop, with_mag: _stft_launch(x, n_fft, hop, with_mag, bf16=True),
+    cpu=lambda x, n_fft, hop, with_mag: _stft_plain(x, n_fft, hop, with_mag, "bf16"),
+    fake=_stft_fake)
+
+
+def _call(op, x, n_fft, hop, with_mag, name):
+    if x.device.type != "cpu":
+        _check_kernel_input(x, n_fft, hop, name)
+    out = op(x, n_fft, hop, with_mag)
+    return (out[0], out[1]) if with_mag else out[0]
 
 
 def stft_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP, with_mag: bool = False):
     """The STFT kernel's wrapper (port of ``stft_pallas``, f32 lane): ``x``
     (..., L) float32 -> spec (..., F, T) complex64 [, mag (..., F, T)].
 
-    A CUDA tensor launches ``csrc/stft.cu`` (and counts the launch in
-    ``stft_kernel.launches``), which pads by reflection itself and takes
-    ``n_fft=512, hop=256`` only; a CPU tensor runs :func:`stft_matmul`.
+    One call of the op ``disco_torch::stft``: a CUDA tensor launches
+    ``csrc/stft.cu`` (and counts the launch in ``stft_kernel.launches``),
+    which pads by reflection itself and takes ``n_fft=512, hop=256`` only;
+    a CPU tensor runs :func:`stft_matmul`.
     """
-    if x.device.type == "cpu":
-        return stft_matmul(x, n_fft, hop, with_mag)
-    rows, bs, n_freq, T = _kernel_rows(x, n_fft, hop, "stft_kernel")
-    B, L = rows.shape
-    win, tw, post = _fft_tables(n_fft, str(x.device))
-    spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
-    mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
-    lib = _build.load()
-    rc = lib.disco_stft(rows.data_ptr(), win.data_ptr(), tw.data_ptr(), post.data_ptr(),
-                        spec.data_ptr(), None if mag is None else mag.data_ptr(),
-                        B, L, n_fft, hop, T, _build.stream_handle(x.device))
-    _build.check(rc, "disco_stft")
-    stft_kernel.launches += 1
-    spec = spec.reshape(bs + (n_freq, T))
-    if not with_mag:
-        return spec
-    return spec, mag.reshape(bs + (n_freq, T))
+    return _call(_stft_op, x, n_fft, hop, with_mag, "stft_kernel")
 
 
 stft_kernel.launches = 0
@@ -239,30 +286,12 @@ def stft_bf16_kernel(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
     """The STFT kernel's wrapper in the bf16 lane (port of ``stft_pallas``
     with ``precision='bf16'``): the outputs of :func:`stft_kernel`.
 
-    A CUDA tensor launches ``csrc/stft_bf16.cu`` (counted in
-    ``stft_bf16_kernel.launches``), which pads by reflection itself and
-    takes ``n_fft=512, hop=256`` only; a CPU tensor runs
-    ``stft_matmul(..., precision='bf16')``.
+    One call of the op ``disco_torch::stft_bf16``: a CUDA tensor launches
+    ``csrc/stft_bf16.cu`` (counted in ``stft_bf16_kernel.launches``), which
+    pads by reflection itself and takes ``n_fft=512, hop=256`` only; a CPU
+    tensor runs ``stft_matmul(..., precision='bf16')``.
     """
-    if x.device.type == "cpu":
-        return stft_matmul(x, n_fft, hop, with_mag, precision="bf16")
-    rows, bs, n_freq, T = _kernel_rows(x, n_fft, hop, "stft_bf16_kernel")
-    B, L = rows.shape
-    win = hann_periodic(n_fft, device=x.device)
-    frag = dft_fragments(n_fft, str(x.device))
-    nyq = nyquist_table(n_fft, str(x.device))
-    spec = torch.empty((B, n_freq, T), dtype=torch.complex64, device=x.device)
-    mag = torch.empty((B, n_freq, T), dtype=torch.float32, device=x.device) if with_mag else None
-    lib = _build.load()
-    rc = lib.disco_stft_bf16(rows.data_ptr(), win.data_ptr(), frag.data_ptr(), nyq.data_ptr(),
-                             spec.data_ptr(), None if mag is None else mag.data_ptr(), B, L,
-                             n_fft, hop, T, _build.stream_handle(x.device))
-    _build.check(rc, "disco_stft_bf16")
-    stft_bf16_kernel.launches += 1
-    spec = spec.reshape(bs + (n_freq, T))
-    if not with_mag:
-        return spec
-    return spec, mag.reshape(bs + (n_freq, T))
+    return _call(_stft_bf16_op, x, n_fft, hop, with_mag, "stft_bf16_kernel")
 
 
 stft_bf16_kernel.launches = 0
@@ -299,7 +328,7 @@ def stft_fused(x: torch.Tensor, n_fft: int = N_FFT, hop: int = N_HOP,
     return kernel(x, n_fft, hop)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache()
 def _idft_tables(n_fft: int, device: str):
     A, B = idft_matrices(n_fft)
     return torch.from_numpy(A).to(device), torch.from_numpy(B).to(device)

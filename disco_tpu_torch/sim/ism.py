@@ -41,7 +41,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from disco_tpu_torch.device import as_device_tensors
+from disco_tpu_torch.device import as_device_tensors, device_cache
 
 C_SOUND = 343.0
 FDL = 81  # fractional-delay filter length (libroom's windowed-sinc taps)
@@ -72,7 +72,7 @@ def image_lattice(max_order: int) -> tuple[np.ndarray, np.ndarray]:
     return lat[keep].astype(np.int32), pr[keep].astype(np.int32)
 
 
-@lru_cache(maxsize=8)
+@device_cache()
 def _lattice_tensors(max_order: int, device: str):
     """(lattice, parity, reflection counts) as float32 tensors on ``device``."""
     lat_np, par_np = image_lattice(max_order)

@@ -507,9 +507,17 @@ def test_refusals(trees, tmp_path):
         ttango.main(["--rir", "1", "--dataset", root, "--mesh", "1", "1"] + CPU)
     with pytest.raises(SystemExit, match=r"^--data-parallel 2 needs 2 devices; 1 available$"):
         ttrain.main(["--data-parallel", "2"] + CPU)
-    for cmd in (["compare", "a.json", "b.json"], ["roofline", "a.json"]):
-        with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
-            tobs.main(cmd + CPU)
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
+        tobs.main(["compare", "a.json", "b.json"] + CPU)
+    # roofline runs since the cost model is ported: a record's stage times
+    # against its workload's modeled costs
+    rec = tmp_path / "record.json"
+    rec.write_text(json.dumps({"metric": "rtf", "stage_ms": {"stft_x3": 0.5, "masks": 0.1},
+                               "workload": {"batch": 1, "dur_s": 0.5, "n_nodes": 2,
+                                            "mics_per_node": 2}}))
+    res = tobs.main(["roofline", str(rec), "--format", "json"] + CPU)
+    assert [r["stage"] for r in res["rows"]] == ["stft_x3", "masks"]
+    assert res["peaks"]["card"] == "NVIDIA H100 80GB HBM3" and not res["workload_assumed"]
     import torch
 
     if not torch.cuda.is_available():

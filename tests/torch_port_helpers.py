@@ -230,3 +230,61 @@ def assert_counters_match(ours: list, theirs: list, names) -> None:
 
     a, b = last(ours), last(theirs)
     assert {n: a.get(n) for n in names} == {n: b.get(n) for n in names}
+
+
+# ------------------------------------------------ the JAX meter as an oracle
+class _Prim:
+    def __init__(self, name):
+        self.name = name
+
+
+def _proxied(v):
+    if isinstance(v, (list, tuple)):
+        return type(v)(_proxied(e) for e in v) if isinstance(v, list) else tuple(
+            _proxied(e) for e in v)
+    if hasattr(v, "eqns"):
+        return _JaxprProxy(v)
+    if hasattr(v, "jaxpr"):
+        return _ClosedProxy(v)
+    return v
+
+
+class _EqnProxy:
+    """One equation as ``disco_tpu.analysis.meter.costmodel`` reads it, from
+    jax 0.9's: its ``jit`` primitive shown as ``pjit`` (the name the meter's
+    ``_CONTROL`` table knows, so a nested program is walked, not left as one
+    unmodeled equation), and a convolution's dimension numbers with the
+    ``rhs_spec`` attribute the meter reads (jax 0.9 hands a plain tuple)."""
+
+    def __init__(self, eqn):
+        import collections
+
+        name = eqn.primitive.name
+        self.primitive = _Prim("pjit") if name == "jit" else eqn.primitive
+        self.params = {k: _proxied(v) for k, v in eqn.params.items()}
+        dn = self.params.get("dimension_numbers")
+        if name == "conv_general_dilated" and isinstance(dn, tuple) and not hasattr(
+                dn, "rhs_spec"):
+            spec = collections.namedtuple("ConvDimensionNumbers", "lhs_spec rhs_spec out_spec")
+            self.params["dimension_numbers"] = spec(*dn)
+        self.invars, self.outvars = eqn.invars, eqn.outvars
+
+
+class _JaxprProxy:
+    def __init__(self, jaxpr):
+        self.eqns = [_EqnProxy(e) for e in jaxpr.eqns]
+        self.invars, self.outvars, self.constvars = jaxpr.invars, jaxpr.outvars, jaxpr.constvars
+
+
+class _ClosedProxy:
+    def __init__(self, closed):
+        self.jaxpr = _JaxprProxy(getattr(closed, "jaxpr", closed))
+
+
+def jax_meter(closed_jaxpr, program: str = "") -> dict:
+    """The JAX package's cost report of a (closed) jaxpr, read through the duck-typed
+    proxy (:class:`_EqnProxy`): ``cost_of_jaxpr`` only reads attributes, so
+    the proxy makes it a sound oracle on jax 0.9 without editing it."""
+    from disco_tpu.analysis.meter.costmodel import cost_of_jaxpr
+
+    return cost_of_jaxpr(_ClosedProxy(closed_jaxpr), program=program)
