@@ -314,6 +314,19 @@ pass):
    timed with CUDA events (median of 5) and joined with the meter's stage
    costs into the roofline against the card's peaks (``obs.roofline``),
    printed before the result.
+   Phase 3o: the linter and the thread-contract analyzer on the card
+   host's copy of the tree — ``python -m disco_tpu_torch.analysis.cli``
+   and ``python -m disco_tpu_torch.analysis.race.cli`` as two processes
+   started together, each required to exit 0, their findings,
+   suppressions, files and seconds printed — and the runtime twin of
+   DR001/DR002, recorded while phase 3i ran (serving, the tap, the
+   promotion controller and the resident trainer): every thread port code
+   started had a target that is an entry point of
+   ``analysis/race/roles.py`` (executor workers are matched by the
+   functions port code submitted to them; workers of other code's
+   executors are listed and skipped), and every kernel launch came from a
+   thread whose role is ``torch_ok`` (the launches are noted by
+   ``ops/_build.py``'s recorder, armed for that phase only).
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
@@ -372,6 +385,8 @@ pass):
 The last two lines of standard output are one ``{"kernels": [...]}``
 object and ``{"ok": true, "device": {...}}``.
 """
+# disco-torch-lint: file-disable=DL001 -- the card harness: each synchronize closes a timed region or a launch-count window before its readback; the stall is the measurement, not path code
+# disco-torch-lint: file-disable=DL016 -- the card harness builds the kernel library (phase 1) and holds each kernel against its plain version by name; the launches it makes to compare are not the main path's
 from __future__ import annotations
 
 import json
@@ -2850,6 +2865,22 @@ def phase3j_gates(d: SimpleNamespace) -> None:
 CLI_ORDER, CLI_DURATION, CLI_RIRS = 20, (5, 10), 2
 
 
+def stop_process(proc, timeout_s: float = 60.0) -> tuple:
+    """Stop a process this script started: SIGINT (the servers' graceful
+    drain) and a bounded wait; ``(stdout, stderr)``.  Only a process still
+    running after the wait is killed — the script stops every process it
+    starts."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+    try:
+        return proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()  # disco-torch-lint: disable=DL008 -- last resort after SIGINT and a bounded wait: the script must stop every process it starts
+        return proc.communicate()
+
+
 def serve_post_mortem(proc, client, log) -> None:
     """Print why a served session ended: the frames the client had not read
     yet (the server's error frame), the server's own output, and the error
@@ -2865,13 +2896,7 @@ def serve_post_mortem(proc, client, log) -> None:
             elif item is None or isinstance(item, BaseException):
                 frames.append(repr(item))
     print(f"disco-serve post-mortem: unread frames {frames}", flush=True)
-    if proc.poll() is None:
-        proc.terminate()
-    try:
-        out, err = proc.communicate(timeout=60)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, err = proc.communicate()
+    out, err = stop_process(proc)
     print(f"disco-serve post-mortem: exit code {proc.returncode}\n-- stdout\n{out[-8000:]}"
           f"\n-- stderr\n{err[-8000:]}", flush=True)
     if log.exists():
@@ -2932,8 +2957,7 @@ def cli_serve(d: SimpleNamespace, tmp) -> dict:
         out, err = proc.communicate(timeout=120)
     finally:
         if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+            stop_process(proc)
     blocks = -(-Yh.shape[-1] // SERVE_BLOCK)
     print(f"phase 3k: disco-serve on the card: bound in {bound_s:.1f} s, {blocks} blocks of "
           f"{SERVE_BLOCK} frames in {stream_s:.2f} s ({cl.reattaches} reattaches), bit-identical "
@@ -3525,6 +3549,175 @@ def phase3n_programs(d: SimpleNamespace) -> None:
     print(f"phase 3n took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+@contextmanager
+def thread_recorder():
+    """Record, while armed, the threads started (``Thread.start``, Timers
+    included), the functions submitted to thread pools
+    (``ThreadPoolExecutor.submit``, which ``map`` calls), each with the
+    module of the code that asked, and every kernel launch with its thread
+    (``ops._build.record_launch_threads``)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from disco_tpu_torch.ops import _build
+
+    rec = SimpleNamespace(started=[], submitted=[], launches=[])
+    start, submit = threading.Thread.start, ThreadPoolExecutor.submit
+
+    def asker() -> str:
+        frame = sys._getframe(2)
+        while frame is not None and frame.f_globals.get("__name__", "").startswith(
+                ("threading", "concurrent.")):
+            frame = frame.f_back
+        name = "" if frame is None else frame.f_globals.get("__name__", "")
+        return "chip_smoke" if name == "__main__" else name
+
+    def recorded_start(thread):
+        # the target now: a finished thread drops it
+        target = getattr(thread, "_target", None) or getattr(thread, "function", None)
+        rec.started.append((thread, target, asker()))
+        return start(thread)
+
+    def recorded_submit(pool, fn, /, *args, **kwargs):
+        rec.submitted.append((fn, asker()))
+        return submit(pool, fn, *args, **kwargs)
+
+    threading.Thread.start = recorded_start
+    ThreadPoolExecutor.submit = recorded_submit
+    _build.record_launch_threads(rec.launches)
+    try:
+        yield rec
+    finally:
+        threading.Thread.start = start
+        ThreadPoolExecutor.submit = submit
+        _build.record_launch_threads(None)
+
+
+def entry_point(fn) -> str | None:
+    """A callable's ``module:dotted.qualname``, the form of the role
+    registry's entry points (bound methods by their function, partials by
+    theirs, no ``<locals>`` marker); None for what has no qualname."""
+    import functools
+
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    fn = getattr(fn, "__func__", fn)
+    module, qual = getattr(fn, "__module__", None), getattr(fn, "__qualname__", None)
+    if module is None or qual is None:
+        return None
+    module = "chip_smoke" if module == "__main__" else module
+    return f"{module}:{qual.replace('.<locals>', '')}"
+
+
+def phase3i_recorded(d: SimpleNamespace) -> None:
+    """Phase 3i with :func:`thread_recorder` armed; phase 3o reads the
+    record."""
+    with thread_recorder() as rec:
+        phase3i_flywheel(d)
+    d.threads_3i = rec
+
+
+def runtime_thread_twin(rec) -> dict:
+    """The runtime twin of DR001/DR002 over phase 3i's record: each thread
+    port code started must have a target among the race roles' entry
+    points, each function port code submitted to a pool too, and each
+    kernel launch must come from a ``torch_ok`` role's thread."""
+    import threading
+
+    from disco_tpu_torch.analysis.race.roles import ROLES, entry_point_index
+
+    index = entry_point_index()
+    role_of = {threading.main_thread(): "main"}
+    threads, unregistered, skipped = {}, [], []
+    for thread, target, asker in rec.started:
+        ep = entry_point(target)
+        if ep == "concurrent.futures.thread:_worker":
+            skipped.append(f"{thread.name}: a thread-pool worker, checked through the "
+                           "functions submitted to its pool")
+            continue
+        if not asker.startswith("disco_tpu_torch"):
+            skipped.append(f"{thread.name} (started by {asker or '?'}, target {ep}): not port code")
+            continue
+        role = index.get(ep)
+        if role is None:
+            unregistered.append(f"{thread.name}: target {ep}, started by {asker}")
+            continue
+        role_of[thread] = role
+        threads[role] = threads.get(role, 0) + 1
+    submitted = {}
+    for fn, asker in rec.submitted:
+        ep = entry_point(fn)
+        if not asker.startswith("disco_tpu_torch"):
+            skipped.append(f"pool work {ep} (submitted by {asker or '?'}): not port code")
+            continue
+        role = index.get(ep)
+        if role is None:
+            unregistered.append(f"pool work {ep}, submitted by {asker}")
+            continue
+        submitted[role] = submitted.get(role, 0) + 1
+    launches, off_role = {}, []
+    for name, thread in rec.launches:
+        role = role_of.get(thread)
+        key = role or f"<unknown thread {thread.name}>"
+        launches.setdefault(key, {})
+        launches[key][name] = launches[key].get(name, 0) + 1
+        if role is None or not ROLES[role].torch_ok:
+            off_role.append(f"{name} on {thread.name} (role {role})")
+    return {"threads": threads, "pool_work": submitted, "launches": launches,
+            "unregistered": unregistered, "off_role_launches": sorted(set(off_role)),
+            "skipped": skipped}
+
+
+def phase3o_gates(d: SimpleNamespace) -> None:
+    """disco-torch-lint and disco-torch-race on this copy of the tree (two
+    processes started together; each must exit 0 with a clean report),
+    then the runtime twin of DR001/DR002 over phase 3i's record."""
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    gates = {}
+    for name, module in (("disco-torch-lint", "disco_tpu_torch.analysis.cli"),
+                         ("disco-torch-race", "disco_tpu_torch.analysis.race.cli")):
+        gates[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", module, "--format", "json"], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        for name, (t0, proc) in gates.items():
+            out, err = proc.communicate(timeout=600)
+            seconds = time.perf_counter() - t0
+            try:
+                doc = json.loads(out)
+            except ValueError:
+                doc = None
+            require(proc.returncode == 0 and doc is not None and doc["clean"],
+                    (name, proc.returncode, out[-6000:], err[-6000:]))
+            counts = doc["counts"]
+            print(f"phase 3o: {name} exit {proc.returncode}: {counts['findings']} findings, "
+                  f"{counts['suppressed']} suppressions, {counts['files']} files, "
+                  f"{seconds:.1f} s", flush=True)
+    finally:
+        for _, proc in gates.values():
+            if proc.poll() is None:
+                stop_process(proc)
+    twin = runtime_thread_twin(d.threads_3i)
+    print("phase 3o: runtime thread twin over phase 3i " + json.dumps(
+        {k: v for k, v in twin.items() if k != "skipped"}), flush=True)
+    for line in twin["skipped"]:
+        print(f"phase 3o: skipped {line}", flush=True)
+    require(not twin["unregistered"], ("threads with no registered role", twin["unregistered"]))
+    require(not twin["off_role_launches"],
+            ("kernel launches off a torch_ok role", twin["off_role_launches"]))
+    dispatch = twin["launches"].get("dispatch", {})
+    require(all(dispatch.get(k, 0) > 0 for k in ("disco_stft", "disco_eigh_jacobi",
+                                                 "disco_fused_mwf")),
+            ("phase 3i's dispatch thread launched each served kernel", twin["launches"]))
+    require(twin["threads"].get("dispatch", 0) > 0 and twin["threads"].get("tap_writer", 0) > 0,
+            ("phase 3i's registered threads", twin["threads"]))
+    del d.threads_3i
+    print(f"phase 3o took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -3690,6 +3883,18 @@ def window_interior(length: int, hop: int = 256):
     return (pos >= hop) & (pos < LW - hop)
 
 
+def bf16_gemm_operands(frames, dev) -> tuple:
+    """The bf16 STFT's library call's operands: the windowed frames and the
+    [cos | sin] DFT table on ``dev``, each rounded to bf16 once."""
+    import torch
+
+    from disco_tpu_torch.ops import stft_ops
+
+    table = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)], dim=1).to(dev)
+    # disco-torch-lint: disable=DL012 -- library_ms's cuBLAS bf16 GEMM, timed beside the kernel; its operands never reach a path
+    return tuple(x.to(torch.bfloat16) for x in (frames, table))
+
+
 def phase5_times(d: SimpleNamespace) -> list[dict]:
     """CUDA-event times of the paths and of each kernel, its plain version
     and its library call, with the bound of this run's shapes."""
@@ -3753,9 +3958,7 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
     fl, nbytes = kernel_cost(lambda a: stft_ops.stft_bf16_kernel(a, with_mag=True), d.x)
     b_ms, b_by = bound(fl, nbytes, bf16=True)
     frames = torch.nn.functional.pad(rows, (256, 256), mode="reflect").unfold(-1, 512, 256)
-    frames16 = (frames * win).to(torch.bfloat16)
-    table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
-                        dim=1).to(device=d.dev, dtype=torch.bfloat16)
+    frames16, table16 = bf16_gemm_operands(frames * win, d.dev)
     entries.append({
         "name": "stft_bf16", "route": "cuda", "source": "disco_tpu_torch/csrc/stft_bf16.cu",
         "replaces": "disco_tpu/ops/stft_ops.py:183", **_launches(d, "stft_bf16"),
@@ -3796,10 +3999,9 @@ def phase5_times(d: SimpleNamespace) -> list[dict]:
         "bound_ms": bound(fl, nbytes)[0], "flops": fl, "bytes": nbytes})
     del d.scene_stft_x
     fl, nbytes = kernel_cost(lambda a: stft_ops.stft_bf16_kernel(a, with_mag=True), xb)
-    frames16 = (torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256)
-                * win).to(torch.bfloat16)
-    table16 = torch.cat([torch.from_numpy(t) for t in stft_ops.dft_matrices(512)],
-                        dim=1).to(device=d.dev, dtype=torch.bfloat16)
+    frames16, table16 = bf16_gemm_operands(
+        torch.nn.functional.pad(rows_b, (256, 256), mode="reflect").unfold(-1, 512, 256) * win,
+        d.dev)
     entries[1]["batch_launches"] = [{
         "shape": f"batch {tuple(xb.shape)}",
         "ms": time_ms(lambda: stft_ops.stft_bf16_kernel(xb, with_mag=True), reps=10),
@@ -4119,10 +4321,10 @@ def main() -> int:
     for name, phase in (("3", phase3_offline_path), ("3d", phase3d_crnn_masked_clip),
                         ("3e", phase3e_corpus), ("3f", phase3f_training),
                         ("3g", phase3g_simulation), ("3h", phase3h_serving),
-                        ("3i", phase3i_flywheel), ("3j", phase3j_gates),
+                        ("3i", phase3i_recorded), ("3j", phase3j_gates),
                         ("3k", phase3k_command_line), ("3l", phase3l_milestones),
                         ("3m", phase3m_multi_gpu), ("3n", phase3n_programs),
-                        ("4", phase4_streaming_path)):
+                        ("3o", phase3o_gates), ("4", phase4_streaming_path)):
         timed(name, phase, d)
     entries = timed("5", phase5_times, d)
     timed("6", phase6_breakdown, d)

@@ -37,6 +37,8 @@ CROSS_BUDGETS = (
 
 
 def unmodeled_ceiling(program: str) -> float:
+    """The largest unmodeled share of ``program``'s bytes the gate allows
+    (its override, else :data:`UNMODELED_FRACTION_MAX`)."""
     return float(UNMODELED_OVERRIDES.get(program, UNMODELED_FRACTION_MAX))
 
 

@@ -41,10 +41,12 @@ def _finding(program: str, check: str, message: str) -> dict:
 
 
 def golden_path(name: str, golden_dir: Path | None = None) -> Path:
+    """Where program ``name``'s committed golden lives."""
     return (golden_dir or GOLDEN_DIR) / f"{name}.json"
 
 
 def load_golden(name: str, golden_dir: Path | None = None) -> dict | None:
+    """Program ``name``'s committed golden, or None when there is none."""
     path = golden_path(name, golden_dir)
     return json.loads(path.read_text()) if path.is_file() else None
 
@@ -134,6 +136,7 @@ def format_json(result: MeterResult) -> str:
 
 
 def main(argv=None) -> int:
+    """Run every check and print the report; 0 when clean, 1 otherwise."""
     result = run_checks()
     print(format_text(result))
     return 0 if result.clean else 1

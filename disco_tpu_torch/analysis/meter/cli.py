@@ -12,6 +12,7 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The command line's argument parser."""
     p = argparse.ArgumentParser(
         prog="disco-torch-meter",
         description="per-program cost manifests of the port (FLOPs, device-memory traffic, "

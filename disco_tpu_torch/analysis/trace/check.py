@@ -44,10 +44,12 @@ def _finding(program: str, check: str, message: str) -> dict:
 
 
 def golden_path(name: str, golden_dir: Path | None = None) -> Path:
+    """Where program ``name``'s committed golden lives."""
     return (golden_dir or GOLDEN_DIR) / f"{name}.json"
 
 
 def load_golden(name: str, golden_dir: Path | None = None) -> dict | None:
+    """Program ``name``'s committed golden, or None when there is none."""
     path = golden_path(name, golden_dir)
     return json.loads(path.read_text()) if path.is_file() else None
 

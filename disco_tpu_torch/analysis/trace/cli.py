@@ -14,6 +14,7 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The command line's argument parser."""
     p = argparse.ArgumentParser(
         prog="disco-torch-trace",
         description="operator-level program-contract checker of the port: golden "

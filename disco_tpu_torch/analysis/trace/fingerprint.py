@@ -82,6 +82,7 @@ class Struct:
 
 
 def dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``'float32'``."""
     return str(dtype).removeprefix("torch.")
 
 
@@ -92,6 +93,7 @@ def op_name(func) -> str:
 
 
 def is_kernel(name: str) -> bool:
+    """Whether op ``name`` is one of the port's hand-written kernels."""
     return name.startswith(KERNEL_NAMESPACE + "::")
 
 

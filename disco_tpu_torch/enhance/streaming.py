@@ -136,6 +136,7 @@ def state_from_numpy(state, device=None):
 def state_to_numpy(state):
     """The port's continuation state as numpy arrays, in the pytree layout
     of the JAX package."""
+    # disco-torch-lint: disable=DL003 -- a user-called export of a whole state to the JAX layout, never on a serve tick (the scheduler's checkpoints read back through serve.session.fetch_state_host's one to_host); bool leaves cannot ride to_host's float payload
     return _map_state(state, lambda x: x.detach().cpu().numpy())
 
 

@@ -92,7 +92,7 @@ def check_torn_shard(failures: list, tap_dir, *, win_len: int, batch_size: int) 
     # skipped loudly, never trained on
     torn = tap_dir / "tap-900001.shard.msgpack"
     raw = victim.read_bytes()
-    torn.write_bytes(raw[: len(raw) // 2])
+    torn.write_bytes(raw[: len(raw) // 2])  # disco-torch-lint: disable=DL004 -- deliberately planting a torn artifact; the gate asserts the reader rejects it
     if probe_shard(torn):
         failures.append("torn-shard: a truncated shard passes probe_shard")
     ds = ShardDataset(tap_dir, win_len=win_len, seed=0)
@@ -239,6 +239,7 @@ def _dp_rank(rank: int, world: int, arch: dict, batches_path: str, tap_dir: str,
     0 writes what it saw."""
     import torch
 
+    from disco_tpu_torch.io.atomic import savez_atomic
     from disco_tpu_torch.parallel import make_mesh
 
     dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" \
@@ -250,8 +251,8 @@ def _dp_rank(rank: int, world: int, arch: dict, batches_path: str, tap_dir: str,
     restored, tr = _dp_fit(arch, tap_dir, Path(out_dir) / "models", win_len=win_len,
                            batch_size=batch_size, dev=dev, mesh=mesh)
     if rank == 0:
-        np.savez(Path(out_dir) / "dp_ranks.npz", losses=losses, first=first,
-                 restored=restored, fit_losses=tr)
+        savez_atomic(Path(out_dir) / "dp_ranks.npz", losses=losses, first=first,
+                     restored=restored, fit_losses=tr)
 
 
 def check_data_parallel(failures: list, tap_dir, scratch, arch: dict, *, win_len: int,
@@ -264,6 +265,7 @@ def check_data_parallel(failures: list, tap_dir, scratch, arch: dict, *, win_len
     (at the widest world run) restores 1 or 2 epochs."""
     from disco_tpu_torch.device import resolve_device
     from disco_tpu_torch.flywheel import ShardDataset
+    from disco_tpu_torch.io.atomic import savez_atomic
     from disco_tpu_torch.parallel import make_mesh, single_rank_world
     from disco_tpu_torch.parallel.multihost import spawn_world
 
@@ -290,8 +292,8 @@ def check_data_parallel(failures: list, tap_dir, scratch, arch: dict, *, win_len
     sharded = None
     if ranks > 1:
         path = scratch / "dp_batches.npz"
-        np.savez(path, **{f"{k}{i}": b[j] for i, b in enumerate(batches)
-                          for j, k in enumerate("xy")})
+        savez_atomic(path, **{f"{k}{i}": b[j] for i, b in enumerate(batches)
+                              for j, k in enumerate("xy")})
         spawn_world(_dp_rank, ranks, dev.type,
                     (arch, str(path), str(tap_dir), str(scratch), win_len, batch_size,
                      dev.type))

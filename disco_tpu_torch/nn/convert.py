@@ -29,6 +29,7 @@ JAX package (``nn/training.py`` checkpoints, ``promote/store.py``
 generations) decode with :mod:`.serialization`, which needs neither
 ``msgpack`` nor ``flax``.
 """
+# disco-torch-lint: file-disable=DL002 -- the flax-to-torch weight converter reads host numpy params (msgpack-decoded variables); no tensor reaches its np.asarray calls
 from __future__ import annotations
 
 import numpy as np

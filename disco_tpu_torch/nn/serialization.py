@@ -1,5 +1,6 @@
 """The msgpack subset that ``flax.serialization.to_bytes`` writes, encoded
-and decoded in pure Python (the card has neither ``msgpack`` nor ``flax``).
+and decoded in pure Python (the card has neither ``msgpack`` nor ``flax``;
+no counterpart in ``disco_tpu``, which calls flax's own).
 
 A flax checkpoint is one msgpack value: maps with str keys whose leaves
 are str, bin, int, float, bool, nil, and numpy arrays.  An array is the

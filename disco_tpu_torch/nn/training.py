@@ -194,6 +194,7 @@ def replicate_to_mesh(state: TrainState, mesh) -> TrainState:
         state.generator.set_state(torch.frombuffer(bytearray(meta[1]), dtype=torch.uint8))
     digest = hashlib.sha256()
     for t in tensors:
+        # disco-torch-lint: disable=DL002 -- once at mesh setup, not a hot loop: digests every replicated tensor of any dtype (to_host carries float32/complex64 only) to prove the broadcast
         digest.update(t.detach().cpu().contiguous().numpy().tobytes())
     digest.update(repr(meta).encode())
     seen = [None] * dist.get_world_size()

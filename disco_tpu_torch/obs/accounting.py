@@ -114,6 +114,11 @@ def _static_key(v):
     return v
 
 
+#: guards every :func:`counted_jit` wrapper's seen-signature set (one lock
+#: for all wrappers: the critical section is a set lookup and insert)
+_SEEN_LOCK = threading.Lock()
+
+
 def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
     """Count the call signatures of an entry point the JAX package jits.
 
@@ -148,7 +153,6 @@ def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
     statics = frozenset(static_argnames)
     sig = inspect.signature(fun)
     seen: set = set()
-    lock = threading.Lock()
 
     @functools.wraps(fun)
     def wrapper(*args, **kwargs):
@@ -156,7 +160,7 @@ def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
         bound.apply_defaults()
         key = tuple((k, _static_key(v) if k in statics else _signature(v))
                     for k, v in bound.arguments.items() if k != "device")
-        with lock:
+        with _SEEN_LOCK:
             new = key not in seen
             if new:
                 seen.add(key)
@@ -168,7 +172,7 @@ def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
         return fun(*args, **kwargs)
 
     def clear_cache() -> None:
-        with lock:
+        with _SEEN_LOCK:
             seen.clear()
 
     wrapper.clear_cache = clear_cache

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``disco_tpu_torch/csrc``.
+"""Build and load the hand-written CUDA kernels of ``disco_tpu_torch/csrc``
+(no counterpart in ``disco_tpu``, whose Pallas kernels XLA compiles).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, bound with ``ctypes``:
@@ -32,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -63,6 +65,10 @@ SIGNATURES = {
 
 _lib = None
 
+#: the launch-thread recorder (:func:`record_launch_threads`): None, or the
+#: list :func:`check` appends each launch's entry name and thread to
+_launch_threads = None
+
 #: the namespace of the kernels' torch ops (``torch.ops.disco_torch``)
 OP_NAMESPACE = "disco_torch"
 _op_library = None
@@ -79,6 +85,7 @@ def source_digest() -> str:
 
 
 def build_dir() -> Path:
+    """The build directory of the current flags and sources."""
     return BUILD_ROOT / source_digest()
 
 
@@ -162,8 +169,24 @@ def load():
     return _lib
 
 
+def record_launch_threads(recorder) -> None:
+    """Arm (a list) or disarm (None) the launch-thread recorder: while a
+    list is armed, :func:`check` appends ``(entry point name,
+    threading.current_thread())`` after every kernel launch, so a caller
+    can see which threads launched the kernels (``chip_smoke.py`` phase 3o
+    holds them to the thread roles of ``analysis/race/roles.py``).
+    Disarmed, nothing is recorded."""
+    global _launch_threads
+    _launch_threads = recorder
+
+
 def check(rc: int, name: str) -> None:
-    """Raise when a kernel entry point returned a nonzero CUDA error."""
+    """Raise when a kernel entry point returned a nonzero CUDA error.
+    Every wrapper calls it right after its launch, so it is where an armed
+    launch-thread recorder (:func:`record_launch_threads`) notes the
+    launching thread."""
+    if _launch_threads is not None:
+        _launch_threads.append((name, threading.current_thread()))
     if rc != 0:
         msg = load().disco_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc} ({msg})")

@@ -22,6 +22,10 @@ Seams wired through the port (each a named :func:`tick` call):
   (``enhance/pipeline.ChunkPrefetcher``).
 * ``between_blocks`` — on every chunk-continuation call of the streaming
   entry points (``enhance/streaming.py``: a call that carries a state).
+* ``serve_tick``     — at the top of every serve scheduler tick, on the
+  dispatch thread (``serve/scheduler.py``).
+* ``pre_fence``      — before the milestone harness's one-element fence
+  (``milestones.py::_fence_readback``).
 * ``mid_epoch``      — in ``nn/training.py::fit``, after an epoch's
   training pass and before its validation, losses and checkpoint: nothing
   of the epoch is persisted, so a resume redoes the whole epoch.
@@ -56,6 +60,33 @@ from __future__ import annotations
 
 import os
 import threading
+
+#: The closed set of production crash seams (each documented in the module
+#: docstring above; the JAX package's ``disco_tpu/runs/chaos.py:92-110``
+#: declares the same fifteen).  ``disco-torch-lint`` rule DL010 checks every
+#: ``tick("<seam>")`` string literal in the port against this registry — a
+#: typo'd seam name would otherwise arm nothing and a chaos experiment
+#: would silently test nothing.  Runtime stays permissive (tests arm
+#: synthetic seams); registration is a lint-time contract.
+SEAMS = frozenset(
+    {
+        "mid_write",       # io/atomic.py::atomic_write, bytes written, not renamed
+        "between_clips",   # enhance/driver.py, after one RIR persisted
+        "mid_epoch",       # nn/training.py::fit and flywheel/resident.py, post-train pre-checkpoint
+        "between_scenes",  # datagen/disco.py, after one scene saved
+        "pre_fence",       # milestones.py::_fence_readback, before the 1-element readback
+        "pre_dispatch",    # enhance/driver.py, chunk about to dispatch
+        "chunk_load",      # enhance/driver.py, on the prefetch thread
+        "between_blocks",  # enhance/streaming.py, streaming block loop
+        "serve_tick",      # serve/scheduler.py, top of a scheduler tick
+        "pre_swap",        # serve/scheduler.py, swap decided but not yet applied
+        "mid_canary",      # promote/controller.py, canary window open, scores partial
+        "post_gate",       # promote/controller.py, verdict reached, ledger not yet final
+        "pre_publish",     # flywheel/resident.py, checkpoint done, generation not staged
+        "between_generations",  # flywheel/resident.py, one generation fully published
+        "between_scene_batches",  # scenes/stream.py + datagen/disco.py, one scene batch complete
+    }
+)
 
 
 class ChaosCrash(BaseException):

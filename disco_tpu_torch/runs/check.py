@@ -155,7 +155,7 @@ def check_chaos(failures: list, tmp, *, device=None) -> dict:
     # experiment 3: a corrupt done artifact is requeued
     victim = out2 / "OIM" / f"results_mwf_{RIRS[0]}_{NOISE}.p"
     data = victim.read_bytes()
-    victim.write_bytes(data[: len(data) // 2])  # a deliberate torn write
+    victim.write_bytes(data[: len(data) // 2])  # disco-torch-lint: disable=DL004 -- chaos harness corrupting an artifact ON PURPOSE to prove verified-resume requeues it
     ledger2 = RunLedger(led2)
     done_before, _ = ledger2.verified_done(requeue=False)
     if unit_rir(RIRS[0], NOISE) in done_before:

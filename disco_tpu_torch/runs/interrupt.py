@@ -76,8 +76,9 @@ class GracefulInterrupt(contextlib.AbstractContextManager):
     def _trip(self, reason: str) -> None:
         """Programmatic stop (``request_stop``, tests): set the flags and
         record at once."""
+        # disco-torch-race: disable=DR007 -- monotonic one-way flag: _trip (main) and the handler both only ever store True; a racing pair of stores is idempotent
         self.stopped = True
-        self.reason = self.reason or reason
+        self.reason = self.reason or reason  # disco-torch-race: disable=DR007 -- first-writer-wins string; both writers guard with `or`, and a torn outcome only affects the human-readable reason label
         self._flush_telemetry()
 
     def _flush_telemetry(self) -> None:
@@ -128,7 +129,7 @@ class GracefulInterrupt(contextlib.AbstractContextManager):
                 _active.remove(self)
         if self._installed:
             for sig, prev in self._prev.items():
-                signal.signal(sig, prev)
+                signal.signal(sig, prev)  # disco-torch-race: disable=DR001 -- restores the handler SAVED at __enter__ (whatever was installed before this scope); there is no static target to register
             self._installed = False
         self._flush_telemetry()  # a trip no poll observed still records
         return False

@@ -90,12 +90,13 @@ def per_block_stream(Y, m, *, block: int, device=None, update_every: int = U,
     from disco_tpu_torch.enhance.streaming import streaming_tango
 
     K_, T = Y.shape[0], Y.shape[-1]
+    za = None if z_avail is None else np.asarray(z_avail, np.float32)
     state, outs = None, []
     for lo in range(0, T, block):
         hi = min(lo + block, T)
         n_ref = -(-(hi - lo) // update_every)
-        avail = (np.ones((K_, n_ref), np.float32) if z_avail is None
-                 else np.broadcast_to(np.asarray(z_avail, np.float32)[:, None], (K_, n_ref)))
+        avail = (np.ones((K_, n_ref), np.float32) if za is None
+                 else np.broadcast_to(za[:, None], (K_, n_ref)))
         o = streaming_tango(Y[..., lo:hi], m[..., lo:hi], m[..., lo:hi],
                             update_every=update_every, state=state, z_avail=avail.copy(),
                             device=device, **kw)
@@ -121,6 +122,8 @@ def chained_windows(wins, masks, *, device=None, update_every: int = U, **kw) ->
 
 def session_config(n_freq: int, *, n_nodes: int = K, n_mics: int = C,
                    block_frames: int = BLOCK, update_every: int = U, **kw):
+    """A :class:`SessionConfig` at the gate's widths (counterpart of the
+    JAX gate's session configs in ``disco_tpu/serve/check.py``)."""
     from disco_tpu_torch.serve import SessionConfig
 
     return SessionConfig(n_nodes=n_nodes, mics_per_node=n_mics, n_freq=n_freq,

@@ -448,7 +448,7 @@ class Scheduler:
                 )
         else:
             for name, m in (("mask_z", mask_z), ("mask_w", mask_w)):
-                m = np.asarray(m)
+                m = np.asarray(m)  # disco-torch-lint: disable=DL002 -- wire-decoded host arrays on the I/O thread; no device tensor can reach push_block
                 if not np.issubdtype(m.dtype, np.number):
                     raise ValueError(f"{name} dtype {m.dtype} is not numeric")
                 if m.shape != (cfg.n_nodes, cfg.n_freq, t_frames):

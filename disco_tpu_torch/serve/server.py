@@ -486,7 +486,7 @@ class EnhanceServer:
         except BaseException as e:  # ChaosCrash included: simulated death
             # wait() reads the stash only after join() proves this thread
             # dead: the join is the happens-before edge
-            self.crashed = e
+            self.crashed = e  # disco-torch-race: disable=DR007 -- wait() reads the stash only after join() proves this thread dead (and clears it on the caller thread); the join is the happens-before edge a lock would duplicate
             self._shutdown_loop()
 
     def _post_enhanced(self) -> None:

@@ -238,7 +238,7 @@ class DispatchDeadline:
         # timer thread: host-only telemetry, never touches the device; a
         # one-way handoff: the timer only stores True, __enter__ resets it
         # before arming and __exit__ cancels before the next window
-        self.expired = True
+        self.expired = True  # disco-torch-race: disable=DR007 -- one-way bool handoff: the timer only stores True; __enter__ resets to False strictly BEFORE arming the timer, and __exit__ cancels before the next window
         _DEADLINE_HITS.inc()
         _events.record(
             "fault", stage=self.label, fault="dispatch_deadline",

@@ -92,3 +92,26 @@ def test_chip_smoke_needs_a_card_and_the_repo(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_sweep_covers_the_linter_and_the_race_analyzer():
+    """The sweeps above walk every module of the port, the linter's rules
+    and the thread-contract analyzer included."""
+    mods = set(_modules())
+    for name in ("disco_tpu_torch.analysis.cli", "disco_tpu_torch.analysis.rules.fence",
+                 "disco_tpu_torch.analysis.rules.fusedsolver",
+                 "disco_tpu_torch.analysis.race.callgraph", "disco_tpu_torch.analysis.race.cli"):
+        assert name in mods, name
+
+
+def test_serve_client_loads_torch_through_the_package_root():
+    """The serve client's files name no torch (DL005), but importing the
+    client runs ``disco_tpu_torch/__init__.py``, which imports torch to turn
+    TF32 off; ROADMAP records this transitive import, and this test sees a
+    change to it either way."""
+    code = ("import sys\nimport disco_tpu_torch.serve.client\n"
+            "print('torch' in sys.modules, 'jax' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "False"]
