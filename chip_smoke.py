@@ -122,14 +122,20 @@ pass):
    over the 608 windows (10 steps), so that an epoch's fixed costs (a
    pass's first-batch stall, validation, the checkpoint, the loss files)
    are a small part of the timed wall; one train step on the card against
-   the same step on the host (loss within 1e-5 relative, parameters and
-   ``nu`` within 1e-4 absolute, and on each device ``nu`` element by
-   element within 1e-6 of the 0.01 g^2 of the step's own gradient g, so a
-   ``nu`` of 0 or of another decay fails; BatchNorm statistics element by
-   element within 1e-5 of themselves plus 1e-5 of their conditioning: the
-   magnitude of the terms their update sums, 0.9 of the old value and 0.1
-   of the batch's mean |x| for a mean or mean x^2 for a variance, x the
-   conv output of that channel); the bf16 lane's first loss within 2e-2
+   the same step on the host, whose max pools take the card's choices
+   (loss within 1e-5 relative, parameters and ``nu`` within 1e-4
+   absolute, and on each device ``nu`` element by element within 1e-6 of
+   the 0.01 g^2 of the step's own gradient g, so a ``nu`` of 0 or of
+   another decay fails; BatchNorm statistics element by element within
+   1e-5 of themselves plus 1e-5 of their conditioning: the magnitude of
+   the terms their update sums, 0.9 of the old value and 0.1 of the
+   batch's mean |x| for a mean or mean x^2 for a variance, x the conv
+   output of that channel; every window where the host's pool would
+   choose another element a tie, the two elements within 1e-5 of the pool
+   input's largest magnitude: such a window's gradient lands on another
+   conv output, and RMSprop's first step moves a parameter of small
+   gradient by 10 times the difference, ``exp/crnn_step_split.py``); the
+   bf16 lane's first loss within 2e-2
    of the f32 lane's, and one epoch of it leaving masters, statistics and
    ``nu`` float32.
 3g. Simulation, scenes and corpus generation at the corpus's published
@@ -327,23 +333,37 @@ pass):
    executors are listed and skipped), and every kernel launch came from a
    thread whose role is ``torch_ok`` (the launches are noted by
    ``ops/_build.py``'s recorder, armed for that phase only).
+   Phase 3p: corpus acquisition and the kernels' build cache, in child
+   processes started together (none forked from this process, which
+   holds a CUDA context).  ``python -m disco_tpu_torch.cli.download
+   --list-urls`` exits 0 and prints the four corpus URLs; ``--clean`` on
+   a small tree with one stale csv row drops exactly that row; the
+   Freesound download through ``disco-torch-download``'s ``main`` with a
+   fake client (``FreesoundInquirer.from_token`` replaced in the child)
+   at ``-j 2`` writes the expected files and csv.  A child with
+   ``DISCO_TORCH_COMPILE_CACHE=<tmp>`` builds the kernel library under
+   ``<tmp>/<digest>/`` with ``nvcc`` (its seconds printed) and launches
+   the f32 STFT kernel on the north-star clip, bit for bit this process's
+   launch from its own root; a child with ``off`` builds into a
+   per-process temporary directory, launches the same, matches bit for
+   bit and leaves no directory behind in its ``TMPDIR``.
 4. The streaming path, ``solver='jacobi-pallas'``: nine 1.008-s windows
    through ``streaming_clip_fused`` with the state carried (1 STFT and
    2 x 16 eigensolver launches a window), and ``streaming_tango`` on the
    full 626-frame clip (2 eigensolver launches), each with the counters
    set to 0 before and read after; ``streaming_tango_scan`` bit-identical
    to ``per_block_reference``; the eigensolver bit-identical to its
-   plain version on the matrices of one window; windows 2-3 through the
+   plain version on the matrices of one window; window 2 through the
    plain versions from the state after window 1 within 1e-4 rel-l2 and
-   0.1 dB SI-SDR of the kernels' windows (cut from windows 2-9 to make room
-   for phases 3k and 3m; the first window from the warm start through the
+   0.1 dB SI-SDR of the kernels' window (cut from windows 2-9 to make room
+   for phases 3k, 3m and 3p; the first window from the warm start through the
    plain versions printed beside the kernels', cut from 9 to make room for
    phases 3j and 3m); the windows' SI-SDR gain at
    node 0 over the noisy reference mic within 0.2 dB of the JAX package's
    on the same windows (``JAX_WINDOWS_GAIN_DB``) after 1, 2 and 3 s; the
    full-clip stream's more than 3 dB after the recursion's first three
    seconds.  The bf16 lane's nine windows (the bf16 STFT kernel): scan
-   bit-identical to the per-block loop, windows 2-3 within 1e-4 rel-l2
+   bit-identical to the per-block loop, window 2 within 1e-4 rel-l2
    of the plain versions, the windows' SI-SDR gains within 0.1 dB of the
    f32 lane's.
 5. CUDA-event times: the offline path on a 16-clip batch in both lanes, the streaming
@@ -415,7 +435,8 @@ TOL = {"stft": 1e-5, "stft_bf16": 1e-4, "masked_cov": 1e-5, "fused_mwf": 1e-5, "
 #: and one chunk loses only the pipelined engine's overlap of a load with a
 #: dispatch, which the CPU tests hold
 CORPUS_CLIPS, CORPUS_BATCH, CORPUS_WORKERS = 2, 2, 4
-#: the chained lane's clips (cut from 4 to 2 to make room for phase 3i)
+#: the chained lane's clips, one chunk (cut from 4 to 2 to make room for
+#: phase 3i; 2 clips keep the lane batching clips across its launches)
 CORPUS_CHAINED_CLIPS = 2
 #: phase 3e's bounds: each clip's mean sdr_cnv over its mean sdr_in_cnv (dB); one
 #: clip through enhance_rir against its batched run (out_mix, output scale; every
@@ -426,8 +447,9 @@ CRNN_SEEDS = {"step1": 1, "step2": 2}
 LW = 16128               # streaming window: 1 + LW // 256 = 64 frames = 16 refresh blocks
 N_WINDOWS = 9
 #: phase 4 holds windows 2 .. PLAIN_WINDOWS against the plain versions (~9 s a
-#: window there; cut from 4 to 3 for phase 3m); the kernels run all N_WINDOWS
-PLAIN_WINDOWS = 3
+#: window there; cut from 4 to 3 for phase 3m, then to 2 for phase 3p: the
+#: script took 599.8-616.2 s with phase 3p); the kernels run all N_WINDOWS
+PLAIN_WINDOWS = 2
 #: phase 4: the windows run from the warm start through the plain versions,
 #: beside the kernels' (printed, not held to a bound).  Cut from N_WINDOWS to
 #: 2 to make room for phase 3j, and to 1 for phase 3m: a window of plain
@@ -1580,9 +1602,11 @@ TRAIN_RIRS, TRAIN_EPOCHS, TRAIN_BATCH = tuple(range(1, 9)), 3, 500
 #: (loss relative, parameters and nu absolute, BatchNorm statistics element
 #: by element relative to themselves plus their conditioning), and on each
 #: device nu element by element against (1 - decay) g^2 of its own gradient
-#: (relative); the bf16 lane's first loss against the f32 lane's (relative)
+#: (relative); the bf16 lane's first loss against the f32 lane's (relative);
+#: a max-pool window where the host's choice differs from the card's: the
+#: two elements' distance over the pool input's largest magnitude
 TRAIN_TOL = {"stft": 1e-5, "mask": 1e-6, "loss": 1e-5, "params": 1e-4, "nu": 1e-6,
-             "stats": 1e-5, "bf16": 2e-2}
+             "stats": 1e-5, "bf16": 2e-2, "tie": 1e-5}
 #: phase 3f's timed fits: runs, epochs a run, passes over the windows an epoch
 FIT_RUNS, FIT_EPOCHS, FIT_PASSES = 4, 2, 8
 #: the seed of the canonical CRNN's initial weights (phase 3f)
@@ -1657,6 +1681,44 @@ def canonical_train_state(n_ch: int, seed: int = TRAIN_SEED, device="cuda"):
     torch.manual_seed(seed)
     model = build_crnn(n_ch=n_ch).to(device)
     return model, create_train_state(model, build_optimizer(model))
+
+
+@contextmanager
+def pool_choices(model, record=None, replay=None, ties=None):
+    """Forward hooks on the CRNN's max pools.  With ``record`` (a list),
+    append each pool's choices (``max_pool2d``'s argmax indices of its
+    input); the pool's output is untouched.  With ``replay`` (such a list),
+    each pool's output is its input gathered at those indices, so the
+    gradient goes where they say, and ``ties`` gets, per pool, the windows,
+    the windows where the pool's own choice differs (``flips``), the
+    largest distance there between its own maximum and the element it was
+    given (``gap_max``), and the pool input's largest magnitude
+    (``scale``)."""
+    import torch.nn.functional as F
+
+    def hook(mod, inp, out, i):
+        x = inp[0]
+        own, idx = F.max_pool2d(x.detach(), mod.kernel_size, mod.stride, return_indices=True)
+        if record is not None:
+            record.append(idx.cpu())
+        if replay is None:
+            return None
+        want = replay[i].to(x.device)
+        got = x.flatten(2).gather(2, want.flatten(2)).view(out.shape)
+        flips = idx != want
+        gap = (own - got.detach())[flips]
+        ties.append({"pool": i, "windows": int(idx.numel()), "flips": int(flips.sum()),
+                     "gap_max": float(gap.max()) if gap.numel() else 0.0,
+                     "scale": float(x.detach().abs().max())})
+        return got
+
+    handles = [pool.register_forward_hook(lambda m, a, o, i=i: hook(m, a, o, i))
+               for i, pool in enumerate(model.cnn.pools)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def phase3f_training(d: SimpleNamespace) -> None:
@@ -1841,15 +1903,22 @@ def phase3f_training(d: SimpleNamespace) -> None:
               flush=True)
     del state, st, model
 
-    # (6) one train step on the card against the same step on the host
+    # (6) one train step on the card against the same step on the host, the
+    # host's max pools taking the card's choices: a window whose two
+    # largest elements tie to float32 rounding may be chosen apart, its
+    # gradient then lands on another conv output, and RMSprop's first step
+    # moves a parameter of small gradient by 10 times the difference
+    # (exp/crnn_step_split.py); so each window chosen apart must be a tie
     x, y = d.train["batch"]
-    out = {}
+    out, pools, ties = {}, [], []
     for dev in ("cuda", "cpu"):
         model, state = canonical_train_state(4, device=dev)
         before = {k: v.cpu().clone() for k, v in model.state_dict().items()}
         conv_out = bn_inputs(model) if dev == "cpu" else None
         train_step, _ = make_step_fns(model, "all")
-        state, loss = train_step(state, x, y)
+        with pool_choices(model, record=pools if dev == "cuda" else None,
+                          replay=pools if dev == "cpu" else None, ties=ties):
+            state, loss = train_step(state, x, y)
         out[dev] = (float(loss), {k: v.cpu() for k, v in model.state_dict().items()},
                     [state.optimizer.state[p]["nu"].cpu() for p in model.parameters()],
                     [p.grad.cpu() for p in model.parameters()])
@@ -1862,9 +1931,14 @@ def phase3f_training(d: SimpleNamespace) -> None:
           f"gradient {e['nu_self']:.3e} of itself; BatchNorm statistics {e['stats']:.3e} of "
           f"themselves plus their conditioning (worst: {json.dumps(e['stats_worst'])}; against "
           f"the host's value alone the worst: {json.dumps(e['stats_worst_rel'])})", flush=True)
+    tie = max(t["gap_max"] / t["scale"] for t in ties)
+    print(f"phase 3f: the card step's max-pool windows the host would choose apart "
+          f"{json.dumps(ties)}: the two elements within {tie:.3e} of the pool input's largest "
+          f"magnitude", flush=True)
     require(e["loss"] <= TRAIN_TOL["loss"] and e["params"] <= TRAIN_TOL["params"]
             and e["nu"] <= TRAIN_TOL["params"] and e["nu_self"] <= TRAIN_TOL["nu"]
-            and e["stats"] <= TRAIN_TOL["stats"], ("card step vs host", e))
+            and e["stats"] <= TRAIN_TOL["stats"] and len(ties) == len(model.cnn.pools)
+            and tie <= TRAIN_TOL["tie"], ("card step vs host", e, ties))
 
     # (7) the bf16 lane: its first loss against the f32 lane's, one epoch
     losses = {}
@@ -3718,6 +3792,177 @@ def phase3o_gates(d: SimpleNamespace) -> None:
     print(f"phase 3o took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: phase 3p's fake Freesound client, run by ``disco-torch-download``'s main in
+#: a child process (the pool's workers fork the child and unpickle the sounds)
+DOWNLOAD_CHILD = """
+import os, sys
+from disco_tpu_torch.cli import download as cli
+from disco_tpu_torch.datagen.download import FreesoundInquirer
+
+class FakeSound:
+    def __init__(self, sid):
+        self.id, self.name = sid, "n" + sid
+    def retrieve(self, output_dir, name=None):
+        with open(os.path.join(output_dir, name), "wb") as fh:
+            fh.write(b"RIFFfake" + name.encode())
+
+class FakePage:
+    def __init__(self, sounds, has_next):
+        self.sounds, self.next = sounds, ("url" if has_next else None)
+    def as_dict(self):
+        return {"next": self.next}
+    def __iter__(self):
+        return iter(self.sounds)
+
+class FakeClient:
+    def text_search(self, page=1, **kwargs):
+        return FakePage([FakeSound(str(100 * page + i)) for i in range(3)], page < 2)
+
+FreesoundInquirer.from_token = classmethod(lambda cls, token, authentication_method="oauth":
+                                           cls(FakeClient()))
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+#: phase 3p's build-cache child: build and load the kernel library under the
+#: root DISCO_TORCH_COMPILE_CACHE names, launch the f32 STFT kernel once
+CACHE_CHILD = """
+import json, os, re, sys, tempfile, time
+from pathlib import Path
+import numpy as np, torch
+from disco_tpu_torch.ops import _build, stft_ops
+from disco_tpu_torch.utils import compile_cache
+
+clip, out = sys.argv[1], sys.argv[2]
+t0 = time.perf_counter()
+_build.load()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(clip)).cuda()
+stft_ops.stft_kernel.launches = 0
+spec = stft_ops.stft_kernel(x)
+torch.cuda.synchronize()
+np.save(out, spec.cpu().numpy())
+print(json.dumps({"env": os.environ.get(compile_cache.ENV_VAR),
+                  "cache": compile_cache.ensure_enabled(), "root": str(_build.build_dir().parent),
+                  "build_dir": str(_build.build_dir()), "digest": _build.source_digest(),
+                  "tmpdir": tempfile.gettempdir(), "load_s": load_s,
+                  "launches": stft_ops.stft_kernel.launches,
+                  "nvcc_s": {m.group(1): float(m.group(2)) for m in re.finditer(
+                      r"== (\\S+) \\(finished within ([0-9.]+) s of the start\\)",
+                      _build.ptxas_log())}}))
+"""
+
+
+def phase3p_download_and_cache(d: SimpleNamespace) -> None:
+    """``disco-torch-download`` (URL list, csv cleaning, a fake-client
+    Freesound download at ``-j 2``) and the kernels' build cache (a named
+    root and ``off``), each in a child process, all started together."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from disco_tpu_torch.datagen.download import LIBRISPEECH_URLS, ZENODO_DISCO_NOISE_URL
+    from disco_tpu_torch.ops import _build, stft_ops
+    from disco_tpu_torch.utils import compile_cache
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="phase3p_") as tmp:
+        tmp = Path(tmp)
+        clean = tmp / "clean" / "fan"
+        clean.mkdir(parents=True)
+        (clean / "11.wav").write_bytes(b"x")
+        (clean / "12.wav").write_bytes(b"x")
+        (clean / "fan.csv").write_text("id\tname\n11\ta\n12\tb\n13\tc\n")
+        (tmp / "fs.yaml").write_text("queries:\n  fan: fan vent\n  rain: [rain, drizzle]\n"
+                                     "fields_to_save: [id, name]\n")
+        np.save(tmp / "clip.npy", d.y_np)
+        (tmp / "off_tmp").mkdir()
+        env = {k: v for k, v in os.environ.items() if k != compile_cache.ENV_VAR}
+        dl = [sys.executable, "-m", "disco_tpu_torch.cli.download"]
+        cache_child = [sys.executable, "-c", CACHE_CHILD, str(tmp / "clip.npy")]
+        children = {
+            "list-urls": (dl + ["--list-urls"], env),
+            "clean": (dl + ["--clean", str(tmp / "clean")], env),
+            "freesound -j 2": ([sys.executable, "-c", DOWNLOAD_CHILD, "-t", "token", "-c",
+                                str(tmp / "fs.yaml"), "-o", str(tmp / "fs"), "-j", "2"], env),
+            "cache dir": (cache_child + [str(tmp / "spec_dir.npy")],
+                          {**env, compile_cache.ENV_VAR: str(tmp / "cache")}),
+            "cache off": (cache_child + [str(tmp / "spec_off.npy")],
+                          {**env, compile_cache.ENV_VAR: "off", "TMPDIR": str(tmp / "off_tmp")}),
+        }
+        procs = {name: (time.perf_counter(), subprocess.Popen(
+            argv, cwd=root, env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)) for name, (argv, child_env) in children.items()}
+        # this process's launch from its own root (phase 1's build) meanwhile
+        x = torch.from_numpy(d.y_np).to(d.dev)
+        spec = stft_ops.stft_kernel(x).cpu().numpy()
+        out = {}
+        try:
+            for name, (t0, proc) in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                out[name] = (proc.returncode, stdout, stderr)
+                print(f"phase 3p: {name} exit {proc.returncode} in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                require(proc.returncode == 0, (name, proc.returncode, stdout[-4000:],
+                                               stderr[-4000:]))
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    stop_process(proc)
+
+        urls = out["list-urls"][1].splitlines()
+        require(urls == LIBRISPEECH_URLS + [ZENODO_DISCO_NOISE_URL], ("--list-urls", urls))
+        require(out["clean"][1] == "dropped 1 stale csv rows\n", ("--clean", out["clean"][1]))
+        kept = (clean / "fan.csv").read_bytes()
+        require(kept == b"id\tname\r\n11\ta\r\n12\tb\r\n", ("--clean csv", kept))
+        require(out["freesound -j 2"][1] == "downloaded 18 files\n",
+                ("freesound download", out["freesound -j 2"][1]))
+        fs = tmp / "fs"
+        wavs = sorted(str(p.relative_to(fs)) for p in fs.rglob("*.wav"))
+        want = sorted(f"{c}/{p * 100 + i}.wav" for c in ("fan", "rain") for p in (1, 2)
+                      for i in range(3))
+        require(wavs == want, ("downloaded files", wavs))
+        for c in ("fan", "rain"):
+            rows = (fs / c / f"{c}.csv").read_text().splitlines()
+            want_rows = ["id\tname"] + [f"{p * 100 + i}\tn{p * 100 + i}" for p in (1, 2)
+                                        for i in range(3)]
+            require(rows == want_rows, ("downloaded csv", c, rows))
+            require((fs / c / "100.wav").read_bytes() == b"RIFFfake100.wav", ("wav bytes", c))
+        print(f"phase 3p: disco-torch-download: --list-urls {len(urls)} URLs, --clean dropped "
+              f"1 row, -j 2 wrote {len(wavs)} files and 2 csv", flush=True)
+
+        digest = _build.source_digest()
+        for name, spec_file in (("cache dir", "spec_dir.npy"), ("cache off", "spec_off.npy")):
+            rep = json.loads(out[name][1].strip().splitlines()[-1])
+            print(f"phase 3p: {name}: " + json.dumps(rep), flush=True)
+            require(rep["digest"] == digest and rep["launches"] == 1, (name, rep))
+            if name == "cache dir":
+                require(rep["cache"] == rep["root"] == str(tmp / "cache")
+                        and rep["build_dir"] == str(tmp / "cache" / digest)
+                        and (tmp / "cache" / digest / _build.LIB_NAME).exists(),
+                        ("the named build cache", rep))
+            else:
+                require(rep["cache"] is None and rep["tmpdir"] == str(tmp / "off_tmp")
+                        and Path(rep["root"]).parent == tmp / "off_tmp"
+                        and rep["build_dir"] == str(Path(rep["root"]) / digest),
+                        ("the off build root", rep))
+            require(len(rep["nvcc_s"]) == len(_build.SOURCES), (name, "nvcc", rep["nvcc_s"]))
+            theirs = np.load(tmp / spec_file)
+            require(theirs.dtype == spec.dtype and theirs.shape == spec.shape
+                    and np.array_equal(np.ascontiguousarray(theirs).view(np.uint32),
+                                       np.ascontiguousarray(spec).view(np.uint32)),
+                    (name, "the STFT is not bit for bit the parent's"))
+        left = sorted(os.listdir(tmp / "off_tmp"))
+        print(f"phase 3p: the off child's TMPDIR after exit: {left}", flush=True)
+        require(not [e for e in left if (tmp / "off_tmp" / e).is_dir()],
+                ("the off build left a directory", left))
+        print(f"phase 3p: parent root {_build.build_dir().parent}; both children's STFT of "
+              f"the clip {tuple(spec.shape)} bit for bit the parent's", flush=True)
+    print(f"phase 3p took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase4_streaming_path(d: SimpleNamespace) -> None:
     """The streaming path with the eigensolver kernel: the windows through
     ``streaming_clip_fused`` and the full clip through ``streaming_tango``,
@@ -3760,7 +4005,7 @@ def phase4_streaming_path(d: SimpleNamespace) -> None:
     check_scan_vs_per_block(d, "f32")
 
     # the plain versions from the state after the first window, on windows
-    # 2 to PLAIN_WINDOWS (cut from 9 to make room for phase 3k)
+    # 2 to PLAIN_WINDOWS (cut from 9 to make room for phases 3k, 3m and 3p)
     with plain_kernels():
         yp, _ = stream_windows(d, 1, PLAIN_WINDOWS, states[0])
         yc, _ = stream_windows(d, 0, COLD_WINDOWS, None)
@@ -3830,7 +4075,7 @@ def check_scan_vs_per_block(d: SimpleNamespace, precision: str) -> None:
 def phase4_bf16_windows(d: SimpleNamespace, f32_gains: dict) -> None:
     """The streaming windows in the bf16 lane (the bf16 STFT kernel, the
     bf16 tail accumulation, the eigensolver): scan against the per-block
-    loop bit for bit, windows 2-3 against the plain versions from the state
+    loop bit for bit, window 2 against the plain versions from the state
     after window 1 (within 1e-4 fed the STFT kernel's spectra, within the
     lane's 1e-2 from the signal: see :func:`phase3_bf16_clip`), and the
     windows' SI-SDR gains within 0.1 dB of the f32 lane's."""
@@ -4324,7 +4569,8 @@ def main() -> int:
                         ("3i", phase3i_recorded), ("3j", phase3j_gates),
                         ("3k", phase3k_command_line), ("3l", phase3l_milestones),
                         ("3m", phase3m_multi_gpu), ("3n", phase3n_programs),
-                        ("3o", phase3o_gates), ("4", phase4_streaming_path)):
+                        ("3o", phase3o_gates), ("3p", phase3p_download_and_cache),
+                        ("4", phase4_streaming_path)):
         timed(name, phase, d)
     entries = timed("5", phase5_times, d)
     timed("6", phase6_breakdown, d)

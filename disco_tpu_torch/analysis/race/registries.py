@@ -33,6 +33,9 @@ from __future__ import annotations
 
 #: lock id -> what it guards (the reviewed contract line)
 LOCKS = {
+    "disco_tpu_torch.utils.compile_cache::_lock":
+        "the kernel build cache's process-wide resolution (root, scratch "
+        "root, note flag); no event is recorded under it",
     "disco_tpu_torch.enhance.driver::_FIG_LOCK":
         "matplotlib's non-thread-safe figure state across scoring workers",
     "disco_tpu_torch.runs.interrupt::_lock":

@@ -3,8 +3,8 @@
 The JAX rule (``disco_tpu/analysis/rules/tracedfloat.py``) catches the
 ``mu=1`` retrace trap: ``lambda_cor`` and ``mu`` are traced floats through
 every jitted streaming/serve entry point, and a passed int traces a third,
-int-typed program per shape bucket.  The port compiles nothing at run
-time, but it keeps the contract and its counter: ``obs.accounting.
+int-typed program per shape bucket.  The port compiles no program per
+call signature, but it keeps the contract and its counter: ``obs.accounting.
 counted_jit`` counts a call signature the JAX package would trace anew,
 and it counts a Python ``int`` and a ``float`` as distinct signatures
 (``_signature``: the type of a scalar, whatever its value), so an int

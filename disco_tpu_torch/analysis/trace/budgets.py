@@ -2,9 +2,9 @@
 miniature workload makes (counterpart of
 ``disco_tpu/analysis/trace/budgets.py``).
 
-The port compiles nothing at run time, so there is no retrace to pay for;
-what ``counted_jit`` (``obs/accounting.py``) counts is what would make
-the JAX package trace a new program — a new shape, dtype, scalar type or
+The port compiles no program per call signature, so there is no retrace
+to pay for; what ``counted_jit`` (``obs/accounting.py``) counts is what
+would make the JAX package trace a new program — a new shape, dtype, scalar type or
 static value at an entry point.  The gate runs the JAX workload through
 the port's entry points on the CPU with cleared signature sets and holds
 every label to an exact count: one more means a new signature seam (the

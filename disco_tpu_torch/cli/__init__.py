@@ -16,15 +16,17 @@ falls back to the CPU):
 ``disco-torch-scenes``      scenes (the batched scenario factory)
 ``disco-torch-serve``       serve (the online enhancement service)
 ``disco-torch-obs``         obs (report, trace, top, slo)
+``disco-torch-milestones``  bench_milestones (the milestone harnesses)
+``disco-torch-download``    download (Freesound fetch, csv cleaning, the
+                            LibriSpeech/Zenodo URLs; host only, no
+                            ``--device``)
 ==========================  =============================================
 
 Each module also runs as ``python -m disco_tpu_torch.cli.<module>``.  Every
 corpus-scale CLI takes ``--rirs start count`` and is idempotent, so job
-arrays shard a corpus as the reference's do.  Not ported: ``download``
-(it fetches corpora) and ``bench_milestones`` (the benchmark harnesses,
-ROADMAP Queue 1).
+arrays shard a corpus as the reference's do.
 """
 # the modules are not imported here: ``python -m disco_tpu_torch.cli.<module>``
 # would otherwise find its module loaded before it runs
-__all__ = ["aggregate", "gen_disco", "gen_meetit", "get_z", "lists", "mix", "obs", "scenes",
-           "serve", "tango", "train"]
+__all__ = ["aggregate", "bench_milestones", "download", "gen_disco", "gen_meetit", "get_z",
+           "lists", "mix", "obs", "scenes", "serve", "tango", "train"]

@@ -12,11 +12,12 @@ engine on a ``(batch, node)`` mesh of ``torch.distributed`` ranks
 (``disco_tpu_torch.parallel``): one rank in this process (``--mesh 1 1``),
 or several launched by ``torchrun --nproc_per_node N``, which
 ``distributed_init`` picks up; it refuses what the JAX CLI refuses, with
-its messages.  ``--compile-cache`` is accepted and does nothing (the port
-compiles nothing at run time; its one build cache is ``nvcc``'s, under
-``build/kernels/``).  ``--cov_impl xla`` and ``--stft_impl xla`` name the
-plain versions, which never run on a CUDA tensor (``ops.resolve``): on the
-card they exit naming the flag.
+its messages.  ``--compile-cache DIR|off`` chooses the kernel build cache
+in both modes (``disco_tpu_torch.utils.compile_cache``): the root the
+kernel library is built under by ``nvcc`` and loaded from by later runs;
+``off`` builds it into a per-process temporary directory.  ``--cov_impl
+xla`` and ``--stft_impl xla`` name the plain versions, which never run on
+a CUDA tensor (``ops.resolve``): on the card they exit naming the flag.
 """
 from __future__ import annotations
 
@@ -119,9 +120,13 @@ def build_parser():
                         "back to the strictly sequential load→dispatch→score "
                         "loop; outputs are byte-identical either way")
     p.add_argument("--compile-cache", default=None, metavar="DIR|off",
-                   help="accepted for the JAX package's command lines and "
-                        "ignored: the port compiles nothing at run time (its "
-                        "kernels build once with nvcc into build/kernels/)")
+                   help="kernel build cache directory "
+                        "(disco_tpu_torch.utils.compile_cache): the kernel "
+                        "library is built there by nvcc once and loaded by "
+                        "later runs/resumes; 'off' builds it into a "
+                        "per-process temporary directory.  Default: "
+                        "$DISCO_TORCH_COMPILE_CACHE, else build/kernels/ at "
+                        "the root of the checkout")
     add_preflight_arg(p, what="the run")
     add_obs_log_arg(p)
     add_trace_dir_arg(p)
@@ -302,6 +307,8 @@ def _run(args, policy, device):
     from disco_tpu_torch.obs.metrics import trace_to
 
     trace_cm = trace_to(args.trace_dir) if args.trace_dir else contextlib.nullcontext()
+    compile_cache = (False if args.compile_cache in ("off", "0")
+                     else args.compile_cache)
     # step-2 model consumes [y_ref ‖ z exchanges]: 1 + (K-1)*len(zsigs)
     # channels (reference nodes_nbs, tango.py:492-494)
     n_ch2 = 1 + 3 * len(args.zsigs)
@@ -334,11 +341,16 @@ def _run(args, policy, device):
                 fault_spec=args.fault_spec,
                 ledger=args.ledger, resume=args.resume,
                 pipeline=not args.no_pipeline, device=device, mesh=mesh,
+                compile_cache=compile_cache,
             )
         print(f"{len(results)} RIRs enhanced (batched)")
         return results
+    # --compile-cache applies to BOTH modes: the per-RIR path launches the
+    # same kernels (disco_tpu/cli/tango.py:327-331)
     from disco_tpu_torch.enhance.driver import enhance_rir
+    from disco_tpu_torch.utils import compile_cache as _compile_cache
 
+    _compile_cache.ensure_enabled(compile_cache)
     with trace_cm:
         results = enhance_rir(
             args.dataset, args.scenario, args.rir, args.noise,

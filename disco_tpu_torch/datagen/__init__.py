@@ -1,7 +1,9 @@
-"""Training-data generation (counterpart of ``disco_tpu/datagen``, less its
-corpus downloads): the DISCO generator (rooms, RIRs, convolved images, SNR
-gating, ledger resume), the MEETIT generator, and the mixing pass
-:class:`~disco_tpu_torch.datagen.postgen.PostGenerator`."""
+"""Training-data generation (counterpart of ``disco_tpu/datagen``): the
+DISCO generator (rooms, RIRs, convolved images, SNR gating, ledger
+resume), the MEETIT generator, the mixing pass
+:class:`~disco_tpu_torch.datagen.postgen.PostGenerator`, and the corpus
+acquisition of :mod:`~disco_tpu_torch.datagen.download` (host code, not
+imported here, as the JAX package's ``__init__`` leaves it out)."""
 from disco_tpu_torch.datagen.disco import (
     generate_disco_rirs,
     generate_disco_rirs_batched,

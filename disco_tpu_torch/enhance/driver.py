@@ -46,9 +46,9 @@ through ``parallel.tango_batch_sharded`` (the oracle masks by the
 its own nodes), and the chunk's result is gathered to rank 0, which alone
 scores, writes the artifacts and the run ledger and returns the results
 (the other ranks return ``{}``).  The metrics are
-the meshless run's.  ``compile_cache`` is not carried over: the port
-compiles nothing at run time; its kernels build once into
-``build/kernels/<sha256>/``.
+the meshless run's.  ``compile_cache`` chooses the kernel build cache
+(``disco_tpu_torch.utils.compile_cache``), where the kernel library is
+built by ``nvcc`` and later runs load it from.
 """
 from __future__ import annotations
 
@@ -828,6 +828,7 @@ def enhance_rirs_batched(
     pipeline: bool = True,
     device=None,
     mesh=None,
+    compile_cache=None,
 ):
     """Corpus-scale enhancement: many RIRs per launch.
 
@@ -881,6 +882,13 @@ def enhance_rirs_batched(
     other ranks ``{}``.  ``chained`` and ``precision='bf16'`` are refused.
     The metrics are the meshless run's (module docstring).
 
+    ``compile_cache``: the kernel build cache
+    (``disco_tpu_torch.utils.compile_cache``), resolved before the first
+    launch so that the kernel library is built once across runs and
+    resumes.  ``None`` resolves the ``DISCO_TORCH_COMPILE_CACHE`` env var,
+    then ``build/kernels/``; ``False`` or an off-string builds it into a
+    per-process temporary directory (disco_tpu/enhance/driver.py:991-992).
+
     Returns {rir: results dict} for the RIRs actually processed.
     """
     if chained:
@@ -892,6 +900,9 @@ def enhance_rirs_batched(
         _check_chained(False, models, fault_spec)
     if solver is None:
         solver = "fused" if chained else "power"
+    from disco_tpu_torch.utils import compile_cache as _compile_cache
+
+    _compile_cache.ensure_enabled(compile_cache)
     writer, lanes = True, None
     if mesh is None:
         dev = resolve_device(device)

@@ -12,6 +12,15 @@ The same three building blocks with the same knobs, as ``nn.Module``s:
   (batch, channels, time, freq), plus the analytic output shape
   :func:`cnn_output_dim`.
 
+Initial weights: the bricks draw them from torch's generator in flax's
+default scheme, the JAX package's, not torch's: Dense and Conv kernels
+lecun-normal (a normal of variance 1 / fan-in truncated at two standard
+deviations), a recurrent cell's input kernels lecun-normal and its
+recurrent kernels orthogonal, gate by gate, every bias 0.  torch's default
+(uniform kernels of a third of that variance, uniform biases) trains the
+canonical CRNNs to ~1 dB less SI-SDR gain than the JAX package
+(ROADMAP Queue 3, fault 7; ``exp/crnn_milestone_parity.py``).
+
 Layout: the JAX package runs its convs in NHWC (time as H, frequency as W);
 these bricks run torch's NCHW with the same H and W, so a flax kernel
 ``(kh, kw, in, out)`` is a torch weight ``(out, in, kh, kw)``
@@ -90,6 +99,35 @@ def _pair(v) -> tuple:
     return (v, v)
 
 
+#: the standard deviation of a standard normal truncated at +-2, which
+#: flax's ``variance_scaling(..., "truncated_normal")`` divides by
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
+    """flax's default kernel initializer (``lecun_normal``) in place:
+    variance ``1 / fan_in``, truncated at two standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+def _flax_cell_init_(layer: nn.RNNBase, n_gates: int) -> None:
+    """A torch recurrent layer's weights as flax's cells draw them: each
+    gate's input kernel lecun-normal, its recurrent kernel orthogonal,
+    every bias 0 (flax's ``GRUCell``/``OptimizedLSTMCell``/``SimpleCell``
+    defaults)."""
+    h = layer.hidden_size
+    for name, w in layer.named_parameters():
+        if name.startswith("bias"):
+            w.zero_()
+            continue
+        for g in range(n_gates):
+            if name.startswith("weight_ih"):
+                _lecun_normal_(w[g * h:(g + 1) * h], w.shape[1])
+            else:
+                nn.init.orthogonal_(w[g * h:(g + 1) * h])
+
+
 def _freeze(v):
     """A list argument as the flax module holds it: the JAX bricks freeze
     list fields to tuples (to hash them), and :func:`broadcast_arg` reads a
@@ -112,6 +150,10 @@ class FF(nn.Module):
                              else activations, len(feats))
         widths = (in_features,) + feats
         self.layers = nn.ModuleList(nn.Linear(widths[i], widths[i + 1]) for i in range(len(feats)))
+        with torch.no_grad():
+            for layer in self.layers:
+                _lecun_normal_(layer.weight, layer.in_features)
+                layer.bias.zero_()
         self.activations = [activation_by_name(a) for a in acts]
         self.out_features = feats[-1]
 
@@ -129,10 +171,11 @@ class RNN(nn.Module):
     ``nn.RNN``/``nn.LSTM``/``nn.GRU`` (bidirectional outputs concatenated
     [forward, backward]), with per-layer dropout forced to 0 on the last
     layer (nn_structures.py:122-126).  Every layer starts from a zero
-    state, as flax's ``nn.RNN`` does.  The biases that flax's cells do not
+    state, as flax's ``nn.RNN`` does.  Every bias is 0 from construction,
+    as flax's cells draw theirs, so the biases that flax's cells do not
     have (a GRU's hidden-side r and z rows, an LSTM's input-side biases, a
-    simple cell's hidden-side bias) are 0 from construction, so every
-    port module is a flax module's weights; training keeps them at 0
+    simple cell's hidden-side bias) are 0 and every port module is a flax
+    module's weights; training keeps them at 0
     (``nn.convert.flax_absent``)."""
 
     def __init__(self, in_features: int, features, cell_type: str = "gru", dropouts=0.0,
@@ -152,13 +195,7 @@ class RNN(nn.Module):
         for units, drop, bidi in zip(features, drops, self.bidirectional):
             layer = cell_cls(width, units, batch_first=True, bidirectional=bidi)
             with torch.no_grad():
-                for suffix in ("", "_reverse") if bidi else ("",):
-                    if self.cell_type == "gru":
-                        getattr(layer, f"bias_hh_l0{suffix}")[:2 * units] = 0.0
-                    elif self.cell_type == "lstm":
-                        getattr(layer, f"bias_ih_l0{suffix}").zero_()
-                    else:
-                        getattr(layer, f"bias_hh_l0{suffix}").zero_()
+                _flax_cell_init_(layer, {"gru": 3, "lstm": 4}.get(self.cell_type, 1))
             self.layers.append(layer)
             self.dropouts.append(nn.Dropout(float(drop)) if drop else nn.Identity())
             width = units * (2 if bidi else 1)
@@ -285,6 +322,11 @@ class CNN2d(nn.Module):
             nn.Conv2d(chans[i], chans[i + 1], kernels[i], stride=strides[i] or 1,
                       padding=pads[i], bias=bool(biases[i]))
             for i in range(n))
+        with torch.no_grad():
+            for conv in self.convs:
+                _lecun_normal_(conv.weight, conv.weight[0].numel())
+                if conv.bias is not None:
+                    conv.bias.zero_()
         self.bns = nn.ModuleList(nn.BatchNorm2d(c, eps=1e-5, momentum=0.1) for c in features)
         self.pools = nn.ModuleList()
         for i in range(n):

@@ -122,7 +122,9 @@ _SEEN_LOCK = threading.Lock()
 def counted_jit(fun=None, *, label: str | None = None, static_argnames=()):
     """Count the call signatures of an entry point the JAX package jits.
 
-    The port compiles nothing at run time, so there is no compile to count.
+    The port compiles no program per call signature (its one build, the
+    kernel library, happens once a cache root), so there is no compile to
+    count.
     What this wrapper counts is what makes the JAX package trace a new
     program: a call whose signature the wrapper has not seen before.  The
     signature is the shape, dtype and device of each tensor or array

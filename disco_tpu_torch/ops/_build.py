@@ -6,9 +6,15 @@ library with a plain C interface, bound with ``ctypes``:
 
 * one ``nvcc -c`` per ``.cu`` source, all started together, then one
   ``nvcc -shared`` link;
-* the library lives in ``build/kernels/<sha256 of flags and sources>/`` at the
-  root of the checkout, built at first use, so a fresh checkout builds it
-  on its first kernel launch and a changed source gets a new directory;
+* the library lives in ``<root>/<sha256 of flags and sources>/``, built at
+  first use, so a fresh root builds it on its first kernel launch and a
+  changed source gets a new directory; ``<root>`` is the kernel build cache
+  that :mod:`disco_tpu_torch.utils.compile_cache` hands to :func:`build`
+  at the first :func:`load` (resolved then, unless a caller resolved the
+  cache earlier through ``ensure_enabled``): an argument to
+  ``ensure_enabled``, ``DISCO_TORCH_COMPILE_CACHE``, or
+  ``build/kernels/`` at the root of the checkout; with the cache off, a
+  per-process temporary directory removed at exit;
 * ``-Xptxas -v`` output (registers, spills) is kept beside the library in
   ``ptxas.log``;
 * ``eigh.cu`` and ``mwf.cu`` are compiled with ``-fmad=false``, so that
@@ -38,7 +44,6 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("stft.cu", "stft_bf16.cu", "cov.cu", "mwf.cu", "eigh.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libdisco_kernels.so"
@@ -64,6 +69,8 @@ SIGNATURES = {
 }
 
 _lib = None
+#: the loaded library's build directory (:func:`build_dir`)
+_lib_dir = None
 
 #: the launch-thread recorder (:func:`record_launch_threads`): None, or the
 #: list :func:`check` appends each launch's entry name and thread to
@@ -84,9 +91,11 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
-def build_dir() -> Path:
-    """The build directory of the current flags and sources."""
-    return BUILD_ROOT / source_digest()
+def build_dir() -> Path | None:
+    """The build directory of the loaded library, ``<root>/<source
+    digest>`` under the kernel build cache's root; None before
+    :func:`load`."""
+    return None if _lib_dir is None else _lib_dir
 
 
 def _nvcc() -> str:
@@ -101,13 +110,17 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Build the kernel library unless this source digest is built; return
+    """Build the kernel library under the kernel build cache's root
+    (``compile_cache.kernel_root``, resolved here when no caller resolved
+    the cache before) unless this source digest is built there; return
     its path."""
-    out = build_dir()
+    from disco_tpu_torch.utils import compile_cache
+
+    out = compile_cache.kernel_root() / source_digest()
     lib = out / LIB_NAME
     if lib.exists():
         return lib
-    tmp = BUILD_ROOT / f"{out.name}.tmp{os.getpid()}"
+    tmp = out.parent / f"{out.name}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     nvcc = _nvcc()
@@ -147,7 +160,7 @@ def load():
     """The loaded kernel library (built at first use).  Raises when the
     current CUDA device is not a Hopper card: the library holds ``sm_90a``
     code only."""
-    global _lib
+    global _lib, _lib_dir
     if _lib is None:
         import torch
 
@@ -158,14 +171,15 @@ def load():
                 "disco_tpu_torch kernels are built for sm_90a (Hopper); the current "
                 f"CUDA device has compute capability {torch.cuda.get_device_capability()}"
             )
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.disco_error_string.argtypes = [ctypes.c_int]
         lib.disco_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib, _lib_dir = lib, path.parent
     return _lib
 
 
@@ -193,8 +207,11 @@ def check(rc: int, name: str) -> None:
 
 
 def ptxas_log() -> str:
-    """The ``-Xptxas -v`` report of the current build ('' before a build)."""
-    path = build_dir() / "ptxas.log"
+    """The ``-Xptxas -v`` report of the loaded library's build ('' before
+    :func:`load`)."""
+    if _lib_dir is None:
+        return ""
+    path = _lib_dir / "ptxas.log"
     return path.read_text() if path.exists() else ""
 
 

@@ -16,7 +16,7 @@ per-channel ``np.convolve`` loops (``gen_disco/convolve_signals.py:84-99,
   in one copy (``device.to_host``).
 
 The JAX package compiles the factory as one ``counted_jit`` program and
-counts its retraces; the port compiles nothing, and counts the call
+counts its retraces; the port compiles no such program, and counts the call
 signatures that would make JAX trace, under the same ``scene_batch`` label
 (``obs.accounting.counted_jit``).
 """

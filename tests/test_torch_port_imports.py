@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "disco_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "disco_tpu")
@@ -115,3 +117,25 @@ def test_serve_client_loads_torch_through_the_package_root():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["True", "False"]
+
+
+#: the corpus acquisition and the kernels' build cache seam
+HOST_MODULES = ("datagen/download.py", "cli/download.py", "utils/compile_cache.py")
+
+
+@pytest.mark.parametrize("rel", HOST_MODULES)
+def test_host_modules_import_nothing_of_the_jax_package(rel):
+    path = PORT / rel
+    tops = {top for top, _ in _imports(ast.parse(path.read_text(), str(path)))}
+    assert not tops & set(FORBIDDEN), (rel, tops & set(FORBIDDEN))
+    assert f"disco_tpu_torch.{rel[:-3].replace('/', '.')}" in _modules()
+
+
+@pytest.mark.parametrize("rel", HOST_MODULES)
+def test_host_modules_name_no_torch(rel):
+    """The downloader, its CLI and the cache seam are host code: they import
+    torch nowhere, not even inside a function."""
+    path = PORT / rel
+    tops = {top for top, _ in _imports(ast.parse(path.read_text(), str(path)))}
+    assert "torch" not in tops and "triton" not in tops, rel
+    assert "import torch" not in path.read_text()
